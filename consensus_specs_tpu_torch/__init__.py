@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of consensus_specs_tpu's device core.
+
+The JAX package `consensus_specs_tpu` stays the reference; this package
+mirrors its module paths (ops/sha256.py, utils/ssz/incremental.py,
+models/phase0/epoch_soa.py, ...) so each function has a counterpart under
+the same name. It imports torch and numpy, never JAX and nothing of the
+reference package.
+
+Conventions:
+  * Entry points take `device=` and default to "cuda"; without CUDA they
+    raise (device.resolve) instead of running on the CPU. Tests pass
+    device="cpu".
+  * SHA-256 words are int32 tensors holding uint32 bit patterns, in the
+    reference's public layout ([N, 16] message words in, [N, 8] out).
+  * uint64 columns are int64 tensors holding the uint64 bit patterns;
+    ops/intmath.py has the unsigned compare, sort key and logical shift.
+  * The one hand-written kernel, csrc/sha256_pairs.cu, is the pair hash
+    behind ops.sha256.pair_hash_words: launched for every CUDA tensor,
+    its plain PyTorch twin used only for CPU tensors and by the checks.
+"""

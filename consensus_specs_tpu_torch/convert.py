@@ -1,0 +1,58 @@
+"""Carry epoch state between numpy and the port's tensors.
+
+The reference's ValidatorColumns / EpochScalars / EpochInputs /
+EpochReport, as numpy arrays (uint64, bool, int32), become the port's
+NamedTuples of tensors and back. uint64 values cross as their bit
+patterns (an int64 view), so a round trip is exact.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .device import resolve
+from .models.phase0.epoch_soa import (EpochInputs, EpochReport, EpochScalars,
+                                      ValidatorColumns)
+
+
+def _to_tensor(x, device: torch.device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype == np.uint64:
+        a = a.view(np.int64)
+    elif a.dtype not in (np.bool_, np.int32, np.int64):
+        raise TypeError(f"unexpected column dtype {a.dtype}")
+    return torch.from_numpy(np.array(a, order="C")).to(device)   # keeps 0-d
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    a = t.detach().to("cpu", copy=True).numpy()   # never a view of live state
+    return a.view(np.uint64) if a.dtype == np.int64 else a
+
+
+def _convert(src, cls, fn):
+    return cls(**{f: fn(getattr(src, f)) for f in cls._fields})
+
+
+def columns_from_numpy(cols, scal=None, inp=None, device="cuda"):
+    """numpy (cols, scal, inp) -> the port's tensors on `device`; any of
+    scal/inp may be None. Fields are read by name, so the reference's
+    NamedTuples (after np.asarray of each field) work as they are."""
+    dev = resolve(device)
+    conv = lambda x: _to_tensor(x, dev)  # noqa: E731
+    out_cols = _convert(cols, ValidatorColumns, conv)
+    out_scal = None if scal is None else _convert(scal, EpochScalars, conv)
+    out_inp = None if inp is None else _convert(inp, EpochInputs, conv)
+    return out_cols, out_scal, out_inp
+
+
+def columns_to_numpy(cols: ValidatorColumns,
+                     scal: Optional[EpochScalars] = None,
+                     report: Optional[EpochReport] = None):
+    """The port's tensors -> numpy (uint64 bit patterns restored)."""
+    np_cols = _convert(cols, ValidatorColumns, _to_numpy)
+    np_scal = None if scal is None else _convert(scal, EpochScalars, _to_numpy)
+    np_rep = None if report is None else _convert(report, EpochReport, _to_numpy)
+    return np_cols, np_scal, np_rep
+

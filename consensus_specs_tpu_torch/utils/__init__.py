@@ -1,0 +1,1 @@
+"""Port counterpart of consensus_specs_tpu/utils/."""
