@@ -14,7 +14,12 @@ Conventions:
     reference's public layout ([N, 16] message words in, [N, 8] out).
   * uint64 columns are int64 tensors holding the uint64 bit patterns;
     ops/intmath.py has the unsigned compare, sort key and logical shift.
-  * The one hand-written kernel, csrc/sha256_pairs.cu, is the pair hash
-    behind ops.sha256.pair_hash_words: launched for every CUDA tensor,
-    its plain PyTorch twin used only for CPU tensors and by the checks.
+  * BLS field elements are int64 tensors of the reference's lazy signed
+    29-bit limbs ([..., 14]; Fq2 [..., 2, 14]; Fq12 [..., 2, 3, 2, 14]),
+    compared with it bit for bit.
+  * Hand-written kernels: csrc/sha256_pairs.cu, the pair hash behind
+    ops.sha256.pair_hash_words, and csrc/fq_mont.cu, the Montgomery
+    multiply and REDC behind ops.fq.fq_mul / fq_redc. Each is launched for
+    every CUDA tensor; its plain PyTorch twin runs only for CPU tensors
+    and in the checks.
 """

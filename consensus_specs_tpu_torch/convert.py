@@ -56,3 +56,18 @@ def columns_to_numpy(cols: ValidatorColumns,
     np_rep = None if report is None else _convert(report, EpochReport, _to_numpy)
     return np_cols, np_scal, np_rep
 
+
+
+def limbs_from_numpy(arr, device="cuda") -> torch.Tensor:
+    """The reference's BLS limb arrays (numpy int64 [..., 14] Fq,
+    [..., 2, 14] Fq2 or affine G1, [..., 2, 3, 2, 14] Fq12, ...) -> an
+    int64 tensor of the same shape on `device`."""
+    a = np.asarray(arr)
+    if a.dtype != np.int64:
+        raise TypeError(f"expected int64 limbs, got {a.dtype}")
+    return torch.from_numpy(np.array(a, order="C")).to(resolve(device))
+
+
+def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Port limb tensor -> numpy int64 of the same shape (a copy)."""
+    return t.detach().to("cpu", copy=True).numpy()

@@ -1,0 +1,385 @@
+"""Batched BLS12-381 base-field arithmetic on torch tensors: Montgomery
+form, lazy signed 29-bit limbs, double-width lazy reduction (port of
+consensus_specs_tpu/ops/fq.py).
+
+An Fq element is a `[..., L]` int64 tensor of 29-bit limbs (14 x 29 = 406
+>= 381 bits); a double-width product is a `[..., 2L]` int64 tensor of
+schoolbook columns. The algorithm is the reference's, step for step, so
+limbs compare bit for bit with it:
+
+- Lazy signed limbs: add/sub/neg are single tensor ops; limbs drift out of
+  [0, 2^29) and may go negative between multiplications.
+- Split multiply: `fq_mul_wide` (three carry rounds on each input, then
+  the reduction-free schoolbook) and `fq_redc` (the 14-step interleaved
+  Montgomery reduction and three closing carry rounds);
+  `fq_mul = fq_redc o fq_mul_wide`. The tower (ops/fq_tower.py) reduces
+  once per output coefficient over recombined wide columns.
+- Carry rounds are value-preserving whole-tensor rounds
+  (lo = v & MASK, hi = v >> B arithmetic, v = lo + shift_up(hi), the top
+  limb keeping its own overflow); NORM_FULL rounds give the unique
+  signed-top representation for the boundary ops.
+
+Laziness budget (the reference's, machine-checked there): mul inputs
+have body limbs |l| <= 2^32 and a top limb |l_13| <= 2^16; `fq_redc`
+takes body columns |col| < 2^35 (or one raw schoolbook, |col| <= 14 *
+2^58) and returns limbs in [-16, 2^29] with values in (-2q, 2q). Inside
+it nothing leaves int64.
+
+Routing: `fq_mul` and `fq_redc` launch the hand-written kernel
+(csrc/fq_mont.cu through ops/fq_cuda.py) for a CUDA tensor and run the
+plain versions below, `fq_mul_plain` / `fq_redc_plain`, for a CPU
+tensor. Everything that multiplies above them goes through a `Field`:
+`DEVICE` takes that routing, `PLAIN` runs the plain versions on any
+device (the check that holds the kernel route against the plain one on
+the card). The module-level names (`fq_inv`, `fq_canon`, ...) are
+`DEVICE`'s.
+
+Host helpers (int_to_limbs, to_mont, ...) work on numpy; device
+constants are built once per device and cached (`const`).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as tnf
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+Q = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
+B = 29                      # bits per limb
+L = 14                      # limbs (14*29 = 406 bits)
+MASK = (1 << B) - 1
+R_MONT = (1 << (B * L)) % Q
+R2_MONT = (R_MONT * R_MONT) % Q
+QINV_NEG = pow(-Q, -1, 1 << B)   # -q^{-1} mod 2^B
+
+NORM_FULL = L + 3           # rounds for exact ripple propagation
+
+# The laziness budget (module docstring), as in the reference.
+NARROW_INPUT_BOUND = 1 << 32            # |body limb| into a multiply
+NARROW_TOP_SPILL = 1 << 16              # |top limb| into a multiply
+WIDE_COL_RAW = L << (2 * B)             # 14*2^58: one raw schoolbook column
+WIDE_COL_BUDGET = 64 << B               # 2^35: fq_redc body-column budget
+WIDE_TOP_SPILL = 1 << 38                # fq_redc top-column budget
+
+
+def int_to_limbs(x: int) -> np.ndarray:
+    """Host: python int (>= 0, < 2^406) -> [L] int64 limb array."""
+    out = np.zeros(L, dtype=np.int64)
+    for i in range(L):
+        out[i] = (x >> (B * i)) & MASK
+    return out
+
+
+def limbs_to_int(limbs) -> int:
+    """Host: [L] limb array (possibly lazy/signed) -> python int mod q."""
+    arr = np.asarray(limbs, dtype=np.int64)
+    return sum(int(arr[..., i]) << (B * i) for i in range(L)) % Q
+
+
+def _signed_rep(x: int) -> np.ndarray:
+    """Host: the limb rep with limbs 0..L-2 in [0, 2^29) and the sign in
+    the top limb -- what NORM_FULL carry rounds converge to."""
+    out = np.zeros(L, dtype=np.int64)
+    for i in range(L - 1):
+        li = x & MASK
+        out[i] = li
+        x = (x - li) >> B
+    out[L - 1] = x
+    return out
+
+
+def to_mont(x: int) -> np.ndarray:
+    """Host: int -> Montgomery-form limb array."""
+    return int_to_limbs((x % Q) * R_MONT % Q)
+
+
+def from_mont(limbs) -> int:
+    """Host: Montgomery-form limb array (lazy ok) -> canonical int."""
+    return limbs_to_int(limbs) * pow(R_MONT, -1, Q) % Q
+
+
+def stack_mont(values: Sequence[int]) -> np.ndarray:
+    """Host: [N] ints -> [N, L] Montgomery limb arrays."""
+    return np.stack([to_mont(v) for v in values])
+
+
+_Q_NP = int_to_limbs(Q)
+_Q2_NP = int_to_limbs(2 * Q)     # 2q < 2^383: fits 14 limbs
+_Q_TAIL_NP = _Q_NP[1:].copy()    # q's limbs 1..L-1, added during REDC
+_ZERO_PAT = np.zeros(L, dtype=np.int64)
+_Q_PAT = _signed_rep(Q)
+_NEGQ_PAT = _signed_rep(-Q)
+_ONE_MONT = to_mont(1)
+
+# ---------------------------------------------------------------------------
+# Device constants
+# ---------------------------------------------------------------------------
+
+_CONSTS: Dict[Tuple[int, torch.device], Tuple[np.ndarray, torch.Tensor]] = {}
+
+
+def const(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A module-level numpy constant as a tensor on `device`, made once.
+    Keyed by the array's identity (the cache keeps the array alive, so an
+    id is never reused): pass long-lived arrays, never temporaries."""
+    key = (id(arr), torch.device(device))
+    hit = _CONSTS.get(key)
+    if hit is None:
+        hit = (arr, torch.as_tensor(np.ascontiguousarray(arr)).to(device))
+        _CONSTS[key] = hit
+    return hit[1]
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def _carry_rounds(t: torch.Tensor, n: int) -> torch.Tensor:
+    """n value-preserving rounds of carry/borrow propagation over the last
+    axis (length-generic: [..., L] elements and [..., 2L] columns). The
+    top limb keeps its own overflow in place. Returns a new tensor."""
+    for _ in range(n):
+        hi = t >> B          # arithmetic shift: borrows propagate as -1
+        t = t & MASK
+        t[..., 1:] += hi[..., :-1]
+        t[..., -1] += hi[..., -1] << B
+    return t
+
+
+def fq_norm(a: torch.Tensor, rounds: int = 3) -> torch.Tensor:
+    """Crush limb magnitudes: 3 rounds bring |limb| <= 2^33 inputs into
+    [-16, 2^29]; NORM_FULL rounds give the unique signed-top form."""
+    return _carry_rounds(a, rounds)
+
+
+def fq_wide_norm(t: torch.Tensor, rounds: int = 3) -> torch.Tensor:
+    """Value-preserving carry rounds over [..., 2L] wide columns: raw
+    schoolbook columns back to a [-16, 2^29] body before any >2-term
+    accumulation (the tower's gamma recombination)."""
+    return _carry_rounds(t, rounds)
+
+
+# ---------------------------------------------------------------------------
+# Lazy arithmetic
+# ---------------------------------------------------------------------------
+
+def fq_add(a, b):
+    return a + b
+
+
+def fq_sub(a, b):
+    return a - b
+
+
+def fq_neg(a):
+    return -a
+
+
+def fq_select(cond, a, b):
+    """where(cond, a, b) broadcasting cond over the limb axis."""
+    return torch.where(cond[..., None], a, b)
+
+
+def fq_zeros(shape=(), device="cpu"):
+    return torch.zeros(tuple(shape) + (L,), dtype=torch.int64, device=device)
+
+
+def fq_ones(shape=(), device="cpu"):
+    """Montgomery one (R mod q), broadcast to shape."""
+    return const(_ONE_MONT, device).expand(tuple(shape) + (L,))
+
+
+# ---------------------------------------------------------------------------
+# Multiplication: plain versions and the routing
+# ---------------------------------------------------------------------------
+
+def fq_mul_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Schoolbook double-width product, no reduction: [..., L] x [..., L]
+    -> [..., 2L] int64 columns, cols[k] = sum_{i+j=k} a_i b_j after three
+    carry rounds on each input. Columns reach 14*2^58 < 2^62.
+
+    The L x L outer product is summed along anti-diagonals by the skew
+    view: each row padded to 2L and the flat buffer re-read with row
+    stride 2L - 1, which shifts row i right by i columns."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    a = _carry_rounds(a.expand(shape), 3)
+    b = _carry_rounds(b.expand(shape), 3)
+    batch = shape[:-1]
+    prod = a[..., :, None] * b[..., None, :]                  # [..., L, L]
+    flat = tnf.pad(prod, (0, L)).reshape(batch + (2 * L * L,))
+    skew = flat[..., :L * (2 * L - 1)].reshape(batch + (L, 2 * L - 1))
+    return tnf.pad(skew.sum(-2), (0, 1))                      # [..., 2L]
+
+
+def fq_wide_from_mont(a: torch.Tensor) -> torch.Tensor:
+    """Montgomery element [..., L] -> wide columns [..., 2L] of value a*R
+    (limbs shifted up L columns after a defensive normalization)."""
+    a = _carry_rounds(a, 3)
+    return torch.cat([torch.zeros_like(a), a], dim=-1)
+
+
+def fq_redc_plain(cols: torch.Tensor) -> torch.Tensor:
+    """Interleaved Montgomery reduction: [..., 2L] columns of value v ->
+    [..., L] limbs of value v * R^-1 mod q, lazy (limbs in [-16, 2^29],
+    value in (-2q, 2q) for in-budget inputs). Per step: m from the low 29
+    bits of the running column, the carry (v + m q_0) >> B (exact: the sum
+    is divisible by 2^B), and m * q_1..q_13 added to the next 13 columns;
+    then the upper half takes the last carry and three carry rounds."""
+    assert cols.shape[-1] == 2 * L, cols.shape
+    cols = cols.clone()
+    q_tail = const(_Q_TAIL_NP, cols.device)
+    q0 = int(_Q_NP[0])
+    carry = None
+    for i in range(L):
+        v = cols[..., i] if carry is None else cols[..., i] + carry
+        m = ((v & MASK) * QINV_NEG) & MASK
+        carry = (v + m * q0) >> B
+        cols[..., i + 1:i + L] += m[..., None] * q_tail
+    upper = cols[..., L:]
+    upper[..., 0] += carry
+    return _carry_rounds(upper, 3)
+
+
+def fq_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product a*b*R^-1 mod q, lazy in and out:
+    fq_redc_plain(fq_mul_wide(a, b))."""
+    return fq_redc_plain(fq_mul_wide(a, b))
+
+
+def _plain_device(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.device.type != "cpu":
+            raise ValueError(f"unsupported device {t.device}")
+
+
+def fq_redc(cols: torch.Tensor) -> torch.Tensor:
+    """fq_redc_plain's function. A CUDA tensor launches the hand-written
+    kernel (raising if it cannot build or launch); a CPU tensor takes the
+    plain version."""
+    if cols.is_cuda:
+        from .fq_cuda import fq_redc_cuda
+        return fq_redc_cuda(cols)
+    _plain_device(cols)
+    return fq_redc_plain(cols)
+
+
+def fq_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fq_mul_plain's function, with fq_redc's routing: the kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    if a.is_cuda or b.is_cuda:
+        from .fq_cuda import fq_mul_cuda
+        return fq_mul_cuda(a, b)
+    _plain_device(a, b)
+    return fq_mul_plain(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Exponent staging (host)
+# ---------------------------------------------------------------------------
+
+def _exp_bits(e: int) -> np.ndarray:
+    """Static exponent -> bit array, MSB first."""
+    bits = bin(e)[2:]
+    return np.frombuffer(bits.encode(), dtype=np.uint8) - ord("0")
+
+
+_INV_EXP_BITS = _exp_bits(Q - 2)
+_SQRT_EXP_BITS = _exp_bits((Q + 1) // 4)
+_POW_WINDOW = 4
+
+
+def _exp_window_digits(bits_np: np.ndarray, w: int) -> np.ndarray:
+    """MSB-first bit array -> [ceil(n/w)] w-bit window digits, MSB window
+    first, zero-padded at the top."""
+    n = int(bits_np.shape[0])
+    m = -(-n // w)
+    padded = np.concatenate(
+        [np.zeros(m * w - n, np.uint8), bits_np.astype(np.uint8)])
+    weights = 1 << np.arange(w - 1, -1, -1, dtype=np.int64)
+    return (padded.reshape(m, w) @ weights).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# The field: everything that multiplies, over one multiply/REDC route
+# ---------------------------------------------------------------------------
+
+class Field:
+    """Fq operations over one route: `mul` ([..., L] x [..., L] ->
+    [..., L]) and `redc` ([..., 2L] -> [..., L]). The boundary ops and the
+    static-exponent powers are the reference's, written once over the
+    route."""
+
+    def __init__(self, mul: Callable, redc: Callable):
+        self.mul = mul
+        self.redc = redc
+
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def _reduce_range(self, a):
+        """Value into (-2q, 2q): one Montgomery multiply by R."""
+        return self.mul(a, fq_ones(a.shape[:-1], a.device))
+
+    def is_zero(self, a):
+        y = _carry_rounds(self._reduce_range(a), NORM_FULL)
+
+        def match(pat):
+            return torch.all(y == const(pat, y.device), dim=-1)
+
+        # value in (-2q, 2q) and = 0 mod q  <=>  value in {-q, 0, q}
+        return match(_ZERO_PAT) | match(_Q_PAT) | match(_NEGQ_PAT)
+
+    def eq(self, a, b):
+        return self.is_zero(a - b)
+
+    def canon(self, a):
+        """Unique canonical limbs in [0, q) (compression, host checks)."""
+        t = _carry_rounds(self._reduce_range(a), NORM_FULL)
+        neg = t[..., -1] < 0
+        t = torch.where(neg[..., None], t + const(_Q2_NP, t.device), t)
+        t = _carry_rounds(t, NORM_FULL)
+        d = _carry_rounds(t - const(_Q_NP, t.device), NORM_FULL)
+        return torch.where((d[..., -1] >= 0)[..., None], d, t)
+
+    def pow_static(self, a, bits_np: np.ndarray, w: Optional[int] = None):
+        """a^e, e a static bit array: fixed-window evaluation (table of
+        a^0..a^(2^w-1), then per window w squarings and one multiply --
+        by the table's one for a zero digit, as in the reference)."""
+        if w is None:
+            w = _POW_WINDOW
+        digits = [int(d) for d in _exp_window_digits(bits_np, w)]
+        a = fq_norm(a)
+        table = [fq_ones(a.shape[:-1], a.device), a]
+        for _ in range(2, 1 << w):
+            table.append(self.mul(table[-1], a))
+        acc = table[digits[0]]
+        for d in digits[1:]:
+            for _ in range(w):
+                acc = self.mul(acc, acc)
+            acc = self.mul(acc, table[d])
+        return acc
+
+    def inv(self, a):
+        """a^(q-2): Fermat inversion, Montgomery in and out."""
+        return self.pow_static(a, _INV_EXP_BITS)
+
+    def sqrt_candidate(self, a):
+        """a^((q+1)/4): the square root if a is a QR (q = 3 mod 4); the
+        caller checks candidate^2 == a."""
+        return self.pow_static(a, _SQRT_EXP_BITS)
+
+
+DEVICE = Field(fq_mul, fq_redc)
+PLAIN = Field(fq_mul_plain, fq_redc_plain)
+
+fq_sqr = DEVICE.sqr
+fq_is_zero = DEVICE.is_zero
+fq_eq = DEVICE.eq
+fq_canon = DEVICE.canon
+fq_inv = DEVICE.inv
+fq_sqrt_candidate = DEVICE.sqrt_candidate

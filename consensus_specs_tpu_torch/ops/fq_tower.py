@@ -1,0 +1,544 @@
+"""Batched Fq2/Fq6/Fq12 tower arithmetic on torch tensors (port of
+consensus_specs_tpu/ops/fq_tower.py, its default "coeff" placement):
+
+    Fq2  = Fq[u]/(u^2+1)        -> [..., 2, L]
+    Fq6  = Fq2[v]/(v^3 - (1+u)) -> [..., 3, 2, L]
+    Fq12 = Fq6[w]/(w^2 - v)     -> [..., 2, 3, 2, L]
+
+plus Frobenius maps f -> f^(q^k) from host-computed coefficient tables.
+
+Every Fq12 product is one bilinear bundle: pre-sum tables alpha/beta
+build the leaf operands, one stacked double-width multiply computes all
+leaves (54 for fq12_mul, 36 for fq12_sqr, 39 for the sparse line multiply),
+one wide carry round restores headroom, the gamma table recombines the
+wide columns, and ONE fq_redc reduces the 12 output coefficients. The
+tables come from running the tower's Karatsuba structure symbolically
+(`_SymTower`), exactly as in the reference, and are held equal to its
+arrays by the tests.
+
+A small-integer matrix is applied as a padded gather: each output row
+reads its (at most F) nonzero columns through an [R, F] index table, times
+an [R, F] coefficient table (0 on padding), summed over F -- exact int64
+in three tensor ops, where the reference unrolls one add per entry (it
+avoids an s64 dot on the TPU; torch has no int64 matmul on CUDA).
+
+Everything that reduces goes through a `Tower` over an ops.fq.Field:
+`DEVICE` (the kernel for CUDA tensors, the plain version for CPU ones) or
+`PLAIN`. The module-level names are `DEVICE`'s.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..crypto import bls12_381 as gt
+from . import fq as F
+
+# ---------------------------------------------------------------------------
+# Host converters
+# ---------------------------------------------------------------------------
+
+
+def fq2_to_limbs(x: gt.Fq2) -> np.ndarray:
+    return np.stack([F.to_mont(x.c0), F.to_mont(x.c1)])
+
+
+def fq2_from_limbs(a) -> gt.Fq2:
+    a = np.asarray(a)
+    return gt.Fq2(F.from_mont(a[0]), F.from_mont(a[1]))
+
+
+_FQ2_ONE_NP = fq2_to_limbs(gt.FQ2_ONE)
+_FQ12_ONE_NP = np.zeros((2, 3, 2, F.L), dtype=np.int64)
+_FQ12_ONE_NP[0, 0, 0] = F.to_mont(1)
+
+
+# ---------------------------------------------------------------------------
+# Symbolic bilinear derivation of the tower product structure
+# ---------------------------------------------------------------------------
+
+class _Lin:
+    """Sparse integer linear combination over an index space."""
+
+    __slots__ = ("d",)
+
+    def __init__(self, d: Dict[int, int]):
+        self.d = {k: v for k, v in d.items() if v != 0}
+
+    def __add__(self, o):
+        d = dict(self.d)
+        for k, v in o.d.items():
+            d[k] = d.get(k, 0) + v
+        return _Lin(d)
+
+    def __sub__(self, o):
+        d = dict(self.d)
+        for k, v in o.d.items():
+            d[k] = d.get(k, 0) - v
+        return _Lin(d)
+
+    def __neg__(self):
+        return _Lin({k: -v for k, v in self.d.items()})
+
+
+class _SymTower:
+    """The tower's Karatsuba multiplication executed symbolically: every
+    base-field product becomes a recorded leaf, or is dropped when one
+    operand is identically zero (how the sparse-line tables fall out)."""
+
+    def __init__(self):
+        self.leaves: List[Tuple[Dict[int, int], Dict[int, int]]] = []
+
+    def leaf(self, x: _Lin, y: _Lin) -> _Lin:
+        if not x.d or not y.d:
+            return _Lin({})
+        for c in list(x.d.values()) + list(y.d.values()):
+            if abs(c) > 2:
+                raise ValueError("pre-sum coefficient outside the budget")
+        self.leaves.append((x.d, y.d))
+        return _Lin({len(self.leaves) - 1: 1})
+
+    def mul2(self, a, b):
+        a0, a1 = a
+        b0, b1 = b
+        t0 = self.leaf(a0, b0)
+        t1 = self.leaf(a1, b1)
+        t2 = self.leaf(a0 + a1, b0 + b1)
+        return (t0 - t1, t2 - t0 - t1)
+
+    @staticmethod
+    def mul_xi(c):
+        c0, c1 = c
+        return (c0 - c1, c0 + c1)
+
+    @staticmethod
+    def add2(a, b):
+        return (a[0] + b[0], a[1] + b[1])
+
+    @staticmethod
+    def sub2(a, b):
+        return (a[0] - b[0], a[1] - b[1])
+
+    def mul6(self, a, b):
+        a0, a1, a2 = a
+        b0, b1, b2 = b
+        mul2, add2, sub2, mul_xi = self.mul2, self.add2, self.sub2, self.mul_xi
+        t0, t1, t2 = mul2(a0, b0), mul2(a1, b1), mul2(a2, b2)
+        c0 = add2(t0, mul_xi(sub2(mul2(add2(a1, a2), add2(b1, b2)), add2(t1, t2))))
+        c1 = add2(sub2(mul2(add2(a0, a1), add2(b0, b1)), add2(t0, t1)), mul_xi(t2))
+        c2 = add2(sub2(mul2(add2(a0, a2), add2(b0, b2)), add2(t0, t2)), t1)
+        return (c0, c1, c2)
+
+    def add6(self, a, b):
+        return tuple(self.add2(x, y) for x, y in zip(a, b))
+
+    def sub6(self, a, b):
+        return tuple(self.sub2(x, y) for x, y in zip(a, b))
+
+    def mul6_by_v(self, a):
+        return (self.mul_xi(a[2]), a[0], a[1])
+
+    @staticmethod
+    def sym(indices):
+        """Symbolic fq12 operand over 12 component indices (None =
+        structurally zero). Component order [w j][v i][fq2 h]."""
+        def lin(k):
+            return _Lin({}) if indices[k] is None else _Lin({indices[k]: 1})
+        return tuple(
+            tuple((lin(j * 6 + i * 2 + 0), lin(j * 6 + i * 2 + 1))
+                  for i in range(3))
+            for j in range(2))
+
+    def tables(self, out12, n_a_cols: int, n_b_cols: int):
+        n = len(self.leaves)
+        alpha = np.zeros((n, n_a_cols), dtype=np.int64)
+        beta = np.zeros((n, n_b_cols), dtype=np.int64)
+        for k, (xa, xb) in enumerate(self.leaves):
+            for idx, c in xa.items():
+                alpha[k, idx] = c
+            for idx, c in xb.items():
+                beta[k, idx] = c
+        gamma = np.zeros((12, n), dtype=np.int64)
+        for j, lin in enumerate(out12):
+            for k, c in lin.d.items():
+                gamma[j, k] = c
+        return alpha, beta, gamma
+
+
+def _flatten12(c_lo, c_hi):
+    out12 = []
+    for six in (c_lo, c_hi):
+        for pair in six:
+            out12.extend(pair)
+    return out12
+
+
+def _derive_fq12_tables():
+    """Full product: 54 leaves."""
+    s = _SymTower()
+    a0, a1 = s.sym(list(range(12)))
+    b0, b1 = s.sym(list(range(12)))
+    t0 = s.mul6(a0, b0)
+    t1 = s.mul6(a1, b1)
+    mid = s.sub6(s.mul6(s.add6(a0, a1), s.add6(b0, b1)), s.add6(t0, t1))
+    c_lo = s.add6(t0, s.mul6_by_v(t1))
+    return s.tables(_flatten12(c_lo, mid), 12, 12)
+
+
+def _derive_fq12_sqr_tables():
+    """Complex-method squaring over Fq6: t = c0*c1,
+    a^2 = ((c0+c1)(c0+v*c1) - t - v*t) + 2t*w -- 36 leaves."""
+    s = _SymTower()
+    a0, a1 = s.sym(list(range(12)))
+    t = s.mul6(a0, a1)
+    big = s.mul6(s.add6(a0, a1), s.add6(a0, s.mul6_by_v(a1)))
+    c_lo = s.sub6(s.sub6(big, t), s.mul6_by_v(t))
+    c_hi = s.add6(t, t)
+    return s.tables(_flatten12(c_lo, c_hi), 12, 12)
+
+
+# Sparse line l = c_a + c_v*v + c_vw*(v*w); b columns are the 6 Fq
+# coefficients [c_a.0, c_a.1, c_v.0, c_v.1, c_vw.0, c_vw.1].
+_LINE_COLS = [0, 1, 2, 3, None, None, None, None, 4, 5, None, None]
+
+
+def _derive_fq12_line_tables():
+    """The full Karatsuba structure with the line's 6 zero components
+    dropped: 39 leaves."""
+    s = _SymTower()
+    a0, a1 = s.sym(list(range(12)))
+    b0, b1 = s.sym(_LINE_COLS)
+    t0 = s.mul6(a0, b0)
+    t1 = s.mul6(a1, b1)
+    mid = s.sub6(s.mul6(s.add6(a0, a1), s.add6(b0, b1)), s.add6(t0, t1))
+    c_lo = s.add6(t0, s.mul6_by_v(t1))
+    return s.tables(_flatten12(c_lo, mid), 12, 6)
+
+
+def _check_budget(alpha, beta, gamma, name: str):
+    """Pre-sum fan-in <= 8 and gamma fan-in <= 64: the laziness budget
+    that keeps the leaf operands and fq_redc's input columns in range."""
+    if (int(np.abs(gamma).sum(axis=1).max()) > 64
+            or int(np.abs(alpha).sum(axis=1).max()) > 8
+            or int(np.abs(beta).sum(axis=1).max()) > 8):
+        raise ValueError(f"{name} tables exceed the fq laziness budget")
+
+
+class IntMatrix:
+    """A small-integer [R, C] matrix as a padded gather over the C axis of
+    x ([..., C, K] -> [..., R, K]): idx [R, F] column indices and coef
+    [R, F] coefficients, zero on padding."""
+
+    def __init__(self, mat: np.ndarray):
+        self.mat = mat
+        nz = [np.nonzero(row)[0] for row in mat]
+        width = max(1, max(len(c) for c in nz))
+        self.idx = np.zeros((mat.shape[0], width), dtype=np.int64)
+        self.coef = np.zeros((mat.shape[0], width, 1), dtype=np.int64)
+        for r, cols in enumerate(nz):
+            self.idx[r, :len(cols)] = cols
+            self.coef[r, :len(cols), 0] = mat[r, cols]
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        g = x[..., F.const(self.idx, x.device), :]            # [..., R, F, K]
+        return (g * F.const(self.coef, x.device)).sum(-2)
+
+
+def _bilinear_tables(derive, name):
+    alpha, beta, gamma = derive()
+    _check_budget(alpha, beta, gamma, name)
+    return IntMatrix(alpha), IntMatrix(beta), IntMatrix(gamma)
+
+
+_MUL_T = _bilinear_tables(_derive_fq12_tables, "fq12_mul")
+_SQR_T = _bilinear_tables(_derive_fq12_sqr_tables, "fq12_sqr")
+_LINE_T = _bilinear_tables(_derive_fq12_line_tables, "fq12_mul_line")
+
+
+def _frob_tables():
+    """Basis element v^i w^j = w^(2i+j) picks up xi^((q^k-1)(2i+j)/6)."""
+    tables = {}
+    for k in (1, 2, 3):
+        coeffs = np.zeros((2, 3, 2, F.L), dtype=np.int64)
+        for j in range(2):
+            for i in range(3):
+                e = 2 * i + j
+                coeffs[j, i] = fq2_to_limbs(gt.XI ** ((gt.q ** k - 1) * e // 6))
+        tables[k] = coeffs
+    return tables
+
+
+_FROB = _frob_tables()
+
+
+# ---------------------------------------------------------------------------
+# Reduction-free layer: linear ops, layouts, the wide products
+# ---------------------------------------------------------------------------
+
+def fq2(c0, c1):
+    return torch.stack([c0, c1], dim=-2)
+
+
+def fq2_add(a, b):
+    return a + b
+
+
+def fq2_sub(a, b):
+    return a - b
+
+
+def fq2_neg(a):
+    return -a
+
+
+def fq2_conj(a):
+    return torch.cat([a[..., 0:1, :], -a[..., 1:2, :]], dim=-2)
+
+
+def fq2_mul_xi(a):
+    """(1 + u)(c0 + c1 u) = (c0 - c1) + (c0 + c1) u."""
+    a0, a1 = a[..., 0, :], a[..., 1, :]
+    return fq2(a0 - a1, a0 + a1)
+
+
+def fq2_select(cond, a, b):
+    return torch.where(cond[..., None, None], a, b)
+
+
+def fq2_zeros(shape=(), device="cpu"):
+    return torch.zeros(tuple(shape) + (2, F.L), dtype=torch.int64, device=device)
+
+
+def fq2_ones(shape=(), device="cpu"):
+    return F.const(_FQ2_ONE_NP, device).expand(tuple(shape) + (2, F.L))
+
+
+def fq6(c0, c1, c2):
+    return torch.stack([c0, c1, c2], dim=-3)
+
+
+def _c(a, i):
+    return a[..., i, :, :]
+
+
+def fq6_mul_by_v(a):
+    """(c0 + c1 v + c2 v^2) v = c2 xi + c0 v + c1 v^2."""
+    return fq6(fq2_mul_xi(_c(a, 2)), _c(a, 0), _c(a, 1))
+
+
+def fq12(c0, c1):
+    return torch.stack([c0, c1], dim=-4)
+
+
+def _h(a, i):
+    return a[..., i, :, :, :]
+
+
+def fq12_conj(a):
+    return torch.cat([a[..., 0:1, :, :, :], -a[..., 1:2, :, :, :]], dim=-4)
+
+
+def fq12_ones(shape=(), device="cpu"):
+    return F.const(_FQ12_ONE_NP, device).expand(tuple(shape) + (2, 3, 2, F.L))
+
+
+def _fq2_mul_wide(a, b):
+    """Karatsuba (a0 + a1 u)(b0 + b1 u) in the wide domain: 3 double-width
+    leaves, one fq_wide_norm, no reduction -> [..., 2, 2L]."""
+    a0, a1 = a[..., 0, :], a[..., 1, :]
+    b0, b1 = b[..., 0, :], b[..., 1, :]
+    A = torch.stack([a0, a1, a0 + a1], dim=-2)
+    Bv = torch.stack([b0, b1, b0 + b1], dim=-2)
+    Pw = F.fq_wide_norm(F.fq_mul_wide(A, Bv))
+    t0, t1, t2 = Pw[..., 0, :], Pw[..., 1, :], Pw[..., 2, :]
+    return torch.stack([t0 - t1, t2 - t0 - t1], dim=-2)
+
+
+def _bilinear_wide_cols(tables, av, bv):
+    """The gamma-recombined wide columns that fq_redc consumes."""
+    alpha, beta, gamma = tables
+    Pw = F.fq_wide_norm(F.fq_mul_wide(alpha.apply(av), beta.apply(bv)))
+    return gamma.apply(Pw)                                    # [..., 12, 2L]
+
+
+def _cyclo_sqr_wide_cols(z_src):
+    """[..., 6, 2, 2L] wide columns of the six Granger-Scott output
+    components (component z_e, the coefficient of w^e, stored at
+    [j=e%2, i=e//2]): A' = 3A^2 - 2conj(A), B' = 3sC^2 + 2conj(B),
+    C' = 3B^2 - 2conj(C) over Fq4 = Fq2[s]/(s^2 - xi). The +-2z
+    passthrough enters as a reduction-free wide multiply by one, so the
+    single output REDC also re-reduces it."""
+    z = [z_src[..., e % 2, e // 2, :, :] for e in range(6)]
+    pairs = [(z[0], z[3]), (z[1], z[4]), (z[2], z[5])]        # A, B, C
+    lhs = torch.stack([x0 + x1 for x0, x1 in pairs]
+                      + [x0 for x0, _ in pairs], dim=-3)
+    rhs = torch.stack([x0 + fq2_mul_xi(x1) for x0, x1 in pairs]
+                      + [x1 for _, x1 in pairs], dim=-3)
+    P = _fq2_mul_wide(lhs, rhs)                               # [..., 6, 2, 2L]
+    sq = []
+    for k in range(3):
+        m1, m2 = P[..., k, :, :], P[..., 3 + k, :, :]
+        sq.append((m1 - m2 - fq2_mul_xi(m2), m2 + m2))
+    A2, B2, C2 = sq
+    zw_src = F.fq_wide_norm(F.fq_mul_wide(z_src, F.fq_ones((), z_src.device)))
+    zw = [zw_src[..., e % 2, e // 2, :, :] for e in range(6)]
+
+    def x3(t):
+        return t + t + t
+
+    def x2(t):
+        return t + t
+
+    out = [None] * 6
+    out[0] = x3(A2[0]) - x2(zw[0])
+    out[3] = x3(A2[1]) + x2(zw[3])
+    out[1] = x3(fq2_mul_xi(C2[1])) + x2(zw[1])
+    out[4] = x3(C2[0]) - x2(zw[4])
+    out[2] = x3(B2[0]) - x2(zw[2])
+    out[5] = x3(B2[1]) + x2(zw[5])
+    return torch.stack(out, dim=-3)
+
+
+# ---------------------------------------------------------------------------
+# The tower over one field route
+# ---------------------------------------------------------------------------
+
+class Tower:
+    """Fq2/Fq6/Fq12 operations that reduce, over a Field's mul/redc."""
+
+    def __init__(self, field: F.Field):
+        self.F = field
+
+    # -- Fq2 -----------------------------------------------------------------
+
+    def fq2_mul(self, a, b):
+        """Karatsuba; the 2 recombined coefficients reduce once each."""
+        return self.F.redc(_fq2_mul_wide(a, b))
+
+    def fq2_sqr(self, a):
+        """(a0 + a1 u)^2 = (a0+a1)(a0-a1) + 2 a0 a1 u."""
+        a0, a1 = a[..., 0, :], a[..., 1, :]
+        P = self.F.mul(torch.stack([a0 + a1, a0], dim=-2),
+                       torch.stack([a0 - a1, a1], dim=-2))
+        return fq2(P[..., 0, :], P[..., 1, :] + P[..., 1, :])
+
+    def fq2_scale(self, a, s):
+        """a * s, s an Fq element [..., L]."""
+        return self.F.mul(a, s[..., None, :])
+
+    def fq2_inv(self, a):
+        a0, a1 = a[..., 0, :], a[..., 1, :]
+        pair = torch.stack([a0, a1], dim=-2)
+        nrm = self.F.mul(pair, pair)
+        inv_norm = self.F.inv(nrm[..., 0, :] + nrm[..., 1, :])
+        out = self.F.mul(pair, inv_norm[..., None, :])
+        return fq2(out[..., 0, :], -out[..., 1, :])
+
+    def fq2_is_zero(self, a):
+        return torch.all(self.F.is_zero(a), dim=-1)
+
+    def fq2_eq(self, a, b):
+        return torch.all(self.F.is_zero(a - b), dim=-1)
+
+    # -- Fq6 -----------------------------------------------------------------
+
+    def fq6_mul(self, a, b):
+        m = self.fq2_mul
+        a0, a1, a2 = _c(a, 0), _c(a, 1), _c(a, 2)
+        b0, b1, b2 = _c(b, 0), _c(b, 1), _c(b, 2)
+        t0, t1, t2 = m(a0, b0), m(a1, b1), m(a2, b2)
+        c0 = t0 + fq2_mul_xi(m(a1 + a2, b1 + b2) - (t1 + t2))
+        c1 = (m(a0 + a1, b0 + b1) - (t0 + t1)) + fq2_mul_xi(t2)
+        c2 = (m(a0 + a2, b0 + b2) - (t0 + t2)) + t1
+        return fq6(c0, c1, c2)
+
+    def fq6_sqr(self, a):
+        return self.fq6_mul(a, a)
+
+    def fq6_scale_fq2(self, a, s):
+        return self.fq2_mul(a, s[..., None, :, :])
+
+    def fq6_inv(self, a):
+        m, sq = self.fq2_mul, self.fq2_sqr
+        a0, a1, a2 = _c(a, 0), _c(a, 1), _c(a, 2)
+        t0 = sq(a0) - fq2_mul_xi(m(a1, a2))
+        t1 = fq2_mul_xi(sq(a2)) - m(a0, a1)
+        t2 = sq(a1) - m(a0, a2)
+        denom = m(a0, t0) + fq2_mul_xi(m(a2, t1) + m(a1, t2))
+        inv_d = self.fq2_inv(denom)
+        return fq6(m(t0, inv_d), m(t1, inv_d), m(t2, inv_d))
+
+    # -- Fq12 ----------------------------------------------------------------
+
+    def _bilinear(self, tables, av, bv):
+        return self.F.redc(_bilinear_wide_cols(tables, av, bv))
+
+    def fq12_mul(self, a, b):
+        """54 leaves in one stacked multiply, 12 REDC lanes."""
+        batch = a.shape[:-4]
+        cv = self._bilinear(_MUL_T, a.reshape(batch + (12, F.L)),
+                            b.reshape(b.shape[:-4] + (12, F.L)))
+        return cv.reshape(cv.shape[:-2] + (2, 3, 2, F.L))
+
+    def fq12_sqr(self, a):
+        """Complex-method squaring: 36 leaves, 12 REDC lanes."""
+        av = a.reshape(a.shape[:-4] + (12, F.L))
+        cv = self._bilinear(_SQR_T, av, av)
+        return cv.reshape(cv.shape[:-2] + (2, 3, 2, F.L))
+
+    def fq12_mul_line(self, f, c_a, c_v, c_vw):
+        """f * (c_a + c_v*v + c_vw*(v*w)), the Miller-loop line multiply:
+        39 leaves, 12 REDC lanes. c_* are Fq2 [..., 2, L]."""
+        fv = f.reshape(f.shape[:-4] + (12, F.L))
+        bv = torch.cat([c_a, c_v, c_vw], dim=-2)             # [..., 6, L]
+        cv = self._bilinear(_LINE_T, fv, bv)
+        return cv.reshape(cv.shape[:-2] + (2, 3, 2, F.L))
+
+    def fq12_cyclo_sqr(self, a):
+        """Granger-Scott squaring in the cyclotomic subgroup, 12 REDC
+        lanes (valid for elements past the final exponentiation's easy
+        part)."""
+        red = self.F.redc(_cyclo_sqr_wide_cols(F.fq_norm(a)))  # [..., 6, 2, L]
+        rows = [torch.stack([red[..., 2 * i + j, :, :] for i in range(3)],
+                            dim=-3) for j in range(2)]
+        return torch.stack(rows, dim=-4)
+
+    def fq12_inv(self, a):
+        a0, a1 = _h(a, 0), _h(a, 1)
+        denom = self.fq6_mul(a0, a0) - fq6_mul_by_v(self.fq6_mul(a1, a1))
+        inv_d = self.fq6_inv(denom)
+        return fq12(self.fq6_mul(a0, inv_d), -self.fq6_mul(a1, inv_d))
+
+    def fq12_eq(self, a, b):
+        return torch.all(self.F.is_zero(a - b), dim=-1).all(-1).all(-1)
+
+    def fq12_frobenius(self, a, k: int):
+        if k % 2 == 1:
+            c = torch.cat([a[..., 0:1, :], -a[..., 1:2, :]], dim=-2)
+        else:
+            c = a
+        return self.fq2_mul(c, F.const(_FROB[k], a.device))
+
+
+DEVICE = Tower(F.DEVICE)
+PLAIN = Tower(F.PLAIN)
+
+fq2_mul = DEVICE.fq2_mul
+fq2_sqr = DEVICE.fq2_sqr
+fq2_scale = DEVICE.fq2_scale
+fq2_inv = DEVICE.fq2_inv
+fq2_is_zero = DEVICE.fq2_is_zero
+fq2_eq = DEVICE.fq2_eq
+fq6_mul = DEVICE.fq6_mul
+fq6_sqr = DEVICE.fq6_sqr
+fq6_scale_fq2 = DEVICE.fq6_scale_fq2
+fq6_inv = DEVICE.fq6_inv
+fq12_mul = DEVICE.fq12_mul
+fq12_sqr = DEVICE.fq12_sqr
+fq12_mul_line = DEVICE.fq12_mul_line
+fq12_cyclo_sqr = DEVICE.fq12_cyclo_sqr
+fq12_inv = DEVICE.fq12_inv
+fq12_eq = DEVICE.fq12_eq
+fq12_frobenius = DEVICE.fq12_frobenius

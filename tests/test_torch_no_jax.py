@@ -1,12 +1,14 @@
 """The port stands alone: no file of consensus_specs_tpu_torch/ nor
-chip_smoke.py imports jax or the JAX package, the kernel source is in the
-package, and its build directory is git-ignored.
+chip_smoke.py imports jax or the JAX package, the kernel sources are in the
+package, its build directory is git-ignored, it reads no CSTPU_* knob, and
+its entry points refuse a missing card instead of falling back.
 
 An AST scan, not sys.modules: the test process has jax imported already."""
 import ast
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "consensus_specs_tpu_torch"
@@ -40,11 +42,35 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_sees_the_package():
     names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {"ops/sha256.py", "ops/sha256_cuda.py",
-            "models/phase0/resident.py"} <= names
+            "models/phase0/resident.py", "ops/fq.py", "ops/fq_cuda.py",
+            "ops/fq_tower.py", "ops/scalar_mul.py", "ops/decompress.py",
+            "ops/bls_torch.py", "crypto/bls12_381.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 
 def test_kernel_source_present_and_build_dir_ignored():
-    assert (PKG / "csrc" / "sha256_pairs.cu").is_file()
+    from consensus_specs_tpu_torch.ops import _nvcc
+    for name in ("sha256_pairs", "fq_mont"):
+        assert (PKG / "csrc" / f"{name}.cu").is_file()
+        assert name in _nvcc.SOURCES
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "consensus_specs_tpu_torch/_build/" in ignored
+
+
+def test_no_environment_knob():
+    """The reference's CSTPU_* switches (reduction placement, scalar-mul
+    backend and window, ...) have no counterpart in the port."""
+    files = _sources() + sorted((PKG / "csrc").glob("*.cu"))
+    assert [p.name for p in files if "CSTPU_" in p.read_text()] == []
+
+
+def test_bls_backend_refuses_missing_cuda():
+    from consensus_specs_tpu_torch.ops.bls_torch import TorchBackend
+    if torch.cuda.is_available():
+        assert TorchBackend().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            TorchBackend()
+        with pytest.raises(RuntimeError):
+            TorchBackend(device="cuda")
+    assert TorchBackend(device="cpu").device.type == "cpu"
