@@ -25,14 +25,25 @@ members, one signature per committee under the sum of its members' keys;
 staged on the host, untimed), verified through TorchBackend's
 verify_indexed_batch. Checks:
 
-  * the Montgomery kernels (csrc/fq_mont.cu, fq_mul and fq_redc) are
-    bit-identical to their plain versions at 1,048,576 lanes and at
-    N = 1, 5, 300, on inputs at the edges of the limb budget;
+  * the Montgomery kernels (csrc/fq_mont.cu) are bit-identical to their
+    plain versions on inputs at the edges of the limb budget: fq_mul
+    (also with broadcast operands, and with the NORM_FULL rounds that
+    Field.is_zero and canon ask for) and fq_redc at 1,048,576 lanes and at
+    N = 1, 5, 300; the fused tower product fq_bilinear for each of its
+    five tables (Fq2 multiply, Fq12 multiply, square and line multiply,
+    cyclotomic square) at N = 1, 5, 300 and 65,536;
   * the valid block gives 16 x True, the block with one signature swapped
     for another committee's gives exactly that item False;
   * one grouped pairing of the block gives bit-identical Fq12 limbs
     through the kernels and through the plain functions on the card;
-  * the verify launched both kernels (launch counts read around it).
+  * the verify launched fq_mul and fq_bilinear (launch counts read
+    around it), one fq_bilinear per tower product, and no plain wide
+    product ran on the card (ops.fq.cuda_wide_calls read around it).
+
+Kernel times: at 1,048,576 lanes beside each kernel's bound, and at the
+lane count the verify launches most, beside an empty kernel's launch on
+the same stream (per eager call, host included, and per launch replayed
+from a CUDA graph, device only).
 
 Prints one line per phase, the card's name and power limit, a JSON line of
 kernel numbers, and last {"ok": true, "device": {...}}. Any failure raises
@@ -70,6 +81,7 @@ DIRTY_PER_SLOT = 1_024
 SLOTS_BEFORE, SLOTS_AFTER = 4, 2
 KERNEL_LANES = 1 << 20
 RAGGED = (1, 5, 300)
+BILINEAR_CHECK = 1 << 16
 SEED = 20260801
 DEVICE = "cuda"
 
@@ -252,20 +264,49 @@ def device_busy(fn):
             "idle_share": 1 - dev_us / 1e3 / wall}
 
 
+FQ_COUNTERS = {"fq_mul": fq_cuda.mul_counter, "fq_redc": fq_cuda.redc_counter,
+               "fq_bilinear": fq_cuda.bilinear_counter}
+
+
+def aten_ops(fn):
+    """How many aten operators fn dispatches (every torch op the host
+    issues, the kernels' output allocations included; the hand kernels'
+    own launches go through ctypes and are counted by their wrappers)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
 def fq_launches():
-    return fq_cuda.mul_counter.launches, fq_cuda.redc_counter.launches
+    return {name: c.launches for name, c in FQ_COUNTERS.items()}
+
+
+def fq_lanes():
+    """Launches by lanes per launch ("table:lanes" for fq_bilinear)."""
+    return {name: {(k if isinstance(k, int) else f"{k[0]}:{k[1]}"): v
+                   for k, v in c.lanes.items()}
+            for name, c in FQ_COUNTERS.items()}
 
 
 def zero_fq_counters():
-    fq_cuda.mul_counter.launches = 0
-    fq_cuda.redc_counter.launches = 0
+    for c in FQ_COUNTERS.values():
+        c.reset()
 
 
 def sass_counts(lib: Path) -> dict:
-    """{entry point: Counter of SASS opcodes} of a built library, read
-    with cuobjdump -sass; {} where the toolkit has no cuobjdump. Every
-    loop of csrc/fq_mont.cu is unrolled and its only branch is the bounds
-    check, so the static count is the instructions one lane executes."""
+    """{kernel: Counter of SASS opcodes} of a built library, read with
+    cuobjdump -sass; {} where the toolkit has no cuobjdump. Static counts:
+    the arithmetic of a row (carry rounds, schoolbook, REDC) is unrolled,
+    the staging and the tower product's pre-sum and gamma loops are not."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return {}
@@ -273,7 +314,7 @@ def sass_counts(lib: Path) -> dict:
                           text=True, check=True).stdout
     counts, cur = {}, None
     for line in text.splitlines():
-        m = re.search(r"Function : \S*?(fq_mul|fq_redc)_kernel", line)
+        m = re.search(r"Function : \S*?(fq_mul|fq_redc|fq_bilinear)_kernel", line)
         if m:
             cur = counts.setdefault(m.group(1), collections.Counter())
             continue
@@ -283,13 +324,19 @@ def sass_counts(lib: Path) -> dict:
     return counts
 
 
-def fq_kernel_inputs(rng, n, what):
-    """Seeded lanes at the edges of the limb budget: multiply inputs with
-    |body limb| < 2^32 and |top limb| < 2^16; REDC columns with
-    |col| < 2^35 (top < 2^38), or raw schoolbook columns up to 14 * 2^58."""
+def fq_kernel_inputs(rng, n, what, coeffs=()):
+    """Seeded lanes at the edges of the limb budget: multiply inputs
+    [n, *coeffs, 14] with |body limb| < 2^32 and |top limb| < 2^16 (from
+    two lanes up, lane 0 all at the maximum and lane 1 all at the
+    minimum); REDC columns with |col| < 2^35 (top < 2^38), or raw
+    schoolbook columns up to 14 * 2^58."""
     if what == "mul":
-        a = rng.integers(-(1 << 32) + 1, 1 << 32, (n, 14))
-        a[:, -1] = rng.integers(-(1 << 16) + 1, 1 << 16, n)
+        shape = (n,) + tuple(coeffs)
+        a = rng.integers(-(1 << 32) + 1, 1 << 32, shape + (14,))
+        a[..., -1] = rng.integers(-(1 << 16) + 1, 1 << 16, shape)
+        if n >= 2:
+            a[0, ..., :-1], a[0, ..., -1] = (1 << 32) - 1, (1 << 16) - 1
+            a[1, ..., :-1], a[1, ..., -1] = -(1 << 32) + 1, -(1 << 16) + 1
         return a
     if what == "redc":
         c = rng.integers(-fq_mod.WIDE_COL_BUDGET + 1, fq_mod.WIDE_COL_BUDGET, (n, 28))
@@ -298,10 +345,60 @@ def fq_kernel_inputs(rng, n, what):
     return rng.integers(-fq_mod.WIDE_COL_RAW, fq_mod.WIDE_COL_RAW + 1, (n, 28))
 
 
+def bilinear_operands(rng, tables, n, dev):
+    """(av, bv) of a tower product at the budget's edges; the squarings
+    take one operand twice, as their Tower methods do."""
+    av = torch.from_numpy(fq_kernel_inputs(rng, n, "mul", (tables.Ca,))).to(dev)
+    if tables.name in SQUARINGS:
+        return av, av
+    return av, torch.from_numpy(fq_kernel_inputs(rng, n, "mul", (tables.Cb,))).to(dev)
+
+
+SQUARINGS = ("fq12_sqr", "fq12_cyclo_sqr")
+
+
+def bilinear_bound(tables, lanes):
+    return fq_cuda.bound_ms(
+        "fq_bilinear", lanes, INT32_OPS_PER_S, HBM_BYTES_PER_S, P=tables.P,
+        R=tables.R, Ca=tables.Ca, Cb=0 if tables.name in SQUARINGS else tables.Cb)
+
+
+def graph_ms(fn, reps):
+    """ms per call of fn replayed from a CUDA graph of `reps` calls: the
+    device's time per launch, with no host work between launches."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _same(got, want, what):
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: kernel != plain")
+    return int((got - want).abs().max())
+
+
 def check_fq_kernels(rng, dev):
-    """fq_mul / fq_redc kernels vs their plain versions: max |difference|
-    (must be 0) and bit identity at KERNEL_LANES and RAGGED lanes; then
-    kernel, plain and bound ms at KERNEL_LANES. Returns {name: numbers}."""
+    """fq_mul / fq_redc / fq_bilinear kernels vs their plain versions:
+    max |difference| (must be 0) and bit identity; then kernel, plain and
+    bound ms. fq_mul and fq_redc at KERNEL_LANES and RAGGED lanes (fq_mul
+    also with an operand broadcast over the lanes and over an inner
+    axis), timed at KERNEL_LANES. fq_bilinear, each table, at RAGGED and
+    BILINEAR_CHECK lanes (the plain Fq12 product needs about 85 KB a
+    lane), timed at KERNEL_LANES (kernel) and BILINEAR_CHECK (kernel and
+    plain). Returns {name: numbers}."""
     out = {}
     for name in ("fq_mul", "fq_redc"):
         errs = []
@@ -309,17 +406,20 @@ def check_fq_kernels(rng, dev):
             if name == "fq_mul":
                 a, b = (torch.from_numpy(fq_kernel_inputs(rng, n, "mul")).to(dev)
                         for _ in range(2))
-                pairs = [(fq_cuda.fq_mul_cuda(a, b), fq_mod.fq_mul_plain(a, b))]
+                a2 = torch.from_numpy(fq_kernel_inputs(rng, n, "mul", (2,))).to(dev)
+                s1 = torch.from_numpy(fq_kernel_inputs(rng, n, "mul", (1,))).to(dev)
+                for x, y, what in ((a, b, "plain"), (a, b[0], "broadcast lanes"),
+                                   (a2, s1, "broadcast inner axis")):
+                    errs.append(_same(fq_cuda.fq_mul_cuda(x, y), fq_mod.fq_mul_plain(x, y),
+                                      f"fq_mul {what} N={n}"))
+                errs.append(_same(fq_cuda.fq_mul_cuda(a, b, norm_full=True),
+                                  fq_mod.fq_mul_norm_plain(a, b), f"fq_mul norm_full N={n}"))
+                del a, b, a2, s1
             else:
-                pairs = []
                 for what in ("redc", "raw"):
                     c = torch.from_numpy(fq_kernel_inputs(rng, n, what)).to(dev)
-                    pairs.append((fq_cuda.fq_redc_cuda(c), fq_mod.fq_redc_plain(c)))
-            torch.cuda.synchronize()
-            for got, want in pairs:
-                errs.append(int((got - want).abs().max()))
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{name} kernel != plain at N={n}")
+                    errs.append(_same(fq_cuda.fq_redc_cuda(c), fq_mod.fq_redc_plain(c),
+                                      f"fq_redc {what} N={n}"))
         a, b = (torch.from_numpy(fq_kernel_inputs(rng, KERNEL_LANES, "mul")).to(dev)
                 for _ in range(2))
         c = torch.from_numpy(fq_kernel_inputs(rng, KERNEL_LANES, "redc")).to(dev)
@@ -333,7 +433,65 @@ def check_fq_kernels(rng, dev):
                                      HBM_BYTES_PER_S)
         out[name] = {"max_abs_err": max(errs), "ms": time_cuda(kern, 50),
                      "plain_ms": time_cuda(plain, 3), "bound_ms": bound,
-                     "bound_by": by}
+                     "bound_by": by, "lanes": KERNEL_LANES}
+        del a, b, c
+        torch.cuda.empty_cache()
+
+    tables = {}
+    for tb in fq_tower.TABLES:
+        errs = []
+        for n in RAGGED + (BILINEAR_CHECK,):
+            av, bv = bilinear_operands(rng, tb, n, dev)
+            errs.append(_same(fq_cuda.fq_bilinear_cuda(av, bv, tb),
+                              fq_mod.fq_bilinear_plain(av, bv, tb), f"{tb.name} N={n}"))
+        kern = lambda: fq_cuda.fq_bilinear_cuda(av, bv, tb)  # noqa: E731
+        plain = lambda: fq_mod.fq_bilinear_plain(av, bv, tb)  # noqa: E731
+        row = {"max_abs_err": max(errs), "check_lanes": BILINEAR_CHECK,
+               "check_ms": time_cuda(kern, 20), "plain_ms": time_cuda(plain, 2)}
+        row["check_bound_ms"], row["check_bound_by"] = bilinear_bound(tb, BILINEAR_CHECK)
+        del av, bv
+        torch.cuda.empty_cache()
+        av, bv = bilinear_operands(rng, tb, KERNEL_LANES, dev)
+        row["ms"] = time_cuda(kern, 5)
+        row["bound_ms"], row["bound_by"] = bilinear_bound(tb, KERNEL_LANES)
+        row["lanes"] = KERNEL_LANES
+        tables[tb.name] = row
+        del av, bv
+        torch.cuda.empty_cache()
+    out["fq_bilinear"] = tables
+    return out
+
+
+def small_launch_times(lanes_seen, dev, rng):
+    """Each kernel at the lane count the verify launched it with most
+    (for fq_bilinear: each table at its own), per eager call (host and
+    device) and per launch replayed from a CUDA graph (device), beside the
+    same two times of an empty kernel. lanes_seen: fq_lanes() of the
+    verify. Returns {"empty": {...}, name or table: {...}}."""
+    out = {"empty": {"lanes": 0, "call_ms": time_cuda(fq_cuda.empty_launch, 500),
+                     "graph_ms": graph_ms(fq_cuda.empty_launch, 200)}}
+
+    def put(key, lanes, fn, count):
+        out[key] = {"lanes": lanes, "launches": count,
+                    "call_ms": time_cuda(fn, 500), "graph_ms": graph_ms(fn, 200)}
+
+    if lanes_seen["fq_mul"]:
+        n, count = max(lanes_seen["fq_mul"].items(), key=lambda kv: kv[1])
+        a, b = (torch.from_numpy(fq_kernel_inputs(rng, n, "mul")).to(dev)
+                for _ in range(2))
+        put("fq_mul", n, lambda: fq_cuda.fq_mul_cuda(a, b), count)
+    by_table = collections.defaultdict(dict)
+    for key, count in lanes_seen["fq_bilinear"].items():
+        name, n = key.split(":")
+        by_table[name][int(n)] = count
+    for tb in fq_tower.TABLES:
+        if not by_table[tb.name]:
+            continue
+        n, count = max(by_table[tb.name].items(), key=lambda kv: kv[1])
+        av, bv = bilinear_operands(rng, tb, n, dev)
+        put(tb.name, n, lambda av=av, bv=bv, tb=tb: fq_cuda.fq_bilinear_cuda(av, bv, tb),
+            count)
+        out[tb.name]["bound_ms"], _ = bilinear_bound(tb, n)
     return out
 
 
@@ -374,16 +532,24 @@ def drive_bls(block: Block, dev):
     tb = bls_torch.TorchBackend(dev)
     out = {}
     torch.cuda.reset_peak_memory_stats()
+    wide0 = fq_mod.cuda_wide_calls.calls
     zero_fq_counters()
     verdicts, out["verify_cold_ms"] = fenced_ms(
         lambda: tb.verify_indexed_batch(block.items))
-    out["launches"] = dict(zip(("fq_mul", "fq_redc"), fq_launches()))
+    out["launches"] = fq_launches()
     if verdicts != [True] * block.n_att:
         raise AssertionError(f"valid block verdicts {verdicts}")
-    if min(out["launches"].values()) <= 0:
+    if min(out["launches"]["fq_mul"], out["launches"]["fq_bilinear"]) <= 0:
         raise AssertionError(f"verify launched {out['launches']}")
+    zero_fq_counters()
     _, out["verify_warm_ms"] = fenced_ms(lambda: tb.verify_indexed_batch(block.items))
+    out["warm_launches"], out["warm_lanes"] = fq_launches(), fq_lanes()
     out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["plain_wide_on_card"] = fq_mod.cuda_wide_calls.calls - wide0
+    if out["plain_wide_on_card"]:
+        raise AssertionError(f"the verify ran {out['plain_wide_on_card']} plain"
+                             " wide products on the card")
+    out["aten_ops_per_verify"] = aten_ops(lambda: tb.verify_indexed_batch(block.items))
     bad, out["verify_corrupt_ms"] = fenced_ms(
         lambda: tb.verify_indexed_batch(block.corrupt))
     if bad != [k != BAD_ITEM for k in range(block.n_att)]:
@@ -396,12 +562,15 @@ def drive_bls(block: Block, dev):
     def timed(name, fn):
         zero_fq_counters()
         res, ms = fenced_ms(fn)
-        mul, redc = fq_launches()
-        out["stages"][name] = {"ms": ms, "fq_mul": mul, "fq_redc": redc}
+        out["stages"][name] = {"ms": ms, **fq_launches(), "lanes": fq_lanes()}
         return res
 
     for stage in tb.INDEXED_STAGES:
         timed(stage, lambda stage=stage: getattr(tb, stage)(st))
+    # stage 3's host half: the try-and-increment search of each message
+    _, out["stage_messages_host_ms"] = fenced_ms(
+        lambda: [bls_host.hash_to_g2_candidate(mh, dom) for mh, dom in st.hashed])
+    out["messages_hashed"] = len(st.hashed)
     g1 = torch.from_numpy(np.stack([np.stack([a for a, _ in p])
                                     for _, p in st.groups])).to(dev)
     g2 = torch.from_numpy(np.stack([np.stack([b for _, b in p])
@@ -409,6 +578,13 @@ def drive_bls(block: Block, dev):
     ok = timed("grouped_pairing", lambda: bls_torch.grouped_pairing_check(g1, g2))
     if not bool(ok.all()):
         raise AssertionError("staged grouped pairing rejected the valid block")
+    # the same stages once more, untimed, counting the host's aten ops
+    st_count = tb.indexed_state(block.items)
+    for stage in tb.INDEXED_STAGES:
+        out["stages"][stage]["aten_ops"] = aten_ops(
+            lambda stage=stage: getattr(tb, stage)(st_count))
+    out["stages"]["grouped_pairing"]["aten_ops"] = aten_ops(
+        lambda: bls_torch.grouped_pairing_check(g1, g2))
 
     # kernel route vs plain route, one grouped pairing of the block
     n = min(PLAIN_GROUPS, g1.shape[0])
@@ -460,8 +636,8 @@ def main() -> int:
     sass = sass_counts(_nvcc.library_path("fq_mont"))
     for name, cnt in sass.items():
         imad = sum(v for k, v in cnt.items() if k.startswith("IMAD"))
-        log(f"phase device: SASS {name}: {sum(cnt.values())} instructions per lane,"
-            f" {imad} IMAD-class, " + ", ".join(
+        log(f"phase device: SASS {name}_kernel: {sum(cnt.values())} instructions"
+            f" (static), {imad} IMAD-class, " + ", ".join(
                 f"{k} {v}" for k, v in cnt.most_common(10)))
     result["card"] = smi
     result["build_s"] = build_s
@@ -501,11 +677,20 @@ def main() -> int:
     del words, got, want
 
     fq_k = check_fq_kernels(rng, dev)
-    for name, k in fq_k.items():
+    for name in ("fq_mul", "fq_redc"):
+        k = fq_k[name]
         log(f"phase kernel: {name} bit-identical to plain at {KERNEL_LANES} lanes"
-            f" and N={list(RAGGED)} (max_abs_err {k['max_abs_err']}) | kernel"
-            f" {k['ms']:.4f} ms, plain {k['plain_ms']:.2f} ms, bound"
-            f" {k['bound_ms']:.4f} ms by {k['bound_by']}")
+            f" and N={list(RAGGED)}{' (and broadcast, norm_full)' if name == 'fq_mul' else ''}"
+            f" (max_abs_err {k['max_abs_err']}) | kernel {k['ms']:.4f} ms, plain"
+            f" {k['plain_ms']:.2f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}")
+    for name, k in fq_k["fq_bilinear"].items():
+        log(f"phase kernel: fq_bilinear {name} bit-identical to plain at"
+            f" N={list(RAGGED) + [BILINEAR_CHECK]} (max_abs_err {k['max_abs_err']}) |"
+            f" {KERNEL_LANES} lanes: kernel {k['ms']:.4f} ms, bound"
+            f" {k['bound_ms']:.4f} ms by {k['bound_by']} | {BILINEAR_CHECK} lanes:"
+            f" kernel {k['check_ms']:.4f} ms, plain {k['plain_ms']:.2f} ms, bound"
+            f" {k['check_bound_ms']:.4f} ms")
+    result["fq_kernels"] = fq_k
     torch.cuda.empty_cache()
 
     preset = load_preset("mainnet")
@@ -621,16 +806,34 @@ def main() -> int:
     stage_s = time.perf_counter() - t0
     bls = drive_bls(block, dev)
     shape = bls["shape"]
+    def hist(lanes):
+        """'lanes x launches', most launches first."""
+        top = sorted(lanes.items(), key=lambda kv: -kv[1])
+        return ", ".join(f"{k} x {v}" for k, v in top) or "-"
+
     for name, st in bls["stages"].items():
         log(f"phase bls {STAGE_LABELS[name]}: {st['ms']:.1f} ms, fq_mul"
-            f" {st['fq_mul']} / fq_redc {st['fq_redc']} launches")
+            f" {st['fq_mul']} / fq_redc {st['fq_redc']} / fq_bilinear"
+            f" {st['fq_bilinear']} launches, {st['aten_ops']} aten ops (an extra,"
+            f" untimed run) | lanes per launch: fq_mul"
+            f" {hist(st['lanes']['fq_mul'])}; fq_bilinear"
+            f" {hist(st['lanes']['fq_bilinear'])}")
+    launches, warm = bls["launches"], bls["warm_launches"]
     log(f"phase bls verify: {shape['attestations']} x {shape['committee']}"
         f" ({shape['pubkeys']} pubkeys, {shape['pairs']} pairs per group) |"
         f" cold {bls['verify_cold_ms']:.1f} ms, warm {bls['verify_warm_ms']:.1f} ms,"
-        f" corrupted block {bls['verify_corrupt_ms']:.1f} ms | launches fq_mul"
-        f" {bls['launches']['fq_mul']} / fq_redc {bls['launches']['fq_redc']} |"
+        f" corrupted block {bls['verify_corrupt_ms']:.1f} ms | launches (cold / warm)"
+        f" fq_mul {launches['fq_mul']} / {warm['fq_mul']}, fq_redc"
+        f" {launches['fq_redc']} / {warm['fq_redc']}, fq_bilinear"
+        f" {launches['fq_bilinear']} / {warm['fq_bilinear']} (one per tower"
+        f" product), plain wide products on the card {bls['plain_wide_on_card']},"
+        f" aten ops per verify {bls['aten_ops_per_verify']} (an extra, untimed run) |"
         f" peak device memory {bls['peak_device_gib']:.2f} GiB | host staging"
         f" {stage_s:.1f} s (untimed)")
+    log(f"phase bls stage 3 split: the host's try-and-increment search of the"
+        f" {bls['messages_hashed']} messages alone"
+        f" {bls['stage_messages_host_ms']:.1f} ms of the stage's"
+        f" {bls['stages']['stage_messages']['ms']:.1f} ms")
     log(f"phase bls checks: {shape['attestations']} x True; item {BAD_ITEM} alone"
         f" False with a swapped signature; grouped pairing of"
         f" {bls['pairing_groups_compared']} groups bit-identical through kernels"
@@ -642,6 +845,15 @@ def main() -> int:
         + ("not measured (no device time in the trace)" if tr["device_ms"] is None
            else f"{tr['device_ms']:.1f} ms, idle share {tr['idle_share']:.3f}"))
     result["bls"] = bls
+
+    # -- where a launch of the main path's size stands ---------------------------
+    small = small_launch_times(bls["warm_lanes"], dev, rng)
+    log("phase launch: at the verify's most frequent lane counts, ms per eager"
+        " call (host and device) / per launch replayed from a CUDA graph: "
+        + "; ".join(f"{k} {v['lanes']} lanes {v['call_ms']:.4f} / {v['graph_ms']:.4f}"
+                    + (f" (bound {v['bound_ms']:.6f})" if "bound_ms" in v else "")
+                    for k, v in small.items()))
+    result["small_launch"] = small
 
     # -- 8. kernels line ---------------------------------------------------------
     kernels = [{
@@ -665,15 +877,38 @@ def main() -> int:
         "replaces": {"fq_mul": "consensus_specs_tpu/ops/fq.py:450",
                      "fq_redc": "consensus_specs_tpu/ops/fq.py:413"}[name],
         "launches": bls["launches"][name],
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"],
-        "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"],
+        "max_abs_err": fq_k[name]["max_abs_err"],
+        "ms": fq_k[name]["ms"],
+        "plain_ms": fq_k[name]["plain_ms"],
+        "bound_ms": fq_k[name]["bound_ms"],
+        "bound_by": fq_k[name]["bound_by"],
         "library_ms": None,
         "lanes": KERNEL_LANES,
         "bit_identical": True,
-    } for name, k in fq_k.items()]
+    } for name in ("fq_mul", "fq_redc")]
+    mul12 = fq_k["fq_bilinear"]["fq12_mul"]
+    kernels.append({
+        "name": "fq_bilinear",
+        "route": "cuda",
+        "source": "consensus_specs_tpu_torch/csrc/fq_mont.cu",
+        "replaces": "consensus_specs_tpu/ops/fq_tower.py:522",
+        "launches": bls["launches"]["fq_bilinear"],
+        "max_abs_err": max(k["max_abs_err"] for k in fq_k["fq_bilinear"].values()),
+        "ms": mul12["check_ms"],
+        "plain_ms": mul12["plain_ms"],
+        "bound_ms": mul12["check_bound_ms"],
+        "bound_by": mul12["check_bound_by"],
+        "library_ms": None,
+        "lanes": BILINEAR_CHECK,
+        "table": "fq12_mul",
+        "bit_identical": True,
+    })
+    # every tower product's REDC runs inside fq_bilinear now, so the main
+    # path launches fq_redc no more; it must have launched the others
+    for k in kernels:
+        k["on_main_path"] = k["name"] != "fq_redc"
+        if k["on_main_path"] and k["launches"] <= 0:
+            raise AssertionError(f"the main path never launched {k['name']}")
     result["kernels"] = kernels
     if args.json:
         with open(args.json, "w") as f:

@@ -25,10 +25,16 @@ takes body columns |col| < 2^35 (or one raw schoolbook, |col| <= 14 *
 2^58) and returns limbs in [-16, 2^29] with values in (-2q, 2q). Inside
 it nothing leaves int64.
 
-Routing: `fq_mul` and `fq_redc` launch the hand-written kernel
-(csrc/fq_mont.cu through ops/fq_cuda.py) for a CUDA tensor and run the
-plain versions below, `fq_mul_plain` / `fq_redc_plain`, for a CPU
-tensor. Everything that multiplies above them goes through a `Field`:
+Tower products (ops/fq_tower.py) are one `fq_bilinear` each: pre-sum
+tables build the leaf operands, every leaf is a wide product with one
+wide normalization, a gamma table recombines the leaves' columns and one
+REDC per output coefficient reduces them (`Bilinear` holds the tables).
+
+Routing: `fq_mul`, `fq_redc` and `fq_bilinear` launch the hand-written
+kernels (csrc/fq_mont.cu through ops/fq_cuda.py) for a CUDA tensor and
+run the plain versions below, `fq_mul_plain` / `fq_redc_plain` /
+`fq_bilinear_plain`, for a CPU tensor. Everything that multiplies above
+them goes through a `Field`:
 `DEVICE` takes that routing, `PLAIN` runs the plain versions on any
 device (the check that holds the kernel route against the plain one on
 the card). The module-level names (`fq_inv`, `fq_canon`, ...) are
@@ -139,15 +145,32 @@ def const(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 # Normalization
 # ---------------------------------------------------------------------------
 
+_ROUND_MASKS: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+
+
+def _round_masks(width: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(low, body) of a carry round over `width` limbs: low keeps a body
+    limb's low B bits and all of the top limb, body keeps the carries of
+    the body limbs and drops the top limb's (it keeps its own overflow)."""
+    masks = _ROUND_MASKS.get(width)
+    if masks is None:
+        low = np.full(width, MASK, dtype=np.int64)
+        low[-1] = -1
+        body = np.full(width, -1, dtype=np.int64)
+        body[-1] = 0
+        masks = _ROUND_MASKS[width] = (low, body)
+    return masks
+
+
 def _carry_rounds(t: torch.Tensor, n: int) -> torch.Tensor:
     """n value-preserving rounds of carry/borrow propagation over the last
-    axis (length-generic: [..., L] elements and [..., 2L] columns). The
-    top limb keeps its own overflow in place. Returns a new tensor."""
+    axis (length-generic: [..., L] elements and [..., 2L] columns): each
+    body limb keeps its low B bits plus the carry from below (hi = v >> B,
+    arithmetic, so borrows propagate as -1), the top limb keeps its own
+    overflow. Five tensor ops a round; returns a new tensor."""
+    low, body = (const(m, t.device) for m in _round_masks(t.shape[-1]))
     for _ in range(n):
-        hi = t >> B          # arithmetic shift: borrows propagate as -1
-        t = t & MASK
-        t[..., 1:] += hi[..., :-1]
-        t[..., -1] += hi[..., -1] << B
+        t = (t & low) + torch.roll((t >> B) & body, 1, dims=-1)
     return t
 
 
@@ -185,11 +208,11 @@ def fq_select(cond, a, b):
     return torch.where(cond[..., None], a, b)
 
 
-def fq_zeros(shape=(), device="cpu"):
+def fq_zeros(shape, device):
     return torch.zeros(tuple(shape) + (L,), dtype=torch.int64, device=device)
 
 
-def fq_ones(shape=(), device="cpu"):
+def fq_ones(shape, device):
     """Montgomery one (R mod q), broadcast to shape."""
     return const(_ONE_MONT, device).expand(tuple(shape) + (L,))
 
@@ -197,6 +220,17 @@ def fq_ones(shape=(), device="cpu"):
 # ---------------------------------------------------------------------------
 # Multiplication: plain versions and the routing
 # ---------------------------------------------------------------------------
+
+class _Calls:
+    def __init__(self) -> None:
+        self.calls = 0
+
+
+# Calls of fq_mul_wide on CUDA tensors. Only the PLAIN route makes them
+# on the card (the kernel route multiplies inside its kernels), so a run
+# reads it around a DEVICE drive to show that nothing there fell to torch.
+cuda_wide_calls = _Calls()
+
 
 def fq_mul_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Schoolbook double-width product, no reduction: [..., L] x [..., L]
@@ -206,6 +240,8 @@ def fq_mul_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     The L x L outer product is summed along anti-diagonals by the skew
     view: each row padded to 2L and the flat buffer re-read with row
     stride 2L - 1, which shifts row i right by i columns."""
+    if a.is_cuda or b.is_cuda:
+        cuda_wide_calls.calls += 1
     shape = torch.broadcast_shapes(a.shape, b.shape)
     a = _carry_rounds(a.expand(shape), 3)
     b = _carry_rounds(b.expand(shape), 3)
@@ -251,6 +287,12 @@ def fq_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return fq_redc_plain(fq_mul_wide(a, b))
 
 
+def fq_mul_norm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fq_mul_plain, then NORM_FULL carry rounds: the unique signed-top
+    limbs of a*b*R^-1, what Field.is_zero and canon compare."""
+    return _carry_rounds(fq_mul_plain(a, b), NORM_FULL)
+
+
 def _plain_device(*ts: torch.Tensor) -> None:
     for t in ts:
         if t.device.type != "cpu":
@@ -276,6 +318,105 @@ def fq_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return fq_mul_cuda(a, b)
     _plain_device(a, b)
     return fq_mul_plain(a, b)
+
+
+def fq_mul_norm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fq_mul_norm_plain's function, with fq_mul's routing (the same
+    kernel, asked for the extra rounds)."""
+    if a.is_cuda or b.is_cuda:
+        from .fq_cuda import fq_mul_cuda
+        return fq_mul_cuda(a, b, norm_full=True)
+    _plain_device(a, b)
+    return fq_mul_norm_plain(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Tower products: one bilinear form, reduced once per output coefficient
+# ---------------------------------------------------------------------------
+
+class IntMatrix:
+    """A small-integer [R, C] matrix as a padded gather over the C axis of
+    x ([..., C, K] -> [..., R, K]): idx [R, F] column indices and coef
+    [R, F] coefficients, zero on padding. Exact int64 in three tensor ops
+    (torch has no int64 matmul on CUDA)."""
+
+    def __init__(self, mat: np.ndarray):
+        self.mat = mat
+        nz = [np.nonzero(row)[0] for row in mat]
+        width = max(1, max(len(c) for c in nz))
+        self.idx = np.zeros((mat.shape[0], width), dtype=np.int64)
+        self.coef = np.zeros((mat.shape[0], width, 1), dtype=np.int64)
+        for r, cols in enumerate(nz):
+            self.idx[r, :len(cols)] = cols
+            self.coef[r, :len(cols), 0] = mat[r, cols]
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        g = x[..., const(self.idx, x.device), :]              # [..., R, F, K]
+        return (g * const(self.coef, x.device)).sum(-2)
+
+
+class Bilinear(tuple):
+    """One tower product as the tuple (alpha, beta, gamma) of IntMatrix:
+    leaf k multiplies alpha[k] . av by beta[k] . bv (av [..., Ca, L],
+    bv [..., Cb, L]), and output coefficient r is the REDC of gamma[r]
+    over the leaves' wide-normalized columns (see fq_bilinear_plain).
+
+    Options: `norm_in` runs three carry rounds on every input coefficient
+    first; `one_col` gives bv one more coefficient, Montgomery one, after
+    its Cb own (beta has Cb + 1 columns). `packed` is the CSR form the
+    kernel reads, int32: row starts of alpha (P + 1), beta (P + 1) and
+    gamma (R + 1) as absolute positions in the array, then the entries,
+    each (coefficient << 16) | column."""
+
+    def __new__(cls, alpha, beta, gamma, name: str, norm_in: bool = False,
+                one_col: bool = False):
+        self = super().__new__(cls, (IntMatrix(alpha), IntMatrix(beta),
+                                     IntMatrix(gamma)))
+        self.name, self.norm_in, self.one_col = name, norm_in, one_col
+        self.P, self.Ca = alpha.shape
+        self.Cb = beta.shape[1] - int(one_col)
+        self.R = gamma.shape[0]
+        starts, entries = [], []
+        base = 2 * (self.P + 1) + self.R + 1
+        for mat in (alpha, beta, gamma):
+            for row in mat:
+                starts.append(base + len(entries))
+                entries += [(int(row[c]) << 16) | int(c) for c in np.nonzero(row)[0]]
+            starts.append(base + len(entries))
+        self.packed = np.array(starts + entries, dtype=np.int32)
+        return self
+
+
+def fq_bilinear_plain(av: torch.Tensor, bv: torch.Tensor,
+                      tables: Bilinear) -> torch.Tensor:
+    """[..., R, L]: fq_redc(gamma . fq_wide_norm(fq_mul_wide(alpha . av,
+    beta . bv))), the reference's coeff-placement tower product, with the
+    tables' input options applied first. av and bv broadcast over their
+    batch axes."""
+    alpha, beta, gamma = tables
+    if av.shape[-2:] != (tables.Ca, L) or bv.shape[-2:] != (tables.Cb, L):
+        raise ValueError(f"{tables.name}: operands {tuple(av.shape)} and "
+                         f"{tuple(bv.shape)} for ({tables.Ca}, {tables.Cb}) "
+                         "coefficients")
+    if tables.norm_in:
+        same = bv is av
+        av = fq_norm(av)
+        bv = av if same else fq_norm(bv)
+    if tables.one_col:
+        bv = torch.cat([bv, fq_ones(bv.shape[:-2] + (1,), bv.device)], dim=-2)
+    leaves = fq_wide_norm(fq_mul_wide(alpha.apply(av), beta.apply(bv)))
+    return fq_redc_plain(gamma.apply(leaves))
+
+
+def fq_bilinear(av: torch.Tensor, bv: torch.Tensor,
+                tables: Bilinear) -> torch.Tensor:
+    """fq_bilinear_plain's function, with fq_mul's routing: one launch of
+    the fused kernel for CUDA tensors, the plain version for CPU ones."""
+    if av.is_cuda or bv.is_cuda:
+        from .fq_cuda import fq_bilinear_cuda
+        return fq_bilinear_cuda(av, bv, tables)
+    _plain_device(av, bv)
+    return fq_bilinear_plain(av, bv, tables)
 
 
 # ---------------------------------------------------------------------------
@@ -310,23 +451,28 @@ def _exp_window_digits(bits_np: np.ndarray, w: int) -> np.ndarray:
 
 class Field:
     """Fq operations over one route: `mul` ([..., L] x [..., L] ->
-    [..., L]) and `redc` ([..., 2L] -> [..., L]). The boundary ops and the
-    static-exponent powers are the reference's, written once over the
-    route."""
+    [..., L]), `mul_norm` (mul, then NORM_FULL carry rounds), `redc`
+    ([..., 2L] -> [..., L]) and `bilinear` (a tower product, (av, bv,
+    Bilinear) -> [..., R, L]). The boundary ops and the static-exponent
+    powers are the reference's, written once over the route."""
 
-    def __init__(self, mul: Callable, redc: Callable):
+    def __init__(self, mul: Callable, mul_norm: Callable, redc: Callable,
+                 bilinear: Callable):
         self.mul = mul
+        self.mul_norm = mul_norm
         self.redc = redc
+        self.bilinear = bilinear
 
     def sqr(self, a):
         return self.mul(a, a)
 
-    def _reduce_range(self, a):
-        """Value into (-2q, 2q): one Montgomery multiply by R."""
-        return self.mul(a, fq_ones(a.shape[:-1], a.device))
+    def _reduced_full(self, a):
+        """Value into (-2q, 2q) by one Montgomery multiply by R, then the
+        unique signed-top limbs (NORM_FULL carry rounds)."""
+        return self.mul_norm(a, fq_ones(a.shape[:-1], a.device))
 
     def is_zero(self, a):
-        y = _carry_rounds(self._reduce_range(a), NORM_FULL)
+        y = self._reduced_full(a)
 
         def match(pat):
             return torch.all(y == const(pat, y.device), dim=-1)
@@ -339,7 +485,7 @@ class Field:
 
     def canon(self, a):
         """Unique canonical limbs in [0, q) (compression, host checks)."""
-        t = _carry_rounds(self._reduce_range(a), NORM_FULL)
+        t = self._reduced_full(a)
         neg = t[..., -1] < 0
         t = torch.where(neg[..., None], t + const(_Q2_NP, t.device), t)
         t = _carry_rounds(t, NORM_FULL)
@@ -374,8 +520,8 @@ class Field:
         return self.pow_static(a, _SQRT_EXP_BITS)
 
 
-DEVICE = Field(fq_mul, fq_redc)
-PLAIN = Field(fq_mul_plain, fq_redc_plain)
+DEVICE = Field(fq_mul, fq_mul_norm, fq_redc, fq_bilinear)
+PLAIN = Field(fq_mul_plain, fq_mul_norm_plain, fq_redc_plain, fq_bilinear_plain)
 
 fq_sqr = DEVICE.sqr
 fq_is_zero = DEVICE.is_zero

@@ -7,20 +7,16 @@ consensus_specs_tpu/ops/fq_tower.py, its default "coeff" placement):
 
 plus Frobenius maps f -> f^(q^k) from host-computed coefficient tables.
 
-Every Fq12 product is one bilinear bundle: pre-sum tables alpha/beta
-build the leaf operands, one stacked double-width multiply computes all
-leaves (54 for fq12_mul, 36 for fq12_sqr, 39 for the sparse line multiply),
-one wide carry round restores headroom, the gamma table recombines the
-wide columns, and ONE fq_redc reduces the 12 output coefficients. The
-tables come from running the tower's Karatsuba structure symbolically
-(`_SymTower`), exactly as in the reference, and are held equal to its
-arrays by the tests.
-
-A small-integer matrix is applied as a padded gather: each output row
-reads its (at most F) nonzero columns through an [R, F] index table, times
-an [R, F] coefficient table (0 on padding), summed over F -- exact int64
-in three tensor ops, where the reference unrolls one add per entry (it
-avoids an s64 dot on the TPU; torch has no int64 matmul on CUDA).
+Every Fq2 and Fq12 product -- fq2_mul, fq12_mul, fq12_sqr, the sparse
+line multiply and the cyclotomic squaring -- is one bilinear product
+(ops.fq.Bilinear): pre-sum tables alpha/beta build the leaf operands
+(3, 54, 36, 39 and 30 leaves), every leaf is a double-width multiply with
+one wide carry round, the gamma table recombines the wide columns, and
+ONE REDC reduces each output coefficient (2 or 12). On the card that is
+one kernel launch. The tables come from running the tower's Karatsuba
+structure symbolically (`_SymTower`), as in the reference, and are held
+equal to its arrays (or, for Fq2 and the cyclotomic squaring, to its
+functions) by the tests.
 
 Everything that reduces goes through a `Tower` over an ops.fq.Field:
 `DEVICE` (the kernel for CUDA tensors, the plain version for CPU ones) or
@@ -151,7 +147,7 @@ class _SymTower:
                   for i in range(3))
             for j in range(2))
 
-    def tables(self, out12, n_a_cols: int, n_b_cols: int):
+    def tables(self, outs, n_a_cols: int, n_b_cols: int):
         n = len(self.leaves)
         alpha = np.zeros((n, n_a_cols), dtype=np.int64)
         beta = np.zeros((n, n_b_cols), dtype=np.int64)
@@ -160,8 +156,8 @@ class _SymTower:
                 alpha[k, idx] = c
             for idx, c in xb.items():
                 beta[k, idx] = c
-        gamma = np.zeros((12, n), dtype=np.int64)
-        for j, lin in enumerate(out12):
+        gamma = np.zeros((len(outs), n), dtype=np.int64)
+        for j, lin in enumerate(outs):
             for k, c in lin.d.items():
                 gamma[j, k] = c
         return alpha, beta, gamma
@@ -217,6 +213,67 @@ def _derive_fq12_line_tables():
     return s.tables(_flatten12(c_lo, mid), 12, 6)
 
 
+def _derive_fq2_tables():
+    """Karatsuba over Fq2: leaves a0 b0, a1 b1, (a0 + a1)(b0 + b1);
+    outputs t0 - t1 and t2 - t0 - t1."""
+    s = _SymTower()
+    a = (_Lin({0: 1}), _Lin({1: 1}))
+    return s.tables(list(s.mul2(a, a)), 2, 2)
+
+
+_ONE_COL = 12      # the cyclotomic squaring's b column holding Montgomery one
+
+
+def _derive_cyclo_sqr_tables():
+    """Granger-Scott squaring in the cyclotomic subgroup over
+    Fq4 = Fq2[s]/(s^2 - xi), f = A + B y + C y^2 (y = w, s = w^3):
+    A' = 3A^2 - 2conj(A), B' = 3sC^2 + 2conj(B), C' = 3B^2 - 2conj(C).
+    Each Fq4 square (x0 + x1 s)^2 = (m1 - m2 - xi m2) + 2 m2 s with
+    m1 = (x0 + x1)(x0 + xi x1), m2 = x0 x1: six Fq2 Karatsuba products,
+    18 leaves. The +-2z passthrough enters as 12 reduction-free leaves
+    z x one (b's column 12 is Montgomery one), so the single output REDC
+    also re-reduces it: 30 leaves. Component z_e, the coefficient of w^e,
+    is stored at [j = e % 2, i = e // 2], flat index j*6 + i*2 + h, in
+    both the input and the output."""
+    s = _SymTower()
+
+    def flat(e, h):
+        return (e % 2) * 6 + (e // 2) * 2 + h
+
+    z = [(_Lin({flat(e, 0): 1}), _Lin({flat(e, 1): 1})) for e in range(6)]
+    pairs = [(z[0], z[3]), (z[1], z[4]), (z[2], z[5])]        # A, B, C
+    lhs = [s.add2(x0, x1) for x0, x1 in pairs] + [x0 for x0, _ in pairs]
+    rhs = ([s.add2(x0, s.mul_xi(x1)) for x0, x1 in pairs]
+           + [x1 for _, x1 in pairs])
+    prods = [s.mul2(x, y) for x, y in zip(lhs, rhs)]
+    sq = []
+    for k in range(3):
+        m1, m2 = prods[k], prods[3 + k]
+        sq.append((s.sub2(s.sub2(m1, m2), s.mul_xi(m2)), s.add2(m2, m2)))
+    A2, B2, C2 = sq
+    one = _Lin({_ONE_COL: 1})
+    zw = [(s.leaf(c0, one), s.leaf(c1, one)) for c0, c1 in z]
+
+    def x3(t):
+        return s.add2(s.add2(t, t), t)
+
+    def x2(t):
+        return s.add2(t, t)
+
+    out = [None] * 6
+    out[0] = s.sub2(x3(A2[0]), x2(zw[0]))
+    out[3] = s.add2(x3(A2[1]), x2(zw[3]))
+    out[1] = s.add2(x3(s.mul_xi(C2[1])), x2(zw[1]))
+    out[4] = s.sub2(x3(C2[0]), x2(zw[4]))
+    out[2] = s.sub2(x3(B2[0]), x2(zw[2]))
+    out[5] = s.add2(x3(B2[1]), x2(zw[5]))
+    outs = [None] * 12
+    for e in range(6):
+        for h in range(2):
+            outs[flat(e, h)] = out[e][h]
+    return s.tables(outs, 12, _ONE_COL + 1)
+
+
 def _check_budget(alpha, beta, gamma, name: str):
     """Pre-sum fan-in <= 8 and gamma fan-in <= 64: the laziness budget
     that keeps the leaf operands and fq_redc's input columns in range."""
@@ -226,35 +283,19 @@ def _check_budget(alpha, beta, gamma, name: str):
         raise ValueError(f"{name} tables exceed the fq laziness budget")
 
 
-class IntMatrix:
-    """A small-integer [R, C] matrix as a padded gather over the C axis of
-    x ([..., C, K] -> [..., R, K]): idx [R, F] column indices and coef
-    [R, F] coefficients, zero on padding."""
-
-    def __init__(self, mat: np.ndarray):
-        self.mat = mat
-        nz = [np.nonzero(row)[0] for row in mat]
-        width = max(1, max(len(c) for c in nz))
-        self.idx = np.zeros((mat.shape[0], width), dtype=np.int64)
-        self.coef = np.zeros((mat.shape[0], width, 1), dtype=np.int64)
-        for r, cols in enumerate(nz):
-            self.idx[r, :len(cols)] = cols
-            self.coef[r, :len(cols), 0] = mat[r, cols]
-
-    def apply(self, x: torch.Tensor) -> torch.Tensor:
-        g = x[..., F.const(self.idx, x.device), :]            # [..., R, F, K]
-        return (g * F.const(self.coef, x.device)).sum(-2)
-
-
-def _bilinear_tables(derive, name):
+def _bilinear_tables(derive, name, **options) -> F.Bilinear:
     alpha, beta, gamma = derive()
     _check_budget(alpha, beta, gamma, name)
-    return IntMatrix(alpha), IntMatrix(beta), IntMatrix(gamma)
+    return F.Bilinear(alpha, beta, gamma, name, **options)
 
 
+_FQ2_T = _bilinear_tables(_derive_fq2_tables, "fq2_mul")
 _MUL_T = _bilinear_tables(_derive_fq12_tables, "fq12_mul")
 _SQR_T = _bilinear_tables(_derive_fq12_sqr_tables, "fq12_sqr")
 _LINE_T = _bilinear_tables(_derive_fq12_line_tables, "fq12_mul_line")
+_CYCLO_T = _bilinear_tables(_derive_cyclo_sqr_tables, "fq12_cyclo_sqr",
+                            norm_in=True, one_col=True)
+TABLES = (_FQ2_T, _MUL_T, _SQR_T, _LINE_T, _CYCLO_T)
 
 
 def _frob_tables():
@@ -274,7 +315,7 @@ _FROB = _frob_tables()
 
 
 # ---------------------------------------------------------------------------
-# Reduction-free layer: linear ops, layouts, the wide products
+# Reduction-free layer: linear ops and layouts
 # ---------------------------------------------------------------------------
 
 def fq2(c0, c1):
@@ -307,11 +348,11 @@ def fq2_select(cond, a, b):
     return torch.where(cond[..., None, None], a, b)
 
 
-def fq2_zeros(shape=(), device="cpu"):
+def fq2_zeros(shape, device):
     return torch.zeros(tuple(shape) + (2, F.L), dtype=torch.int64, device=device)
 
 
-def fq2_ones(shape=(), device="cpu"):
+def fq2_ones(shape, device):
     return F.const(_FQ2_ONE_NP, device).expand(tuple(shape) + (2, F.L))
 
 
@@ -340,65 +381,8 @@ def fq12_conj(a):
     return torch.cat([a[..., 0:1, :, :, :], -a[..., 1:2, :, :, :]], dim=-4)
 
 
-def fq12_ones(shape=(), device="cpu"):
+def fq12_ones(shape, device):
     return F.const(_FQ12_ONE_NP, device).expand(tuple(shape) + (2, 3, 2, F.L))
-
-
-def _fq2_mul_wide(a, b):
-    """Karatsuba (a0 + a1 u)(b0 + b1 u) in the wide domain: 3 double-width
-    leaves, one fq_wide_norm, no reduction -> [..., 2, 2L]."""
-    a0, a1 = a[..., 0, :], a[..., 1, :]
-    b0, b1 = b[..., 0, :], b[..., 1, :]
-    A = torch.stack([a0, a1, a0 + a1], dim=-2)
-    Bv = torch.stack([b0, b1, b0 + b1], dim=-2)
-    Pw = F.fq_wide_norm(F.fq_mul_wide(A, Bv))
-    t0, t1, t2 = Pw[..., 0, :], Pw[..., 1, :], Pw[..., 2, :]
-    return torch.stack([t0 - t1, t2 - t0 - t1], dim=-2)
-
-
-def _bilinear_wide_cols(tables, av, bv):
-    """The gamma-recombined wide columns that fq_redc consumes."""
-    alpha, beta, gamma = tables
-    Pw = F.fq_wide_norm(F.fq_mul_wide(alpha.apply(av), beta.apply(bv)))
-    return gamma.apply(Pw)                                    # [..., 12, 2L]
-
-
-def _cyclo_sqr_wide_cols(z_src):
-    """[..., 6, 2, 2L] wide columns of the six Granger-Scott output
-    components (component z_e, the coefficient of w^e, stored at
-    [j=e%2, i=e//2]): A' = 3A^2 - 2conj(A), B' = 3sC^2 + 2conj(B),
-    C' = 3B^2 - 2conj(C) over Fq4 = Fq2[s]/(s^2 - xi). The +-2z
-    passthrough enters as a reduction-free wide multiply by one, so the
-    single output REDC also re-reduces it."""
-    z = [z_src[..., e % 2, e // 2, :, :] for e in range(6)]
-    pairs = [(z[0], z[3]), (z[1], z[4]), (z[2], z[5])]        # A, B, C
-    lhs = torch.stack([x0 + x1 for x0, x1 in pairs]
-                      + [x0 for x0, _ in pairs], dim=-3)
-    rhs = torch.stack([x0 + fq2_mul_xi(x1) for x0, x1 in pairs]
-                      + [x1 for _, x1 in pairs], dim=-3)
-    P = _fq2_mul_wide(lhs, rhs)                               # [..., 6, 2, 2L]
-    sq = []
-    for k in range(3):
-        m1, m2 = P[..., k, :, :], P[..., 3 + k, :, :]
-        sq.append((m1 - m2 - fq2_mul_xi(m2), m2 + m2))
-    A2, B2, C2 = sq
-    zw_src = F.fq_wide_norm(F.fq_mul_wide(z_src, F.fq_ones((), z_src.device)))
-    zw = [zw_src[..., e % 2, e // 2, :, :] for e in range(6)]
-
-    def x3(t):
-        return t + t + t
-
-    def x2(t):
-        return t + t
-
-    out = [None] * 6
-    out[0] = x3(A2[0]) - x2(zw[0])
-    out[3] = x3(A2[1]) + x2(zw[3])
-    out[1] = x3(fq2_mul_xi(C2[1])) + x2(zw[1])
-    out[4] = x3(C2[0]) - x2(zw[4])
-    out[2] = x3(B2[0]) - x2(zw[2])
-    out[5] = x3(B2[1]) + x2(zw[5])
-    return torch.stack(out, dim=-3)
 
 
 # ---------------------------------------------------------------------------
@@ -414,8 +398,9 @@ class Tower:
     # -- Fq2 -----------------------------------------------------------------
 
     def fq2_mul(self, a, b):
-        """Karatsuba; the 2 recombined coefficients reduce once each."""
-        return self.F.redc(_fq2_mul_wide(a, b))
+        """Karatsuba: 3 leaves, the 2 recombined coefficients reduce once
+        each."""
+        return self.F.bilinear(a, b, _FQ2_T)
 
     def fq2_sqr(self, a):
         """(a0 + a1 u)^2 = (a0+a1)(a0-a1) + 2 a0 a1 u."""
@@ -472,38 +457,37 @@ class Tower:
 
     # -- Fq12 ----------------------------------------------------------------
 
-    def _bilinear(self, tables, av, bv):
-        return self.F.redc(_bilinear_wide_cols(tables, av, bv))
+    def _fq12_product(self, tables, av, bv):
+        """One bilinear product over [..., 12, L] coefficient views ->
+        [..., 2, 3, 2, L]."""
+        cv = self.F.bilinear(av, bv, tables)
+        return cv.reshape(cv.shape[:-2] + (2, 3, 2, F.L))
 
     def fq12_mul(self, a, b):
-        """54 leaves in one stacked multiply, 12 REDC lanes."""
-        batch = a.shape[:-4]
-        cv = self._bilinear(_MUL_T, a.reshape(batch + (12, F.L)),
-                            b.reshape(b.shape[:-4] + (12, F.L)))
-        return cv.reshape(cv.shape[:-2] + (2, 3, 2, F.L))
+        """54 leaves, 12 REDC lanes, one bilinear product."""
+        return self._fq12_product(_MUL_T, a.reshape(a.shape[:-4] + (12, F.L)),
+                                  b.reshape(b.shape[:-4] + (12, F.L)))
 
     def fq12_sqr(self, a):
         """Complex-method squaring: 36 leaves, 12 REDC lanes."""
         av = a.reshape(a.shape[:-4] + (12, F.L))
-        cv = self._bilinear(_SQR_T, av, av)
-        return cv.reshape(cv.shape[:-2] + (2, 3, 2, F.L))
+        return self._fq12_product(_SQR_T, av, av)
 
     def fq12_mul_line(self, f, c_a, c_v, c_vw):
         """f * (c_a + c_v*v + c_vw*(v*w)), the Miller-loop line multiply:
         39 leaves, 12 REDC lanes. c_* are Fq2 [..., 2, L]."""
         fv = f.reshape(f.shape[:-4] + (12, F.L))
         bv = torch.cat([c_a, c_v, c_vw], dim=-2)             # [..., 6, L]
-        cv = self._bilinear(_LINE_T, fv, bv)
-        return cv.reshape(cv.shape[:-2] + (2, 3, 2, F.L))
+        return self._fq12_product(_LINE_T, fv, bv)
 
     def fq12_cyclo_sqr(self, a):
-        """Granger-Scott squaring in the cyclotomic subgroup, 12 REDC
-        lanes (valid for elements past the final exponentiation's easy
-        part)."""
-        red = self.F.redc(_cyclo_sqr_wide_cols(F.fq_norm(a)))  # [..., 6, 2, L]
-        rows = [torch.stack([red[..., 2 * i + j, :, :] for i in range(3)],
-                            dim=-3) for j in range(2)]
-        return torch.stack(rows, dim=-4)
+        """Granger-Scott squaring in the cyclotomic subgroup (valid for
+        elements past the final exponentiation's easy part): 30 leaves,
+        12 REDC lanes. The input's three carry rounds (the reference's
+        fq_norm before the leaves) are the tables' norm_in, inside the
+        product, and Montgomery one is their extra b column."""
+        av = a.reshape(a.shape[:-4] + (12, F.L))
+        return self._fq12_product(_CYCLO_T, av, av)
 
     def fq12_inv(self, a):
         a0, a1 = _h(a, 0), _h(a, 1)

@@ -27,7 +27,7 @@ import numpy as np
 # Jacobian point ops (a = 0 curves)
 # ---------------------------------------------------------------------------
 
-def jac_infinity(fo, batch=(), device="cpu"):
+def jac_infinity(fo, batch, device):
     """The point at infinity: (0, 1, 0)."""
     return (fo.zeros(batch, device), fo.ones(batch, device),
             fo.zeros(batch, device))

@@ -173,3 +173,116 @@ def test_limb_conversion_round_trip():
         assert (convert.limbs_to_numpy(t) == a).all()
     with pytest.raises(TypeError):
         convert.limbs_from_numpy(a.astype(np.int32), "cpu")
+
+
+def _kernel_rows(layout, k, base, n, C, width):
+    """The rows operand k of a launch reads, as csrc/fq_mont.cu's
+    lane_offset computes them from the layout argument: [n, C, width]
+    gathered from `base` (a flat view of the operand's storage)."""
+    vals = list(layout)
+    ndim, sizes = vals[0], vals[1:1 + fq_cuda.MAX_DIMS]
+    p = vals[1 + fq_cuda.MAX_DIMS + k * (fq_cuda.MAX_DIMS + 2):]
+    strides, cstride = p[:fq_cuda.MAX_DIMS], p[fq_cuda.MAX_DIMS]
+    rows = []
+    for lane in range(n):
+        off, rest = 0, lane
+        for d in range(fq_cuda.MAX_DIMS - 1, -1, -1):
+            if d < ndim:
+                rest, i = divmod(rest, sizes[d])
+                off += i * strides[d]
+        rows.append([base[off + c * cstride: off + c * cstride + width]
+                     for c in range(C)])
+    return torch.stack([torch.stack(r) for r in rows])
+
+
+@pytest.mark.parametrize("case", ["fq2_scale", "frobenius", "one_lane", "sliced",
+                                  "leading_broadcast"])
+def test_kernel_layout_addresses_the_broadcast_rows(case):
+    """The host half of the kernels' broadcast: the layout argument built
+    from two (broadcast, strided) operands makes the kernel read exactly
+    the rows of their expanded views, lane for lane, with no copy."""
+    big = torch.arange(6 * 4 * 3 * 2 * 14, dtype=torch.int64)
+    a_full = big[:4 * 3 * 2 * 14].reshape(4, 3, 2, 14)
+    if case == "fq2_scale":            # a [4, 3, 2, L] x s[..., None, :, :]
+        a, b = a_full, big[:4 * 2 * 14].reshape(4, 1, 2, 14) + 7
+    elif case == "frobenius":          # x [4, 3, 2, L] x a [3, 2, L] constant
+        a, b = a_full, big[:3 * 2 * 14].reshape(3, 2, 14) + 3
+    elif case == "one_lane":
+        a, b = a_full[:1, :1], a_full[1:2, 2:3]
+    elif case == "sliced":             # every other lane, odd offset
+        a, b = big.as_strided((4, 3, 2, 14), (168, 56, 14, 1), 14), a_full
+    else:                              # [1, 3] over [4, 3]
+        a, b = a_full, a_full[2:3]
+    batch = tuple(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]))
+    views = [t.expand(batch + (2, 14)) for t in (a, b)]
+    layout = fq_cuda._layout(batch, views)
+    n = int(np.prod(batch))
+    for k, (t, v) in enumerate(zip((a, b), views)):
+        base = torch.as_strided(t, (t.untyped_storage().nbytes() // 8,), (1,), 0)
+        start = t.storage_offset()
+        got = _kernel_rows(layout, k, base[start:], n, 2, 14)
+        assert torch.equal(got, v.reshape(n, 2, 14)), (case, k)
+    if case == "one_lane":             # no lane axis left
+        assert list(layout)[0] == 0
+    if case == "frobenius":            # two axes: b's outer stride is 0
+        assert list(layout)[:3] == [2, 4, 3]
+        assert list(layout)[11:13] == [0, 28]
+
+
+def test_kernel_bound_counts_bilinear():
+    """An Fq12 multiply lane: 54 schoolbooks and 12 REDCs, 13,104
+    products; 24 coefficients in and 12 out, 4,032 bytes; about 1.26 ms
+    at 1,048,576 lanes, set by the bytes."""
+    assert fq_cuda.bilinear_work(54, 12, 12, 12) == (13104, 4032)
+    ms, by = fq_cuda.bound_ms("fq_bilinear", 1 << 20, 132 * 64 * 1.98e9, 3.35e12,
+                              P=54, R=12, Ca=12, Cb=12)
+    assert by == "bytes" and ms == pytest.approx(4032 * (1 << 20) / 3.35e9)
+    assert ms == pytest.approx(1.262, abs=1e-3)
+
+
+def test_bilinear_route_on_the_cpu():
+    """fq_bilinear takes the plain version for CPU tensors; the kernel
+    wrapper refuses them; DEVICE / PLAIN carry the two routes."""
+    from consensus_specs_tpu_torch.ops import fq_tower as TT
+    rng = np.random.default_rng(8)
+    av = _t(_narrow(rng, 6).reshape(3, 2, 14))
+    bv = _t(_narrow(rng, 6).reshape(3, 2, 14))
+    assert torch.equal(TF.fq_bilinear(av, bv, TT._FQ2_T),
+                       TF.fq_bilinear_plain(av, bv, TT._FQ2_T))
+    with pytest.raises(ValueError):
+        fq_cuda.fq_bilinear_cuda(av, bv, TT._FQ2_T)
+    with pytest.raises(ValueError):
+        TF.fq_bilinear_plain(av, bv[..., :1, :], TT._FQ2_T)
+    assert TF.DEVICE.bilinear is TF.fq_bilinear
+    assert TF.PLAIN.bilinear is TF.fq_bilinear_plain
+
+
+def test_mul_norm_matches_jax_and_routes_on_the_cpu():
+    """fq_mul_norm == the reference's Montgomery product followed by
+    NORM_FULL carry rounds (what its fq_is_zero / fq_canon compare), at
+    the budget's edges; plain on the CPU, the kernel wrapper refuses CPU
+    tensors."""
+    rng = np.random.default_rng(9)
+    a, b = _narrow(rng, 32), _narrow(rng, 32)
+    want = JF._carry_rounds_impl(JF.fq_mul(a, b), JF.NORM_FULL)
+    _same(TF.fq_mul_norm(_t(a), _t(b)), want)
+    _same(TF.fq_mul_norm_plain(_t(a), _t(b)), want)
+    with pytest.raises(ValueError):
+        fq_cuda.fq_mul_cuda(_t(a), _t(b), norm_full=True)
+    assert TF.DEVICE.mul_norm is TF.fq_mul_norm
+    assert TF.PLAIN.mul_norm is TF.fq_mul_norm_plain
+
+
+def test_helpers_take_no_default_device():
+    """fq/fq2/fq12 zeros and ones and the point at infinity need their
+    device: none lands on the CPU by omission."""
+    from consensus_specs_tpu_torch.ops import bls_torch, fq_tower as TT
+    from consensus_specs_tpu_torch.ops import scalar_mul as SM
+    for fn in (TF.fq_zeros, TF.fq_ones, TT.fq2_zeros, TT.fq2_ones, TT.fq12_ones):
+        with pytest.raises(TypeError):
+            fn((2,))
+        assert fn((2,), "cpu").device.type == "cpu"
+    with pytest.raises(TypeError):
+        SM.jac_infinity(bls_torch.G1_OPS, (2,))
+    X, Y, Z = SM.jac_infinity(bls_torch.G2_OPS, (2,), "cpu")
+    assert X.shape == (2, 2, 14) and bool((Z == 0).all())

@@ -132,3 +132,254 @@ def test_fq12_inv_and_cyclotomic_squaring_match_jax():
         _same(cyc_t, cyc_j)
     # and the squaring is a squaring: equal in value to the general one
     assert bool(TT.fq12_eq(TT.fq12_cyclo_sqr(cyc_t), TT.fq12_sqr(cyc_t)).all())
+
+
+# ---------------------------------------------------------------------------
+# The fused tower product: every product is one fq_bilinear over tables
+# ---------------------------------------------------------------------------
+
+from consensus_specs_tpu.ops import fq as JF  # noqa: E402
+from consensus_specs_tpu_torch.ops import fq as TF  # noqa: E402
+
+import torch  # noqa: E402
+
+
+def _edge(rng, shape):
+    """Lazy limbs at the multiply budget's edges: |body| < 2^32, |top| <
+    2^16, with the first lane all at the maximum and the second all at the
+    minimum (values may leave the value budget: the limbs must still
+    agree, both sides computing the same integer function)."""
+    a = rng.integers(-(1 << 32) + 1, 1 << 32, shape + (14,))
+    a[..., -1] = rng.integers(-(1 << 16) + 1, 1 << 16, shape)
+    a[0, ..., :-1], a[0, ..., -1] = (1 << 32) - 1, (1 << 16) - 1
+    a[1, ..., :-1], a[1, ..., -1] = -(1 << 32) + 1, -(1 << 16) + 1
+    return a
+
+
+def _unfused_fq2_mul_wide(a, b):
+    """The tower's Karatsuba wide product, unfused: torch ops around the
+    wide multiply, as the port computed it before the fused product."""
+    a0, a1 = a[..., 0, :], a[..., 1, :]
+    b0, b1 = b[..., 0, :], b[..., 1, :]
+    A = torch.stack([a0, a1, a0 + a1], dim=-2)
+    Bv = torch.stack([b0, b1, b0 + b1], dim=-2)
+    Pw = TF.fq_wide_norm(TF.fq_mul_wide(A, Bv))
+    t0, t1, t2 = Pw[..., 0, :], Pw[..., 1, :], Pw[..., 2, :]
+    return torch.stack([t0 - t1, t2 - t0 - t1], dim=-2)
+
+
+def _unfused_cyclo_sqr_cols(z_src):
+    """The unfused Granger-Scott wide columns, component e at
+    [e % 2, e // 2]."""
+    z = [z_src[..., e % 2, e // 2, :, :] for e in range(6)]
+    pairs = [(z[0], z[3]), (z[1], z[4]), (z[2], z[5])]
+    lhs = torch.stack([x0 + x1 for x0, x1 in pairs] + [x0 for x0, _ in pairs], dim=-3)
+    rhs = torch.stack([x0 + TT.fq2_mul_xi(x1) for x0, x1 in pairs]
+                      + [x1 for _, x1 in pairs], dim=-3)
+    P = _unfused_fq2_mul_wide(lhs, rhs)
+    sq = []
+    for k in range(3):
+        m1, m2 = P[..., k, :, :], P[..., 3 + k, :, :]
+        sq.append((m1 - m2 - TT.fq2_mul_xi(m2), m2 + m2))
+    A2, B2, C2 = sq
+    zw_src = TF.fq_wide_norm(TF.fq_mul_wide(z_src, TF.fq_ones((), z_src.device)))
+    zw = [zw_src[..., e % 2, e // 2, :, :] for e in range(6)]
+    out = [None] * 6
+    out[0] = 3 * A2[0] - 2 * zw[0]
+    out[3] = 3 * A2[1] + 2 * zw[3]
+    out[1] = 3 * TT.fq2_mul_xi(C2[1]) + 2 * zw[1]
+    out[4] = 3 * C2[0] - 2 * zw[4]
+    out[2] = 3 * B2[0] - 2 * zw[2]
+    out[5] = 3 * B2[1] + 2 * zw[5]
+    return torch.stack(out, dim=-3)
+
+
+def _unfused_product(name, a, b):
+    """The unfused composition of each product: wide columns, then one
+    REDC."""
+    if name == "fq2_mul":
+        return TF.fq_redc_plain(_unfused_fq2_mul_wide(a, b))
+    if name == "fq12_cyclo_sqr":
+        red = TF.fq_redc_plain(_unfused_cyclo_sqr_cols(TF.fq_norm(a)))
+        rows = [torch.stack([red[..., 2 * i + j, :, :] for i in range(3)], dim=-3)
+                for j in range(2)]
+        return torch.stack(rows, dim=-4)
+    tables = {"fq12_mul": TT._MUL_T, "fq12_sqr": TT._SQR_T,
+              "fq12_mul_line": TT._LINE_T}[name]
+    alpha, beta, gamma = tables
+    av = a.reshape(a.shape[:-4] + (12, 14))
+    bv = b if name == "fq12_mul_line" else b.reshape(b.shape[:-4] + (12, 14))
+    Pw = TF.fq_wide_norm(TF.fq_mul_wide(alpha.apply(av), beta.apply(bv)))
+    cv = TF.fq_redc_plain(gamma.apply(Pw))
+    return cv.reshape(cv.shape[:-2] + (2, 3, 2, 14))
+
+
+# (table, a's shape after the batch, b's shape, the reference function)
+_PRODUCTS = {
+    "fq2_mul": ((2,), (2,), lambda a, b: JT.fq2_mul(a, b)),
+    "fq12_mul": ((2, 3, 2), (2, 3, 2), lambda a, b: JT.fq12_mul(a, b)),
+    "fq12_sqr": ((2, 3, 2), None, lambda a, b: JT.fq12_sqr(a)),
+    "fq12_mul_line": ((2, 3, 2), (6,), lambda a, b: JT.fq12_mul_line(
+        a, b[..., 0:2, :], b[..., 2:4, :], b[..., 4:6, :])),
+    "fq12_cyclo_sqr": ((2, 3, 2), None, lambda a, b: JT.fq12_cyclo_sqr(a)),
+}
+
+
+@pytest.mark.parametrize("name", list(_PRODUCTS))
+def test_bilinear_plain_equals_unfused_composition_and_jax(name):
+    """fq_bilinear_plain with each table == the unfused composition == the JAX
+    package's product under its coeff backend, limb for limb, at the
+    multiply budget's edges (the squarings: one operand)."""
+    tables = {t.name: t for t in TT.TABLES}[name]
+    a_shape, b_shape, ref = _PRODUCTS[name]
+    rng = np.random.default_rng(30 + len(name))
+    a = _edge(rng, BATCH + a_shape)
+    b = a if b_shape is None else _edge(rng, BATCH + b_shape)
+    ta, tb = _t(a), _t(b)
+    av = ta.reshape(BATCH + (tables.Ca, 14))
+    bv = av if b_shape is None else tb.reshape(BATCH + (tables.Cb, 14))
+    got = TF.fq_bilinear_plain(av, bv, tables)
+    unfused = _unfused_product(name, ta, tb)
+    assert torch.equal(got.reshape(unfused.shape), unfused)
+    with JF.pinned_fq_redc_backend("coeff"):
+        _same(got.reshape(unfused.shape), ref(a, b))
+    # and the Tower method is that product
+    tower = {"fq2_mul": lambda: TT.fq2_mul(ta, tb),
+             "fq12_mul": lambda: TT.fq12_mul(ta, tb),
+             "fq12_sqr": lambda: TT.fq12_sqr(ta),
+             "fq12_mul_line": lambda: TT.fq12_mul_line(
+                 ta, tb[..., 0:2, :], tb[..., 2:4, :], tb[..., 4:6, :]),
+             "fq12_cyclo_sqr": lambda: TT.fq12_cyclo_sqr(ta)}[name]()
+    assert torch.equal(tower, unfused)
+
+
+def test_new_tables_pass_the_budget_and_pack_to_their_matrices():
+    """The Fq2 and cyclotomic tables pass _check_budget (so does every
+    table), the cyclotomic one has 18 Karatsuba and 12 passthrough leaves
+    and 12 outputs, and each table's packed CSR form decodes to its three
+    matrices."""
+    for t in TT.TABLES:
+        TT._check_budget(*(m.mat for m in t), t.name)
+        starts = t.packed[:2 * (t.P + 1) + t.R + 1]
+        mats = []
+        for k, (rows, cols) in enumerate(((t.P, t.Ca), (t.P, t.Cb + t.one_col),
+                                          (t.R, t.P))):
+            dense = np.zeros((rows, cols), np.int64)
+            first = sum((t.P + 1, t.P + 1)[:k])
+            for r in range(rows):
+                for e in t.packed[starts[first + r]:starts[first + r + 1]]:
+                    dense[r, int(e) & 0xffff] += int(e) >> 16
+            mats.append(dense)
+        assert all((d == m.mat).all() for d, m in zip(mats, t))
+    cyc = TT._CYCLO_T
+    assert (cyc.P, cyc.R, cyc.Ca, cyc.Cb) == (30, 12, 12, 12)
+    assert cyc.norm_in and cyc.one_col
+    one_leaves = np.nonzero(cyc[1].mat[:, TT._ONE_COL])[0]
+    assert len(one_leaves) == 12 and (cyc[1].mat[one_leaves, :12] == 0).all()
+    assert (TT._FQ2_T.P, TT._FQ2_T.R) == (3, 2)
+    bad = cyc[0].mat.copy()
+    bad[0, :] = 1
+    with pytest.raises(ValueError):
+        TT._check_budget(bad, cyc[1].mat, cyc[2].mat, "bad")
+
+
+class _Spy:
+    """A Field route that records its calls; bilinear returns zeros."""
+
+    def __init__(self):
+        self.calls = {"mul": 0, "redc": 0, "bilinear": 0}
+
+    def field(self):
+        def mul(a, b):
+            self.calls["mul"] += 1
+            return TF.fq_mul_plain(a, b)
+
+        def mul_norm(a, b):
+            self.calls["mul"] += 1
+            return TF.fq_mul_norm_plain(a, b)
+
+        def redc(c):
+            self.calls["redc"] += 1
+            return TF.fq_redc_plain(c)
+
+        def bilinear(av, bv, tables):
+            self.calls["bilinear"] += 1
+            batch = torch.broadcast_shapes(av.shape[:-2], bv.shape[:-2])
+            return torch.zeros(batch + (tables.R, 14), dtype=torch.int64)
+
+        return TF.Field(mul, mul_norm, redc, bilinear)
+
+
+@pytest.mark.parametrize("name", list(_PRODUCTS))
+def test_each_tower_product_is_one_bilinear_call(name, monkeypatch):
+    wide = []
+    real = TF.fq_mul_wide
+    monkeypatch.setattr(TF, "fq_mul_wide", lambda a, b: wide.append(1) or real(a, b))
+    spy = _Spy()
+    tw = TT.Tower(spy.field())
+    rng = np.random.default_rng(40)
+    a = _t(_rand(rng, BATCH + (2, 3, 2)))
+    line = [_t(_rand(rng, BATCH + (2,))) for _ in range(3)]
+    x, y = _t(_rand(rng, BATCH + (2,))), _t(_rand(rng, BATCH + (2,)))
+    out = {"fq2_mul": lambda: tw.fq2_mul(x, y),
+           "fq12_mul": lambda: tw.fq12_mul(a, a),
+           "fq12_sqr": lambda: tw.fq12_sqr(a),
+           "fq12_mul_line": lambda: tw.fq12_mul_line(a, *line),
+           "fq12_cyclo_sqr": lambda: tw.fq12_cyclo_sqr(a)}[name]()
+    assert spy.calls == {"mul": 0, "redc": 0, "bilinear": 1}
+    assert wide == []
+    assert out.shape == ((x if name == "fq2_mul" else a).shape)
+
+
+def _round_interval(lo, hi):
+    """One carry round over per-limb integer intervals: each limb's low
+    bits in [0, MASK] plus the carry from below; the top limb keeps its
+    own overflow, so it only gains the carry in."""
+    B, n = TF.B, len(lo)
+    clo, chi = [x >> B for x in lo], [x >> B for x in hi]
+    nlo = [0] + [clo[k - 1] for k in range(1, n - 1)] + [lo[-1] + clo[-2]]
+    nhi = ([TF.MASK] + [TF.MASK + chi[k - 1] for k in range(1, n - 1)]
+           + [hi[-1] + chi[-2]])
+    return nlo, nhi
+
+
+def test_kernel_int32_preconditions_hold_at_the_budget_edges():
+    """csrc/fq_mont.cu holds multiply operands and leaf columns in int32.
+    Interval bounds from the multiply budget (|body| <= 2^32, |top| <=
+    2^16 per input coefficient) through the largest pre-sum of any table:
+    after the first input carry round every limb of every leaf operand
+    fits int32 (the kernel runs the other two rounds in int32); after two
+    wide rounds every column of a leaf's schoolbook fits int32 (the kernel
+    runs the third in int32 and stores the leaves so). Then the same on
+    real extremes, all-max and all-min inputs, through each table."""
+    def fits(lo, hi):
+        return min(lo) >= -(1 << 31) and max(hi) < 1 << 31
+
+    fan_in = max(int(np.abs(m.mat).sum(axis=1).max())
+                 for t in TT.TABLES for m in t[:2])
+    assert fan_in == 8
+    lo = [-fan_in << 32] * 13 + [-fan_in << 16]
+    hi = [fan_in << 32] * 13 + [fan_in << 16]
+    lo1, hi1 = _round_interval(lo, hi)
+    assert fits(lo1, hi1)
+    lo3, hi3 = _round_interval(*_round_interval(lo1, hi1))
+    assert fits(lo3, hi3)
+    m = [max(-a, b) for a, b in zip(lo3, hi3)]
+    cols = [sum(m[i] * m[k - i] for i in range(max(0, k - 13), min(k, 13) + 1))
+            if k < 27 else 0 for k in range(28)]
+    assert max(cols) <= TF.WIDE_COL_RAW + (1 << 50)      # inside int64
+    wlo, whi = _round_interval(*_round_interval([-c for c in cols], cols))
+    assert fits(wlo, whi)
+
+    rng = np.random.default_rng(50)
+    for t in TT.TABLES:
+        av = torch.from_numpy(_edge(rng, (4, t.Ca)))
+        bv = torch.from_numpy(_edge(rng, (4, t.Cb)))
+        if t.one_col:
+            bv = torch.cat([bv, TF.fq_ones((4, 1), "cpu")], dim=-2)
+        A, Bm = t[0].apply(av), t[1].apply(bv)
+        for x in (A, Bm):
+            assert int(TF._carry_rounds(x, 1).abs().max()) < 1 << 31
+            assert int(TF._carry_rounds(x, 3).abs().max()) < 1 << 31
+        w = TF._carry_rounds(TF.fq_mul_wide(A, Bm), 2)
+        assert int(w.abs().max()) < 1 << 31
