@@ -40,19 +40,45 @@ verify_indexed_batch. Checks:
     around it), one fq_bilinear per tower product, and no plain wide
     product ran on the card (ops.fq.cuda_wide_calls read around it).
 
+Then the spec path: the port's ResidentCore driven through the system's
+own entry points (consensus_specs_tpu_torch.models.phase0: get_spec,
+ResidentCore, the spec's process_block), mainnet preset at full width:
+
+  * resume at V = 1,000,000: state bytes assembled from synthetic columns
+    and a light state with a full epoch of PendingAttestations
+    (state_bytes_from_columns, no Validator object), from_checkpoint,
+    process_slots one slot at a time across an epoch boundary (a full
+    state root every slot), checkpoint_bytes, from_checkpoint again. The
+    roots and written bytes must equal the same drive with the plain pair
+    hash on the card (which launches no kernel); the resumed core must
+    write the same bytes and have the same root;
+  * blocks at V = 131,072 (16 committees of 128 a slot) through the object
+    entry ResidentCore(spec, state), BLS on the "torch" backend: blocks
+    of 16 fully participating attestations (signed on the host, untimed),
+    one signed voluntary exit (the fallback path), then a block with two
+    attestation signatures swapped, which the batched verify must reject
+    (exactly those two items False, the AssertionError raised in
+    process_attestations_batched); the exited state's bulk root must
+    equal the resident root;
+  * reference at V = 2,048: 12 blocks across an epoch boundary through
+    ResidentCore and through the port's unpatched object model, per-slot
+    roots, full roots and serialized states equal.
+
 Kernel times: at 1,048,576 lanes beside each kernel's bound, and at the
 lane count the verify launches most, beside an empty kernel's launch on
 the same stream (per eager call, host included, and per launch replayed
 from a CUDA graph, device only).
 
 Prints one line per phase, the card's name and power limit, a JSON line of
-kernel numbers, and last {"ok": true, "device": {...}}. Any failure raises
+kernel numbers (launches on the spec path, and by path), and last
+{"ok": true, "device": {...}}. Any failure raises
 and exits non-zero. Needs one CUDA card and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import hashlib
 import json
 import re
@@ -60,6 +86,7 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -67,13 +94,17 @@ import torch
 
 from consensus_specs_tpu_torch import convert
 from consensus_specs_tpu_torch.crypto import bls12_381 as bls_host
+from consensus_specs_tpu_torch.models import phase0
 from consensus_specs_tpu_torch.models.phase0 import epoch_soa
-from consensus_specs_tpu_torch.models.phase0.resident import ResidentColumns
+from consensus_specs_tpu_torch.models.phase0.resident import (ResidentColumns,
+                                                             ResidentCore)
 from consensus_specs_tpu_torch.ops import _nvcc, sha256, sha256_cuda
 from consensus_specs_tpu_torch.ops import bls_torch, fq_cuda, fq_tower
 from consensus_specs_tpu_torch.ops import fq as fq_mod
 from consensus_specs_tpu_torch.ops import shuffle as shuffle_mod
 from consensus_specs_tpu_torch.utils.config import load_preset
+from consensus_specs_tpu_torch.utils.ssz import bulk as ssz_bulk
+from consensus_specs_tpu_torch.utils.ssz.columns import state_bytes_from_columns
 
 V_MAIN = 1_000_000
 V_HASHLIB = 2_048
@@ -84,6 +115,13 @@ RAGGED = (1, 5, 300)
 BILINEAR_CHECK = 1 << 16
 SEED = 20260801
 DEVICE = "cuda"
+# the spec path (mainnet preset at full width)
+V_RESUME = 1_000_000        # BASELINE.json config 5
+V_BLOCKS = 131_072          # the smallest mainnet registry with 16 committees of 128 a slot
+V_REFERENCE = 2_048         # the object model's size for the reference drive
+RESUME_BEFORE, RESUME_AFTER = 4, 4    # slots before / after the epoch boundary
+N_SPEC_BLOCKS = 4           # attestation blocks of the block drive
+N_REFERENCE_BLOCKS = 12
 
 # H100 SXM peaks: HBM 3.35 TB/s (NVIDIA data sheet); 32-bit integer
 # add, logic and shift, and 32-bit integer multiply-add, at 64 per clock
@@ -604,6 +642,527 @@ def drive_bls(block: Block, dev):
                     "pubkeys": block.n_att * block.size, "pairs": int(g1.shape[1])}
     return out
 
+# ---------------------------------------------------------------------------
+# the spec path: ResidentCore through the system's own entry points
+# ---------------------------------------------------------------------------
+
+def full_bitfield(size: int) -> bytes:
+    """Every member's aggregation bit set, excess bits zero."""
+    bf = bytearray(b"\xff" * (size // 8))
+    if size % 8:
+        bf.append((1 << (size % 8)) - 1)
+    return bytes(bf)
+
+
+def active_index_root(spec, active: np.ndarray, dev) -> bytes:
+    return ssz_bulk.uint64_list_root_from_column(active.astype(np.uint64), dev)
+
+
+def resume_state_bytes(spec, V: int, seed: int, dev) -> bytes:
+    """A serialized mainnet BeaconState RESUME_BEFORE slots before the end
+    of epoch 2, built without a Validator object: synthetic columns
+    (epoch_soa.synthetic_epoch_state: 10% not yet activated, 10% not yet
+    eligible, 5% slashed, random balances), random identities, and a light
+    state holding a full epoch of PendingAttestations (epoch 1, every
+    committee) plus epoch 2's up to the state's slot, laid out by
+    epoch_soa._epoch_layout; state_bytes_from_columns assembles the bytes."""
+    rng = np.random.default_rng(seed)
+    cols, scal, _ = epoch_soa.synthetic_epoch_state(
+        epoch_soa.EpochConfig.from_spec(spec), V, rng,
+        random_eligibility=True, random_slashed_balances=True)
+    np_cols = dict(cols._asdict())
+    np_cols["pubkey"] = rng.integers(0, 256, (V, 48), dtype=np.uint8)
+    np_cols["withdrawal_credentials"] = rng.integers(0, 256, (V, 32), dtype=np.uint8)
+    spe = spec.SLOTS_PER_EPOCH
+    state = spec.BeaconState(genesis_time=0, deposit_index=V,
+                             latest_eth1_data=spec.Eth1Data(deposit_count=V))
+    state.slot = 3 * spe - RESUME_BEFORE
+    state.latest_slashed_balances = [int(x) for x in scal.latest_slashed_balances]
+    root = active_index_root(spec, np.nonzero(cols.activation_epoch == 0)[0], dev)
+    for i in range(spec.LATEST_ACTIVE_INDEX_ROOTS_LENGTH):
+        state.latest_active_index_roots[i] = root
+    parent_root = spec.hash_tree_root(spec.Crosslink())
+    for epoch, store in ((1, state.previous_epoch_attestations),
+                         (2, state.current_epoch_attestations)):
+        lay = epoch_soa._epoch_layout(spec, state, np_cols, epoch)
+        for off in range(lay.count):
+            slot = spec.get_epoch_start_slot(epoch) + off // (lay.count // spe)
+            if slot >= state.slot:
+                continue
+            committee = lay.shuffled[lay.bounds[off]:lay.bounds[off + 1]]
+            data = spec.AttestationData(
+                beacon_block_root=spec.get_block_root_at_slot(state, slot),
+                source_epoch=state.current_justified_epoch,
+                source_root=state.current_justified_root,
+                target_epoch=epoch,
+                target_root=spec.get_block_root(state, epoch),
+                crosslink=spec.Crosslink(
+                    shard=(lay.start_shard + off) % spec.SHARD_COUNT,
+                    parent_root=parent_root,
+                    end_epoch=min(epoch, spec.MAX_EPOCHS_PER_CROSSLINK)))
+            store.append(spec.PendingAttestation(
+                aggregation_bitfield=full_bitfield(len(committee)), data=data,
+                inclusion_delay=spec.MIN_ATTESTATION_INCLUSION_DELAY,
+                proposer_index=int(committee[0])))
+    return state_bytes_from_columns(state, np_cols, spec)
+
+
+def drive_resume(spec, data: bytes, sync):
+    """from_checkpoint -> process_slots one slot at a time across the
+    epoch boundary -> checkpoint_bytes -> from_checkpoint again. Returns
+    the numbers, the per-slot state roots and the written bytes; checks
+    that the resumed core writes the same bytes and has the same root."""
+    from consensus_specs_tpu_torch.models.phase0 import helpers as spec_helpers
+    ssz_bulk.clear_memo()            # every drive hashes everything itself
+    spec.clear_caches()              # and shuffles the committees itself
+    out = {"slot_ms": [], "slot_launches": []}
+    counter = sha256_cuda.counter
+    core = core2 = None
+    try:
+        n0 = counter.launches
+        t0 = time.perf_counter()
+        core = ResidentCore.from_checkpoint(spec, data)
+        core._registry_balances_roots()
+        sync()
+        out["enter_ms"] = (time.perf_counter() - t0) * 1e3
+        out["enter_launches"] = counter.launches - n0
+        state = core.state
+        first = int(state.slot)
+        for _ in range(RESUME_BEFORE + RESUME_AFTER):
+            boundary = (state.slot + 1) % spec.SLOTS_PER_EPOCH == 0
+            n0 = counter.launches
+            t0 = time.perf_counter()
+            core.process_slots(state, state.slot + 1)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            if boundary:
+                out["boundary_ms"], out["boundary_launches"] = ms, counter.launches - n0
+                out["boundary_parts_ms"] = {k: v * 1e3 for k, v in core.timings.items()}
+            else:
+                out["slot_ms"].append(ms)
+                out["slot_launches"].append(counter.launches - n0)
+        h = spec.SLOTS_PER_HISTORICAL_ROOT
+        out["roots"] = [bytes(state.latest_state_roots[s % h])
+                        for s in range(first, int(state.slot))]
+        root = core._state_root(state)
+        n0 = counter.launches
+        t0 = time.perf_counter()
+        written = core.checkpoint_bytes()
+        out["write_ms"] = (time.perf_counter() - t0) * 1e3
+        out["write_launches"] = counter.launches - n0
+        core._uninstall()
+        n0 = counter.launches
+        t0 = time.perf_counter()
+        core2 = ResidentCore.from_checkpoint(spec, written)
+        core2._registry_balances_roots()
+        sync()
+        out["resume_ms"] = (time.perf_counter() - t0) * 1e3
+        out["resume_launches"] = counter.launches - n0
+        # the path's own launches: the checks' root and bytes are not in them
+        out["launches"] = (out["enter_launches"] + sum(out["slot_launches"])
+                           + out["boundary_launches"] + out["write_launches"]
+                           + out["resume_launches"])
+        if core2.checkpoint_bytes() != written:
+            raise AssertionError("the resumed core writes other bytes")
+        if core2._state_root(core2.state) != root:
+            raise AssertionError("the resumed core has another state root")
+        out["written"] = written
+        out["bytes"] = len(written)
+    finally:
+        for c in (core2, core):
+            if c is not None:
+                c._uninstall()
+    if spec_helpers._state_root_backend is not None:
+        raise AssertionError("a resident core left its state-root hook installed")
+    return out
+
+
+def beacon_state(spec, V: int, slot: int, pubkey_of, dev):
+    """An object-model mainnet state: V validators active from genesis at
+    the maximum effective balance, `pubkey_of(i)` as validator i's key."""
+    state = spec.BeaconState(genesis_time=0, deposit_index=V,
+                             latest_eth1_data=spec.Eth1Data(deposit_count=V))
+    state.balances = [spec.MAX_EFFECTIVE_BALANCE] * V
+    state.validator_registry = [
+        spec.Validator(
+            pubkey=pubkey_of(i), withdrawal_credentials=bytes(32),
+            activation_eligibility_epoch=spec.GENESIS_EPOCH,
+            activation_epoch=spec.GENESIS_EPOCH,
+            exit_epoch=spec.FAR_FUTURE_EPOCH,
+            withdrawable_epoch=spec.FAR_FUTURE_EPOCH,
+            effective_balance=spec.MAX_EFFECTIVE_BALANCE)
+        for i in range(V)]
+    root = active_index_root(spec, np.arange(V), dev)
+    for i in range(spec.LATEST_ACTIVE_INDEX_ROOTS_LENGTH):
+        state.latest_active_index_roots[i] = root
+    state.slot = slot
+    return state
+
+
+def slot_attestations(spec, state, slot: int, sign_with=None):
+    """Fully participating attestations of every committee of `slot`
+    (< state.slot), consistent with `state` (the checks of
+    process_attestation). sign_with(committee, message, domain) gives the
+    signature; without it the signature stays zero (BLS off)."""
+    spe = spec.SLOTS_PER_EPOCH
+    epoch = spec.slot_to_epoch(slot)
+    per_slot = spec.get_epoch_committee_count(state, epoch) // spe
+    start = spec.get_epoch_start_shard(state, epoch)
+    current = epoch == spec.get_current_epoch(state)
+    source = ((state.current_justified_epoch, state.current_justified_root)
+              if current else
+              (state.previous_justified_epoch, state.previous_justified_root))
+    out = []
+    for k in range(per_slot):
+        shard = (start + per_slot * (slot % spe) + k) % spec.SHARD_COUNT
+        committee = spec.get_crosslink_committee(state, epoch, shard)
+        lineage = (state.current_crosslinks if current
+                   else state.previous_crosslinks)[shard]
+        data = spec.AttestationData(
+            beacon_block_root=spec.get_block_root_at_slot(state, slot),
+            source_epoch=source[0], source_root=source[1],
+            target_epoch=epoch, target_root=spec.get_block_root(state, epoch),
+            crosslink=spec.Crosslink(
+                shard=shard, start_epoch=lineage.end_epoch,
+                end_epoch=min(epoch, lineage.end_epoch + spec.MAX_EPOCHS_PER_CROSSLINK),
+                parent_root=spec.hash_tree_root(lineage)))
+        bits = full_bitfield(len(committee))
+        att = spec.Attestation(aggregation_bitfield=bits, data=data,
+                               custody_bitfield=bytes(len(bits)))
+        if sign_with is not None:
+            msg = spec.hash_tree_root(
+                spec.AttestationDataAndCustodyBit(data=data, custody_bit=False))
+            att.signature = sign_with(committee, msg, spec.get_domain(
+                state, spec.DOMAIN_ATTESTATION, epoch))
+        out.append(att)
+    return out
+
+
+def key_of(index: int) -> int:
+    """Validator i's secret key in the block drive: 64 keypairs cycled."""
+    return index % N_KEYS + 1
+
+
+def sign_committee(committee, msg, domain) -> bytes:
+    """One signature under the sum of the members' keys: the aggregate of
+    their signatures (host, untimed staging)."""
+    return bls_host.sign(msg, sum(key_of(int(i)) for i in committee) % bls_host.r, domain)
+
+
+def proposed_block(spec, state, attestations=(), exits=(), signed=True):
+    """A block at state.slot (the state already advanced to it) carrying
+    the operations, with the proposer's randao reveal and signature."""
+    block = spec.BeaconBlock(slot=state.slot,
+                             parent_root=spec.signing_root(state.latest_block_header))
+    block.body.eth1_data.deposit_count = state.deposit_index
+    block.body.attestations = list(attestations)
+    block.body.voluntary_exits = list(exits)
+    if signed:
+        key = key_of(spec.get_beacon_proposer_index(state))
+        epoch = spec.get_current_epoch(state)
+        block.body.randao_reveal = bls_host.sign(
+            spec.hash_tree_root(epoch), key,
+            spec.get_domain(state, spec.DOMAIN_RANDAO, epoch))
+        block.signature = bls_host.sign(
+            spec.signing_root(block), key,
+            spec.get_domain(state, spec.DOMAIN_BEACON_PROPOSER))
+    return block
+
+
+def drive_blocks(spec, V: int, n_blocks: int, sync, dev):
+    """The object entry with BLS on: ResidentCore(spec, state) over V
+    validators (keys cycled over N_KEYS keypairs) at an epoch past
+    PERSISTENT_COMMITTEE_PERIOD; n_blocks blocks each carrying the
+    attestations of the slot MIN_ATTESTATION_INCLUSION_DELAY before it,
+    then a block with a signed voluntary exit (the fallback path), then a
+    block whose attestation signatures BAD_ITEM and BAD_ITEM + 1 are
+    swapped, which the batched verify must reject with exactly those two
+    items False. Every slot advance and block is one row; sha256_launches
+    is the sum of the entry's and the rows' launches (the checks after the
+    drive and the host staging between rows are not in it). Returns the
+    numbers."""
+    from consensus_specs_tpu_torch.crypto import bls as spec_bls
+    pubs = [bls_host.privtopub(k + 1) for k in range(N_KEYS)]
+    spe = spec.SLOTS_PER_EPOCH
+    epoch0 = spec.PERSISTENT_COMMITTEE_PERIOD + 1
+    t0 = time.perf_counter()
+    state = beacon_state(spec, V, epoch0 * spe, lambda i: pubs[i % N_KEYS], dev)
+    out = {"build_s": time.perf_counter() - t0, "blocks": []}
+    was_active = spec_bls.bls_active
+    spec_bls.bls_active = True
+    spec_bls.set_backend("torch")
+    backend = spec_bls.get_backend()
+    verify_ms, single_ms, verdicts = [], [], []
+
+    def timed_verify(items, _inner=backend.verify_indexed_batch):
+        t = time.perf_counter()
+        res = _inner(items)
+        sync()
+        verify_ms.append((time.perf_counter() - t) * 1e3)
+        verdicts.append([bool(v) for v in res])
+        return res
+
+    def timed_single(*args, _inner=backend.verify):
+        t = time.perf_counter()
+        res = _inner(*args)
+        sync()
+        single_ms.append((time.perf_counter() - t) * 1e3)
+        return res
+    backend.verify_indexed_batch = timed_verify
+    backend.verify = timed_single
+    core = None
+    try:
+        counter = sha256_cuda.counter
+        n0 = counter.launches
+        t0 = time.perf_counter()
+        core = ResidentCore(spec, state)
+        core._registry_balances_roots()
+        sync()
+        out["enter_ms"] = (time.perf_counter() - t0) * 1e3
+        out["enter_launches"] = counter.launches - n0
+        delay = spec.MIN_ATTESTATION_INCLUSION_DELAY
+
+        def advance(slot):
+            n0 = counter.launches
+            t0 = time.perf_counter()
+            core.process_slots(state, slot)
+            sync()
+            return {"slots_ms": (time.perf_counter() - t0) * 1e3,
+                    "slots_launches": counter.launches - n0}
+
+        def apply(block, kind, slots):
+            zero_fq_counters()
+            verify_ms.clear()
+            single_ms.clear()
+            verdicts.clear()
+            n0 = counter.launches
+            before = len(state.current_epoch_attestations)
+            t0 = time.perf_counter()
+            try:
+                core.state_transition(state, block)
+                raised = None
+            except AssertionError as e:
+                raised = e
+            sync()
+            row = {"kind": kind, "block_ms": (time.perf_counter() - t0) * 1e3,
+                   "verify_ms": sum(verify_ms), "single_verifies": len(single_ms),
+                   "single_verify_ms": sum(single_ms),
+                   "sha256_launches": counter.launches - n0,
+                   "attestations": len(state.current_epoch_attestations) - before,
+                   **fq_launches(), **slots}
+            out["blocks"].append(row)
+            return row, raised
+
+        slot = epoch0 * spe + delay
+        for b in range(n_blocks):
+            slot += 1
+            slots = advance(slot)
+            t0 = time.perf_counter()
+            block = proposed_block(spec, state, slot_attestations(
+                spec, state, slot - delay, sign_committee))
+            staged_s = time.perf_counter() - t0
+            row, raised = apply(block, "attestations", slots)
+            row["staging_s"] = staged_s
+            if raised is not None:
+                raise raised
+            if row["attestations"] != len(block.body.attestations):
+                raise AssertionError(f"block {b}: {row['attestations']} attestations kept")
+            if not (row["fq_mul"] > 0 and row["fq_bilinear"] > 0):
+                raise AssertionError(f"block {b} verified without the kernels: {row}")
+
+        slot += 1
+        slots = advance(slot)
+        leaver = (spec.get_beacon_proposer_index(state) + 1) % V
+        exit_op = spec.VoluntaryExit(epoch=spec.get_current_epoch(state),
+                                     validator_index=leaver)
+        exit_op.signature = bls_host.sign(
+            spec.signing_root(exit_op), key_of(leaver),
+            spec.get_domain(state, spec.DOMAIN_VOLUNTARY_EXIT, exit_op.epoch))
+        forest = core.res.registry_forest
+        _, raised = apply(proposed_block(spec, state, exits=[exit_op]),
+                          "voluntary exit (fallback)", slots)
+        if raised is not None:
+            raise raised
+        if core.mirrors["exit_epoch"][leaver] == spec.FAR_FUTURE_EPOCH:
+            raise AssertionError("the voluntary exit did not land")
+        if core.res.registry_forest is not forest:
+            raise AssertionError("the fallback rebuilt the registry forest")
+        out["exit_pairs_per_level"] = list(forest.last_pairs_per_level)
+
+        slot += 1
+        slots = advance(slot)
+        atts = slot_attestations(spec, state, slot - delay, sign_committee)
+        atts[BAD_ITEM].signature, atts[BAD_ITEM + 1].signature = \
+            atts[BAD_ITEM + 1].signature, atts[BAD_ITEM].signature
+        row, raised = apply(proposed_block(spec, state, atts), "2 swapped signatures", slots)
+        if raised is None:
+            raise AssertionError("the block with swapped signatures was accepted")
+        # the raise is the batched verdict's: one batched verify ran, exactly
+        # the two swapped items read False, and the assertion that failed is
+        # the one after the verify in process_attestations_batched
+        expected = [k not in (BAD_ITEM, BAD_ITEM + 1) for k in range(len(atts))]
+        if verdicts != [expected]:
+            raise AssertionError(f"bad block: batched verdicts {verdicts}, expected"
+                                 f" only items {BAD_ITEM} and {BAD_ITEM + 1} False")
+        where = traceback.extract_tb(raised.__traceback__)[-1]
+        if where.name != "process_attestations_batched":
+            raise AssertionError(f"bad block raised in {where.name}, not after the"
+                                 f" batched verify: {raised!r}")
+        out["bad_block_verdicts"] = verdicts[0]
+        out["sha256_launches"] = out["enter_launches"] + sum(
+            r["slots_launches"] + r["sha256_launches"] for r in out["blocks"])
+        root = core._state_root(state)
+    finally:
+        del backend.verify_indexed_batch, backend.verify
+        spec_bls.bls_active = was_active
+        if core is not None:
+            core.exit()
+    # the registry as objects again, rooted by the bulk path
+    if ssz_bulk.state_root_bulk(state, dev) != root:
+        raise AssertionError("resident root != bulk root of the exited state")
+    out["shape"] = {"validators": V, "attestations_per_block": len(atts),
+                    "committee": len(spec.get_crosslink_committee(
+                        state, spec.get_current_epoch(state),
+                        atts[0].data.crosslink.shard))}
+    return out
+
+
+def drive_reference(spec, V: int, n_blocks: int, dev):
+    """The same kind of drive through ResidentCore and through the port's
+    unpatched object model (core.suspended(): spec.process_slots /
+    spec.process_block), BLS off, from a state n_blocks // 2 slots before
+    the end of epoch 2 across the boundary: each block carries the
+    attestations of the slot MIN_ATTESTATION_INCLUSION_DELAY before it.
+    Per-slot state roots and full roots must agree after every block, and
+    the serialized states at the end."""
+    from consensus_specs_tpu_torch.crypto import bls as spec_bls
+    from consensus_specs_tpu_torch.utils.ssz import impl as ssz_impl
+    spe = spec.SLOTS_PER_EPOCH
+    state = beacon_state(spec, V, 3 * spe - n_blocks // 2, lambda i: i.to_bytes(48, "little"), dev)
+    ref, res = copy.deepcopy(state), state
+    was_active = spec_bls.bls_active
+    spec_bls.bls_active = False
+    core = ResidentCore(spec, res)
+    t0 = time.perf_counter()
+    try:
+        for _ in range(n_blocks):
+            slot = res.slot + 1
+            core.process_slots(res, slot)
+            with core.suspended():
+                spec.process_slots(ref, slot)
+                block = proposed_block(spec, ref, slot_attestations(
+                    spec, ref, slot - spec.MIN_ATTESTATION_INCLUSION_DELAY),
+                    signed=False)
+                spec.process_block(ref, block)
+            core.state_transition(res, copy.deepcopy(block))
+            if list(res.latest_state_roots) != list(ref.latest_state_roots):
+                raise AssertionError(f"slot {slot}: per-slot roots differ")
+            if core._state_root(res) != ssz_impl.hash_tree_root(ref):
+                raise AssertionError(f"slot {slot}: state roots differ")
+    finally:
+        core.exit()
+        spec_bls.bls_active = was_active
+    if ssz_impl.serialize(res, spec.BeaconState) != ssz_impl.serialize(ref, spec.BeaconState):
+        raise AssertionError("serialized states differ")
+    return {"s": time.perf_counter() - t0, "blocks": n_blocks,
+            "slots": (int(state.slot) - n_blocks, int(state.slot))}
+
+
+def spec_path(dev, sync, v_resume=V_RESUME, v_blocks=V_BLOCKS,
+              v_reference=V_REFERENCE):
+    """The spec-path phase: the resume drive (kernel pair hash, then the
+    same drive with the plain pair hash, roots and bytes compared), the
+    block drive, the reference drive. Returns the numbers."""
+    spec = phase0.get_spec("mainnet", device=dev)
+    out = {}
+    t0 = time.perf_counter()
+    data = resume_state_bytes(spec, v_resume, SEED + 3, dev)
+    out["resume_build_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    out["resume"] = drive_resume(spec, data, sync)
+    out["resume"]["validators"] = v_resume
+    out["resume"]["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if out["resume"]["launches"] <= 0:
+        raise AssertionError("the resume drive never launched sha256_pairs")
+    plain_spec = phase0.Phase0Spec(load_preset("mainnet"), device=dev,
+                                   pair_fn=sha256.sha256_pairs)
+    n0 = sha256_cuda.counter.launches
+    t0 = time.perf_counter()
+    plain = drive_resume(plain_spec, data, sync)
+    out["resume_plain_s"] = time.perf_counter() - t0
+    out["resume_plain_launches"] = sha256_cuda.counter.launches - n0
+    if out["resume_plain_launches"]:
+        raise AssertionError("the plain drive launched the kernel")
+    if plain["roots"] != out["resume"]["roots"] or plain["written"] != out["resume"]["written"]:
+        raise AssertionError("resume drive: kernel roots/bytes != plain pair hash")
+    del data, plain, out["resume"]["written"]
+    out["resume"]["roots"] = len(out["resume"]["roots"])
+
+    torch.cuda.reset_peak_memory_stats()
+    out["blocks"] = drive_blocks(spec, v_blocks, N_SPEC_BLOCKS, sync, dev)
+    out["blocks"]["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["reference"] = drive_reference(spec, v_reference, N_REFERENCE_BLOCKS, dev)
+    out["reference"]["validators"] = v_reference
+    return out
+
+
+
+def report_spec_path(sp) -> dict:
+    """Print the spec-path phase's lines; returns its launches per kernel
+    (the resume and block drives), raising if the block drive launched no
+    pair hash."""
+    r = sp["resume"]
+    log(f"phase spec resume: V={r['validators']:,} mainnet, state bytes built from columns"
+        f" in {sp['resume_build_s']:.1f} s (untimed) | from_checkpoint + roots"
+        f" {r['enter_ms']:.1f} ms, {r['enter_launches']} launches | per-slot root ms"
+        f" min / median / max {min(r['slot_ms']):.2f} / {float(np.median(r['slot_ms'])):.2f}"
+        f" / {max(r['slot_ms']):.2f} over {len(r['slot_ms'])} slots, launches"
+        f" {r['slot_launches']} | boundary slot {r['boundary_ms']:.1f} ms (stage"
+        f" {r['boundary_parts_ms']['stage']:.1f} / device {r['boundary_parts_ms']['device']:.1f}"
+        f" / refresh {r['boundary_parts_ms']['refresh']:.1f}), {r['boundary_launches']}"
+        f" launches | checkpoint write {r['write_ms']:.1f} ms ({r['bytes']:,} bytes),"
+        f" {r['write_launches']} launches | resume {r['resume_ms']:.1f} ms,"
+        f" {r['resume_launches']} launches | sha256_pairs launches {r['launches']}"
+        f" (entry + slots + boundary + write + resume) | peak device memory"
+        f" {r['peak_device_gib']:.2f} GiB")
+    log(f"phase spec resume checks: {r['roots']} per-slot roots and the written bytes =="
+        f" the same drive with the plain pair hash on the card ({sp['resume_plain_s']:.1f} s,"
+        f" {sp['resume_plain_launches']} kernel launches); the resumed core writes the"
+        f" same bytes and has the same root")
+    b = sp["blocks"]
+    for row in b["blocks"]:
+        log(f"phase spec block: {row['kind']}, {row['attestations']} attestations appended |"
+            f" slots before it {row['slots_ms']:.1f} ms, {row['slots_launches']} launches |"
+            f" state_transition {row['block_ms']:.1f} ms, of which verify_indexed_batch"
+            f" {row['verify_ms']:.1f} ms and {row['single_verifies']} single verifies"
+            f" {row['single_verify_ms']:.1f} ms | fq_mul {row['fq_mul']} / fq_bilinear"
+            f" {row['fq_bilinear']} / sha256_pairs {row['sha256_launches']} launches"
+            + (f" | host signing {row['staging_s']:.1f} s (untimed)"
+               if "staging_s" in row else ""))
+    shape = b["shape"]
+    bad = [k for k, v in enumerate(b["bad_block_verdicts"]) if not v]
+    log(f"phase spec blocks: V={shape['validators']:,} mainnet, object entry"
+        f" ResidentCore(spec, state) {b['enter_ms']:.1f} ms ({b['enter_launches']}"
+        f" launches), state built in {b['build_s']:.1f} s (untimed) |"
+        f" {shape['attestations_per_block']} attestations of {shape['committee']} a block,"
+        f" BLS on the torch backend | the exit re-hashed {b['exit_pairs_per_level']}"
+        f" pairs per level | the block with 2 swapped signatures: batched verdict False"
+        f" at items {bad} only, AssertionError from process_attestations_batched |"
+        f" sha256_pairs launches {b['sha256_launches']} (entry + slots + blocks)"
+        f" | peak device memory {b['peak_device_gib']:.2f} GiB")
+    ref = sp["reference"]
+    log(f"phase spec reference: V={ref['validators']:,} mainnet, {ref['blocks']} blocks, slots"
+        f" {ref['slots'][0]}-{ref['slots'][1]} across the epoch boundary: per-slot roots,"
+        f" state roots after every block and the serialized states == the port's object"
+        f" model ({ref['s']:.1f} s)")
+    spec_launches = {
+        "sha256_pairs": r["launches"] + b["sha256_launches"],
+        **{k: sum(row[k] for row in b["blocks"])
+           for k in ("fq_mul", "fq_redc", "fq_bilinear")}}
+    if b["sha256_launches"] <= 0:
+        raise AssertionError("the block drive never launched sha256_pairs")
+    return spec_launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -855,13 +1414,23 @@ def main() -> int:
                     for k, v in small.items()))
     result["small_launch"] = small
 
-    # -- 8. kernels line ---------------------------------------------------------
+    # -- 8. the spec path: ResidentCore through the entry points ---------------
+    torch.cuda.empty_cache()
+    sp = spec_path(dev, sync)
+    result["spec_path"] = sp
+    spec_launches = report_spec_path(sp)
+    r, b = sp["resume"], sp["blocks"]
+
+    # -- 9. kernels line ---------------------------------------------------------
     kernels = [{
         "name": "sha256_pairs",
         "route": "cuda",
         "source": "consensus_specs_tpu_torch/csrc/sha256_pairs.cu",
         "replaces": "consensus_specs_tpu/ops/sha256_pallas.py:70",
-        "launches": main_launches,
+        "launches": spec_launches["sha256_pairs"],
+        "launches_by_path": {"resident_columns": main_launches,
+                             "spec_resume": r["launches"],
+                             "spec_blocks": b["sha256_launches"]},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -876,7 +1445,9 @@ def main() -> int:
         "source": "consensus_specs_tpu_torch/csrc/fq_mont.cu",
         "replaces": {"fq_mul": "consensus_specs_tpu/ops/fq.py:450",
                      "fq_redc": "consensus_specs_tpu/ops/fq.py:413"}[name],
-        "launches": bls["launches"][name],
+        "launches": spec_launches[name],
+        "launches_by_path": {"bls_verify": bls["launches"][name],
+                             "spec_blocks": spec_launches[name]},
         "max_abs_err": fq_k[name]["max_abs_err"],
         "ms": fq_k[name]["ms"],
         "plain_ms": fq_k[name]["plain_ms"],
@@ -892,7 +1463,9 @@ def main() -> int:
         "route": "cuda",
         "source": "consensus_specs_tpu_torch/csrc/fq_mont.cu",
         "replaces": "consensus_specs_tpu/ops/fq_tower.py:522",
-        "launches": bls["launches"]["fq_bilinear"],
+        "launches": spec_launches["fq_bilinear"],
+        "launches_by_path": {"bls_verify": bls["launches"]["fq_bilinear"],
+                             "spec_blocks": spec_launches["fq_bilinear"]},
         "max_abs_err": max(k["max_abs_err"] for k in fq_k["fq_bilinear"].values()),
         "ms": mul12["check_ms"],
         "plain_ms": mul12["plain_ms"],
@@ -903,12 +1476,13 @@ def main() -> int:
         "table": "fq12_mul",
         "bit_identical": True,
     })
-    # every tower product's REDC runs inside fq_bilinear now, so the main
-    # path launches fq_redc no more; it must have launched the others
+    # every tower product's REDC runs inside fq_bilinear now, so no path
+    # launches fq_redc; every path must have launched each of the others
     for k in kernels:
         k["on_main_path"] = k["name"] != "fq_redc"
-        if k["on_main_path"] and k["launches"] <= 0:
-            raise AssertionError(f"the main path never launched {k['name']}")
+        if k["on_main_path"] and min(k["launches_by_path"].values()) <= 0:
+            raise AssertionError(f"a path never launched {k['name']}: "
+                                 f"{k['launches_by_path']}")
     result["kernels"] = kernels
     if args.json:
         with open(args.json, "w") as f:

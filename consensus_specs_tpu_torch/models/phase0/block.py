@@ -1,0 +1,276 @@
+"""Phase-0 block processing (bound as methods of Phase0Spec; port of
+consensus_specs_tpu/models/phase0/block.py).
+
+Semantics per consensus-specs specs/core/0_beacon-chain.md:1566-1832:
+header, randao, eth1 data, then the six operation types in fixed order with
+per-type max counts.
+"""
+from __future__ import annotations
+
+
+def process_block(spec, state, block) -> None:
+    spec.process_block_header(state, block)
+    spec.process_randao(state, block.body)
+    spec.process_eth1_data(state, block.body)
+    spec.process_operations(state, block.body)
+
+
+def process_block_header(spec, state, block) -> None:
+    # Slot and parent linkage
+    assert block.slot == state.slot
+    assert block.parent_root == spec.signing_root(state.latest_block_header)
+    state.latest_block_header = spec.BeaconBlockHeader(
+        slot=block.slot,
+        parent_root=block.parent_root,
+        body_root=spec.hash_tree_root(block.body),
+    )
+    # Proposer must not be slashed, and must have signed the block
+    proposer = state.validator_registry[spec.get_beacon_proposer_index(state)]
+    assert not proposer.slashed
+    assert spec.bls.bls_verify(proposer.pubkey, spec.signing_root(block), block.signature,
+                               spec.get_domain(state, spec.DOMAIN_BEACON_PROPOSER))
+
+
+def process_randao(spec, state, body) -> None:
+    proposer = state.validator_registry[spec.get_beacon_proposer_index(state)]
+    current_epoch = spec.get_current_epoch(state)
+    assert spec.bls.bls_verify(
+        proposer.pubkey,
+        spec.hash_tree_root(current_epoch),
+        body.randao_reveal,
+        spec.get_domain(state, spec.DOMAIN_RANDAO),
+    )
+    state.latest_randao_mixes[current_epoch % spec.LATEST_RANDAO_MIXES_LENGTH] = spec.xor(
+        spec.get_randao_mix(state, current_epoch), spec.hash(bytes(body.randao_reveal)))
+
+
+def process_eth1_data(spec, state, body) -> None:
+    state.eth1_data_votes.append(body.eth1_data)
+    if sum(1 for v in state.eth1_data_votes if v == body.eth1_data) * 2 > spec.SLOTS_PER_ETH1_VOTING_PERIOD:
+        state.latest_eth1_data = body.eth1_data
+
+
+def process_operations(spec, state, body) -> None:
+    # Outstanding deposits must be processed up to the per-block maximum
+    assert len(body.deposits) == min(spec.MAX_DEPOSITS,
+                                     state.latest_eth1_data.deposit_count - state.deposit_index)
+    # No duplicate transfers
+    assert len(body.transfers) == len(set(body.transfers))
+
+    # family = whole-list processor (the attestation family batches its
+    # signature checks into one device pipeline); handler = per-operation
+    for operations, max_operations, handler, family in (
+        (body.proposer_slashings, spec.MAX_PROPOSER_SLASHINGS, spec.process_proposer_slashing, None),
+        (body.attester_slashings, spec.MAX_ATTESTER_SLASHINGS, spec.process_attester_slashing, None),
+        (body.attestations, spec.MAX_ATTESTATIONS, spec.process_attestation, process_attestations_batched),
+        (body.deposits, spec.MAX_DEPOSITS, spec.process_deposit, None),
+        (body.voluntary_exits, spec.MAX_VOLUNTARY_EXITS, spec.process_voluntary_exit, None),
+        (body.transfers, spec.MAX_TRANSFERS, spec.process_transfer, None),
+    ):
+        assert len(operations) <= max_operations
+        if family is not None:
+            family(spec, state, operations)
+        else:
+            for operation in operations:
+                handler(state, operation)
+
+    # Later phases append operation families after all phase-0 ops (the
+    # reference appends them via spec-doc ordering, 1_custody-game.md:330+)
+    for body_attr, max_operations, handler in spec._extra_block_operations:
+        operations = getattr(body, body_attr)
+        assert len(operations) <= max_operations
+        for operation in operations:
+            handler(state, operation)
+
+
+_batching_enabled = True
+
+
+def set_attestation_batching(enabled: bool) -> None:
+    """Test hook: force the sequential per-attestation verify path."""
+    global _batching_enabled
+    _batching_enabled = enabled
+
+
+def process_attestations_batched(spec, state, attestations) -> None:
+    """The block's attestation family with signature checks collapsed into
+    ONE grouped device pipeline (BASELINE config 3; 0_beacon-chain.md
+    :1625-1645, :1692-1727).
+
+    Each process_attestation runs all its host-side checks and state writes
+    in reference order, but validate_indexed_attestation defers its pairing
+    check into a sink (helpers.py); the collected block is then verified by
+    the backend's verify_indexed_batch — batched G1 aggregation, G2
+    decompression, hash_to_G2, and one grouped pairing on the card. A failed
+    verdict raises the same AssertionError the sequential path raises (the
+    reference discards half-mutated state on failure either way,
+    :1204-1219). Backends without batch support (the bignum oracle) and
+    crypto-off runs take the unchanged sequential path."""
+    batch = (getattr(spec.bls.get_backend(), "verify_indexed_batch", None)
+             if spec.bls.bls_active and _batching_enabled else None)
+    # Within this loop the only state mutations are PendingAttestation
+    # appends, so the slot's proposer index is invariant: pin it for the
+    # scope (each process_attestation consults it; up to 128 rejection-
+    # sampling recomputations collapse to one)
+    if len(attestations) > 1:
+        state._proposer_memo = (
+            (int(state.slot), len(state.validator_registry)),
+            spec.get_beacon_proposer_index(state))
+    try:
+        if batch is None or spec._att_verify_sink is not None:
+            for attestation in attestations:
+                spec.process_attestation(state, attestation)
+            return
+        sink = []
+        spec._att_verify_sink = sink
+        try:
+            for attestation in attestations:
+                spec.process_attestation(state, attestation)
+        finally:
+            spec._att_verify_sink = None
+        if sink:
+            assert all(batch(sink))
+    finally:
+        if len(attestations) > 1:
+            state._proposer_memo = None
+
+
+def process_proposer_slashing(spec, state, proposer_slashing) -> None:
+    proposer = state.validator_registry[proposer_slashing.proposer_index]
+    # Same epoch, different headers, slashable proposer, both signatures valid
+    assert spec.slot_to_epoch(proposer_slashing.header_1.slot) == \
+        spec.slot_to_epoch(proposer_slashing.header_2.slot)
+    assert proposer_slashing.header_1 != proposer_slashing.header_2
+    assert spec.is_slashable_validator(proposer, spec.get_current_epoch(state))
+    for header in (proposer_slashing.header_1, proposer_slashing.header_2):
+        domain = spec.get_domain(state, spec.DOMAIN_BEACON_PROPOSER, spec.slot_to_epoch(header.slot))
+        assert spec.bls.bls_verify(proposer.pubkey, spec.signing_root(header), header.signature, domain)
+
+    spec.slash_validator(state, proposer_slashing.proposer_index)
+
+
+def process_attester_slashing(spec, state, attester_slashing) -> None:
+    attestation_1 = attester_slashing.attestation_1
+    attestation_2 = attester_slashing.attestation_2
+    assert spec.is_slashable_attestation_data(attestation_1.data, attestation_2.data)
+    spec.validate_indexed_attestation(state, attestation_1)
+    spec.validate_indexed_attestation(state, attestation_2)
+
+    slashed_any = False
+    attesting_indices_1 = list(attestation_1.custody_bit_0_indices) + list(attestation_1.custody_bit_1_indices)
+    attesting_indices_2 = list(attestation_2.custody_bit_0_indices) + list(attestation_2.custody_bit_1_indices)
+    for index in sorted(set(attesting_indices_1) & set(attesting_indices_2)):
+        if spec.is_slashable_validator(state.validator_registry[index], spec.get_current_epoch(state)):
+            spec.slash_validator(state, index)
+            slashed_any = True
+    assert slashed_any
+
+
+def process_attestation(spec, state, attestation) -> None:
+    data = attestation.data
+    attestation_slot = spec.get_attestation_data_slot(state, data)
+    assert attestation_slot + spec.MIN_ATTESTATION_INCLUSION_DELAY <= state.slot \
+        <= attestation_slot + spec.SLOTS_PER_EPOCH
+
+    pending_attestation = spec.PendingAttestation(
+        data=data,
+        aggregation_bitfield=attestation.aggregation_bitfield,
+        inclusion_delay=state.slot - attestation_slot,
+        proposer_index=spec.get_beacon_proposer_index(state),
+    )
+
+    assert data.target_epoch in (spec.get_previous_epoch(state), spec.get_current_epoch(state))
+    if data.target_epoch == spec.get_current_epoch(state):
+        ffg_data = (state.current_justified_epoch, state.current_justified_root, spec.get_current_epoch(state))
+        parent_crosslink = state.current_crosslinks[data.crosslink.shard]
+        state.current_epoch_attestations.append(pending_attestation)
+    else:
+        ffg_data = (state.previous_justified_epoch, state.previous_justified_root, spec.get_previous_epoch(state))
+        parent_crosslink = state.previous_crosslinks[data.crosslink.shard]
+        state.previous_epoch_attestations.append(pending_attestation)
+
+    # FFG vote, crosslink linkage, and aggregate signature must all check out
+    assert ffg_data == (data.source_epoch, data.source_root, data.target_epoch)
+    assert data.crosslink.start_epoch == parent_crosslink.end_epoch
+    assert data.crosslink.end_epoch == min(data.target_epoch,
+                                           parent_crosslink.end_epoch + spec.MAX_EPOCHS_PER_CROSSLINK)
+    assert data.crosslink.parent_root == spec.hash_tree_root(parent_crosslink)
+    assert data.crosslink.data_root == spec.ZERO_HASH  # [to be removed in phase 1]
+    spec.validate_indexed_attestation(state, spec.convert_to_indexed(state, attestation))
+
+
+def process_deposit(spec, state, deposit) -> None:
+    """Register a validator or top up its balance from an Eth1 deposit."""
+    assert spec.verify_merkle_branch(
+        leaf=spec.hash_tree_root(deposit.data),
+        proof=deposit.proof,
+        depth=spec.DEPOSIT_CONTRACT_TREE_DEPTH,
+        index=state.deposit_index,
+        root=state.latest_eth1_data.deposit_root,
+    )
+
+    # Deposits must be processed in order
+    state.deposit_index += 1
+
+    pubkey = deposit.data.pubkey
+    amount = deposit.data.amount
+    validator_pubkeys = [v.pubkey for v in state.validator_registry]
+    if pubkey not in validator_pubkeys:
+        # New validator: the deposit signature (proof of possession) must be
+        # valid — but an invalid one just skips the deposit (the contract
+        # can't filter them), it does not invalidate the block.
+        if not spec.bls.bls_verify(pubkey, spec.signing_root(deposit.data), deposit.data.signature,
+                                   spec.bls_domain(spec.DOMAIN_DEPOSIT)):
+            return
+
+        state.validator_registry.append(spec.Validator(
+            pubkey=pubkey,
+            withdrawal_credentials=deposit.data.withdrawal_credentials,
+            activation_eligibility_epoch=spec.FAR_FUTURE_EPOCH,
+            activation_epoch=spec.FAR_FUTURE_EPOCH,
+            exit_epoch=spec.FAR_FUTURE_EPOCH,
+            withdrawable_epoch=spec.FAR_FUTURE_EPOCH,
+            effective_balance=min(amount - amount % spec.EFFECTIVE_BALANCE_INCREMENT,
+                                  spec.MAX_EFFECTIVE_BALANCE),
+        ))
+        state.balances.append(amount)
+    else:
+        spec.increase_balance(state, validator_pubkeys.index(pubkey), amount)
+
+
+def process_voluntary_exit(spec, state, exit) -> None:
+    validator = state.validator_registry[exit.validator_index]
+    # Active, not yet exited, exit epoch reached, active long enough, signed
+    assert spec.is_active_validator(validator, spec.get_current_epoch(state))
+    assert validator.exit_epoch == spec.FAR_FUTURE_EPOCH
+    assert spec.get_current_epoch(state) >= exit.epoch
+    assert spec.get_current_epoch(state) >= validator.activation_epoch + spec.PERSISTENT_COMMITTEE_PERIOD
+    domain = spec.get_domain(state, spec.DOMAIN_VOLUNTARY_EXIT, exit.epoch)
+    assert spec.bls.bls_verify(validator.pubkey, spec.signing_root(exit), exit.signature, domain)
+
+    spec.initiate_validator_exit(state, exit.validator_index)
+
+
+def process_transfer(spec, state, transfer) -> None:
+    # Anti-overflow: amount and fee individually covered
+    assert state.balances[transfer.sender] >= max(transfer.amount, transfer.fee)
+    # Valid in exactly one slot
+    assert state.slot == transfer.slot
+    # Sender not yet activation-eligible, withdrawn, or keeps MAX_EFFECTIVE_BALANCE
+    assert (
+        state.validator_registry[transfer.sender].activation_eligibility_epoch == spec.FAR_FUTURE_EPOCH
+        or spec.get_current_epoch(state) >= state.validator_registry[transfer.sender].withdrawable_epoch
+        or transfer.amount + transfer.fee + spec.MAX_EFFECTIVE_BALANCE <= state.balances[transfer.sender]
+    )
+    # Withdrawal credentials must commit to the provided pubkey
+    assert (bytes(state.validator_registry[transfer.sender].withdrawal_credentials)
+            == spec.int_to_bytes(spec.BLS_WITHDRAWAL_PREFIX, length=1) + spec.hash(bytes(transfer.pubkey))[1:])
+    assert spec.bls.bls_verify(transfer.pubkey, spec.signing_root(transfer), transfer.signature,
+                               spec.get_domain(state, spec.DOMAIN_TRANSFER))
+
+    spec.decrease_balance(state, transfer.sender, transfer.amount + transfer.fee)
+    spec.increase_balance(state, transfer.recipient, transfer.amount)
+    spec.increase_balance(state, spec.get_beacon_proposer_index(state), transfer.fee)
+    # No dust balances
+    assert not (0 < state.balances[transfer.sender] < spec.MIN_DEPOSIT_AMOUNT)
+    assert not (0 < state.balances[transfer.recipient] < spec.MIN_DEPOSIT_AMOUNT)

@@ -1,0 +1,345 @@
+"""Phase-0 epoch processing (bound as methods of Phase0Spec; port of
+consensus_specs_tpu/models/phase0/epoch.py).
+
+Semantics per consensus-specs specs/core/0_beacon-chain.md:1247-1564:
+justification/finalization (Casper FFG), crosslinks, rewards/penalties,
+registry updates (activation queue + ejections), slashings, final updates.
+
+The `_insert_*` hook lists let phase 1 splice sub-transitions into
+process_epoch the way the reference's `# @label` insert mechanism does
+(consensus-specs scripts/function_puller.py:41-49).
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+
+def process_epoch(spec, state) -> None:
+    spec.process_justification_and_finalization(state)
+    spec.process_crosslinks(state)
+    spec.process_rewards_and_penalties(state)
+    spec.process_registry_updates(state)
+    for hook in spec._insert_after_registry_updates:  # @process_reveal_deadlines / @process_challenge_deadlines
+        hook(state)
+    spec.process_slashings(state)
+    spec.process_final_updates(state)
+    for hook in spec._insert_after_final_updates:  # @after_process_final_updates
+        hook(state)
+
+
+# ---------------------------------------------------------------------------
+# Matching-attestation helpers
+# ---------------------------------------------------------------------------
+
+def get_total_active_balance(spec, state) -> int:
+    return spec.get_total_balance(state, spec.get_active_validator_indices(state, spec.get_current_epoch(state)))
+
+
+def get_matching_source_attestations(spec, state, epoch: int) -> List:
+    assert epoch in (spec.get_current_epoch(state), spec.get_previous_epoch(state))
+    if epoch == spec.get_current_epoch(state):
+        return state.current_epoch_attestations
+    return state.previous_epoch_attestations
+
+
+def get_matching_target_attestations(spec, state, epoch: int) -> List:
+    return [a for a in spec.get_matching_source_attestations(state, epoch)
+            if a.data.target_root == spec.get_block_root(state, epoch)]
+
+
+def get_matching_head_attestations(spec, state, epoch: int) -> List:
+    return [a for a in spec.get_matching_source_attestations(state, epoch)
+            if a.data.beacon_block_root == spec.get_block_root_at_slot(
+                state, spec.get_attestation_data_slot(state, a.data))]
+
+
+def get_unslashed_attesting_indices(spec, state, attestations) -> List[int]:
+    output = set()
+    for a in attestations:
+        output |= set(spec.get_attesting_indices(state, a.data, a.aggregation_bitfield))
+    return sorted(i for i in output if not state.validator_registry[i].slashed)
+
+
+def get_attesting_balance(spec, state, attestations) -> int:
+    return spec.get_total_balance(state, spec.get_unslashed_attesting_indices(state, attestations))
+
+
+def get_winning_crosslink_and_attesting_indices(spec, state, epoch: int, shard: int) -> Tuple:
+    attestations = [a for a in spec.get_matching_source_attestations(state, epoch)
+                    if a.data.crosslink.shard == shard]
+    current_root = spec.hash_tree_root(state.current_crosslinks[shard])
+    crosslinks = [c for c in (a.data.crosslink for a in attestations)
+                  if current_root in (c.parent_root, spec.hash_tree_root(c))]
+    # Most attesting balance wins; ties broken lexicographically by data root.
+    winning_crosslink = max(
+        crosslinks,
+        key=lambda c: (spec.get_attesting_balance(
+            state, [a for a in attestations if a.data.crosslink == c]), c.data_root),
+        default=spec.Crosslink(),
+    )
+    winning_attestations = [a for a in attestations if a.data.crosslink == winning_crosslink]
+    return winning_crosslink, spec.get_unslashed_attesting_indices(state, winning_attestations)
+
+
+# ---------------------------------------------------------------------------
+# Justification and finalization
+# ---------------------------------------------------------------------------
+
+def process_justification_and_finalization(spec, state) -> None:
+    if spec.get_current_epoch(state) <= spec.GENESIS_EPOCH + 1:
+        return
+
+    previous_epoch = spec.get_previous_epoch(state)
+    current_epoch = spec.get_current_epoch(state)
+    old_previous_justified_epoch = state.previous_justified_epoch
+    old_current_justified_epoch = state.current_justified_epoch
+
+    # Process justifications
+    state.previous_justified_epoch = state.current_justified_epoch
+    state.previous_justified_root = state.current_justified_root
+    state.justification_bitfield = (state.justification_bitfield << 1) % 2 ** 64
+    total_active = spec.get_total_active_balance(state)
+    if spec.get_attesting_balance(
+            state, spec.get_matching_target_attestations(state, previous_epoch)) * 3 >= total_active * 2:
+        state.current_justified_epoch = previous_epoch
+        state.current_justified_root = spec.get_block_root(state, state.current_justified_epoch)
+        state.justification_bitfield |= (1 << 1)
+    if spec.get_attesting_balance(
+            state, spec.get_matching_target_attestations(state, current_epoch)) * 3 >= total_active * 2:
+        state.current_justified_epoch = current_epoch
+        state.current_justified_root = spec.get_block_root(state, state.current_justified_epoch)
+        state.justification_bitfield |= (1 << 0)
+
+    # Process finalizations
+    bitfield = state.justification_bitfield
+    # The 2nd/3rd/4th most recent epochs are justified, the 2nd using the 4th as source
+    if (bitfield >> 1) % 8 == 0b111 and old_previous_justified_epoch + 3 == current_epoch:
+        state.finalized_epoch = old_previous_justified_epoch
+        state.finalized_root = spec.get_block_root(state, state.finalized_epoch)
+    # The 2nd/3rd most recent epochs are justified, the 2nd using the 3rd as source
+    if (bitfield >> 1) % 4 == 0b11 and old_previous_justified_epoch + 2 == current_epoch:
+        state.finalized_epoch = old_previous_justified_epoch
+        state.finalized_root = spec.get_block_root(state, state.finalized_epoch)
+    # The 1st/2nd/3rd most recent epochs are justified, the 1st using the 3rd as source
+    if (bitfield >> 0) % 8 == 0b111 and old_current_justified_epoch + 2 == current_epoch:
+        state.finalized_epoch = old_current_justified_epoch
+        state.finalized_root = spec.get_block_root(state, state.finalized_epoch)
+    # The 1st/2nd most recent epochs are justified, the 1st using the 2nd as source
+    if (bitfield >> 0) % 4 == 0b11 and old_current_justified_epoch + 1 == current_epoch:
+        state.finalized_epoch = old_current_justified_epoch
+        state.finalized_root = spec.get_block_root(state, state.finalized_epoch)
+
+
+# ---------------------------------------------------------------------------
+# Crosslinks
+# ---------------------------------------------------------------------------
+
+def process_crosslinks(spec, state) -> None:
+    state.previous_crosslinks = [c for c in state.current_crosslinks]
+    for epoch in (spec.get_previous_epoch(state), spec.get_current_epoch(state)):
+        for offset in range(spec.get_epoch_committee_count(state, epoch)):
+            shard = (spec.get_epoch_start_shard(state, epoch) + offset) % spec.SHARD_COUNT
+            crosslink_committee = spec.get_crosslink_committee(state, epoch, shard)
+            winning_crosslink, attesting_indices = \
+                spec.get_winning_crosslink_and_attesting_indices(state, epoch, shard)
+            if 3 * spec.get_total_balance(state, attesting_indices) >= \
+                    2 * spec.get_total_balance(state, crosslink_committee):
+                state.current_crosslinks[shard] = winning_crosslink
+
+
+# ---------------------------------------------------------------------------
+# Rewards and penalties
+# ---------------------------------------------------------------------------
+
+def get_base_reward(spec, state, index: int) -> int:
+    total_balance = spec.get_total_active_balance(state)
+    effective_balance = state.validator_registry[index].effective_balance
+    return (effective_balance * spec.BASE_REWARD_FACTOR
+            // spec.integer_squareroot(total_balance) // spec.BASE_REWARDS_PER_EPOCH)
+
+
+def get_attestation_deltas(spec, state) -> Tuple[List[int], List[int]]:
+    previous_epoch = spec.get_previous_epoch(state)
+    total_balance = spec.get_total_active_balance(state)
+    n = len(state.validator_registry)
+    rewards = [0] * n
+    penalties = [0] * n
+    eligible_validator_indices = [
+        index for index, v in enumerate(state.validator_registry)
+        if spec.is_active_validator(v, previous_epoch)
+        or (v.slashed and previous_epoch + 1 < v.withdrawable_epoch)
+    ]
+
+    # Micro-incentives for matching FFG source, FFG target, and head
+    matching_source_attestations = spec.get_matching_source_attestations(state, previous_epoch)
+    matching_target_attestations = spec.get_matching_target_attestations(state, previous_epoch)
+    matching_head_attestations = spec.get_matching_head_attestations(state, previous_epoch)
+    for attestations in (matching_source_attestations, matching_target_attestations, matching_head_attestations):
+        unslashed_attesting_indices = set(spec.get_unslashed_attesting_indices(state, attestations))
+        attesting_balance = spec.get_total_balance(state, unslashed_attesting_indices)
+        for index in eligible_validator_indices:
+            if index in unslashed_attesting_indices:
+                rewards[index] += spec.get_base_reward(state, index) * attesting_balance // total_balance
+            else:
+                penalties[index] += spec.get_base_reward(state, index)
+
+    # Proposer and inclusion-delay micro-rewards
+    for index in spec.get_unslashed_attesting_indices(state, matching_source_attestations):
+        attestation = min(
+            (a for a in matching_source_attestations
+             if index in spec.get_attesting_indices(state, a.data, a.aggregation_bitfield)),
+            key=lambda a: a.inclusion_delay,
+        )
+        rewards[attestation.proposer_index] += spec.get_base_reward(state, index) // spec.PROPOSER_REWARD_QUOTIENT
+        rewards[index] += (spec.get_base_reward(state, index)
+                           * spec.MIN_ATTESTATION_INCLUSION_DELAY // attestation.inclusion_delay)
+
+    # Inactivity penalty
+    finality_delay = previous_epoch - state.finalized_epoch
+    if finality_delay > spec.MIN_EPOCHS_TO_INACTIVITY_PENALTY:
+        matching_target_attesting_indices = set(
+            spec.get_unslashed_attesting_indices(state, matching_target_attestations))
+        for index in eligible_validator_indices:
+            penalties[index] += spec.BASE_REWARDS_PER_EPOCH * spec.get_base_reward(state, index)
+            if index not in matching_target_attesting_indices:
+                penalties[index] += (state.validator_registry[index].effective_balance
+                                     * finality_delay // spec.INACTIVITY_PENALTY_QUOTIENT)
+
+    return rewards, penalties
+
+
+def get_crosslink_deltas(spec, state) -> Tuple[List[int], List[int]]:
+    n = len(state.validator_registry)
+    rewards = [0] * n
+    penalties = [0] * n
+    epoch = spec.get_previous_epoch(state)
+    for offset in range(spec.get_epoch_committee_count(state, epoch)):
+        shard = (spec.get_epoch_start_shard(state, epoch) + offset) % spec.SHARD_COUNT
+        crosslink_committee = spec.get_crosslink_committee(state, epoch, shard)
+        winning_crosslink, attesting_indices = \
+            spec.get_winning_crosslink_and_attesting_indices(state, epoch, shard)
+        attesting_set = set(attesting_indices)
+        attesting_balance = spec.get_total_balance(state, attesting_indices)
+        committee_balance = spec.get_total_balance(state, crosslink_committee)
+        for index in crosslink_committee:
+            base_reward = spec.get_base_reward(state, index)
+            if index in attesting_set:
+                rewards[index] += base_reward * attesting_balance // committee_balance
+            else:
+                penalties[index] += base_reward
+    return rewards, penalties
+
+
+def process_rewards_and_penalties(spec, state) -> None:
+    if spec.get_current_epoch(state) == spec.GENESIS_EPOCH:
+        return
+    rewards1, penalties1 = spec.get_attestation_deltas(state)
+    rewards2, penalties2 = spec.get_crosslink_deltas(state)
+    for i in range(len(state.validator_registry)):
+        spec.increase_balance(state, i, rewards1[i] + rewards2[i])
+        spec.decrease_balance(state, i, penalties1[i] + penalties2[i])
+
+
+# ---------------------------------------------------------------------------
+# Registry updates, slashings, final updates
+# ---------------------------------------------------------------------------
+
+def process_registry_updates(spec, state) -> None:
+    # Process activation eligibility and ejections
+    current_epoch = spec.get_current_epoch(state)
+    for index, validator in enumerate(state.validator_registry):
+        if (validator.activation_eligibility_epoch == spec.FAR_FUTURE_EPOCH
+                and validator.effective_balance >= spec.MAX_EFFECTIVE_BALANCE):
+            validator.activation_eligibility_epoch = current_epoch
+
+        if spec.is_active_validator(validator, current_epoch) \
+                and validator.effective_balance <= spec.EJECTION_BALANCE:
+            spec.initiate_validator_exit(state, index)
+
+    # Queue validators eligible for activation and not yet dequeued
+    activation_queue = sorted(
+        [index for index, validator in enumerate(state.validator_registry)
+         if validator.activation_eligibility_epoch != spec.FAR_FUTURE_EPOCH
+         and validator.activation_epoch >= spec.get_delayed_activation_exit_epoch(state.finalized_epoch)],
+        key=lambda index: state.validator_registry[index].activation_eligibility_epoch,
+    )
+    # Dequeue up to churn limit (without resetting activation epoch)
+    for index in activation_queue[:spec.get_churn_limit(state)]:
+        validator = state.validator_registry[index]
+        if validator.activation_epoch == spec.FAR_FUTURE_EPOCH:
+            validator.activation_epoch = spec.get_delayed_activation_exit_epoch(current_epoch)
+
+
+def process_slashings(spec, state) -> None:
+    current_epoch = spec.get_current_epoch(state)
+    total_balance = spec.get_total_active_balance(state)
+
+    # Slashed balances accumulated in the current epoch
+    total_at_start = state.latest_slashed_balances[(current_epoch + 1) % spec.LATEST_SLASHED_EXIT_LENGTH]
+    total_at_end = state.latest_slashed_balances[current_epoch % spec.LATEST_SLASHED_EXIT_LENGTH]
+    total_penalties = total_at_end - total_at_start
+
+    for index, validator in enumerate(state.validator_registry):
+        if validator.slashed and current_epoch == validator.withdrawable_epoch - spec.LATEST_SLASHED_EXIT_LENGTH // 2:
+            penalty = max(
+                validator.effective_balance * min(total_penalties * 3, total_balance) // total_balance,
+                validator.effective_balance // spec.MIN_SLASHING_PENALTY_QUOTIENT,
+            )
+            spec.decrease_balance(state, index, penalty)
+
+
+def final_updates_byte_rooted(spec, state) -> None:
+    """The root/bytes writes of process_final_updates (:1526-1564): eth1-vote
+    reset, active index root, randao rotation, historical batch, attestation
+    rotation. Shared by the object-model path and the SoA device path (which
+    handles the numeric writes on device). All writes here are independent of
+    the numeric ones, so the regrouping preserves reference semantics."""
+    import numpy as np
+
+    from ...utils.ssz.bulk import uint64_list_root_from_column
+    current_epoch = spec.get_current_epoch(state)
+    next_epoch = current_epoch + 1
+    # Reset eth1 data votes
+    if (state.slot + 1) % spec.SLOTS_PER_ETH1_VOTING_PERIOD == 0:
+        state.eth1_data_votes = []
+    # Set active index root — through the vectorized uint64-list Merkleizer
+    # (== hash_tree_root(list, List[uint64]), equality-gated in
+    # tests/test_bulk_htr.py; the recursive path is seconds per call at
+    # registry scale and this write happens every epoch). Accepts both the
+    # object helper's list and the resident mirrors' ndarray.
+    index_root_position = (next_epoch + spec.ACTIVATION_EXIT_DELAY) % spec.LATEST_ACTIVE_INDEX_ROOTS_LENGTH
+    state.latest_active_index_roots[index_root_position] = uint64_list_root_from_column(
+        np.asarray(spec.get_active_validator_indices(state, next_epoch + spec.ACTIVATION_EXIT_DELAY),
+                   dtype=np.uint64), spec.device, spec.pair_fn)
+    # Set randao mix
+    state.latest_randao_mixes[next_epoch % spec.LATEST_RANDAO_MIXES_LENGTH] = \
+        spec.get_randao_mix(state, current_epoch)
+    # Set historical root accumulator
+    if next_epoch % (spec.SLOTS_PER_HISTORICAL_ROOT // spec.SLOTS_PER_EPOCH) == 0:
+        historical_batch = spec.HistoricalBatch(
+            block_roots=state.latest_block_roots,
+            state_roots=state.latest_state_roots,
+        )
+        state.historical_roots.append(spec.hash_tree_root(historical_batch))
+    # Rotate current/previous epoch attestations
+    state.previous_epoch_attestations = state.current_epoch_attestations
+    state.current_epoch_attestations = []
+
+
+def process_final_updates(spec, state) -> None:
+    current_epoch = spec.get_current_epoch(state)
+    next_epoch = current_epoch + 1
+    # Update effective balances with hysteresis
+    half_increment = spec.EFFECTIVE_BALANCE_INCREMENT // 2
+    for index, validator in enumerate(state.validator_registry):
+        balance = state.balances[index]
+        if balance < validator.effective_balance or validator.effective_balance + 3 * half_increment < balance:
+            validator.effective_balance = min(
+                balance - balance % spec.EFFECTIVE_BALANCE_INCREMENT, spec.MAX_EFFECTIVE_BALANCE)
+    # Update start shard
+    state.latest_start_shard = (state.latest_start_shard
+                                + spec.get_shard_delta(state, current_epoch)) % spec.SHARD_COUNT
+    # Set total slashed balances
+    state.latest_slashed_balances[next_epoch % spec.LATEST_SLASHED_EXIT_LENGTH] = (
+        state.latest_slashed_balances[current_epoch % spec.LATEST_SLASHED_EXIT_LENGTH])
+    spec.final_updates_byte_rooted(state)

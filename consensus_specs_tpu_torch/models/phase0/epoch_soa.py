@@ -1,11 +1,12 @@
 """The numeric epoch transition over structure-of-arrays columns
-(port of the device half of consensus_specs_tpu/models/phase0/epoch_soa.py).
+(port of consensus_specs_tpu/models/phase0/epoch_soa.py: the device
+program and its host half).
 
 The same masked elementwise program as the reference: justification and
 finalization, attestation and crosslink deltas, registry updates with the
 closed-form exit queue and the stable-sorted activation queue, slashings
-and the numeric final updates. The host distillation from the object
-model is not ported here.
+and the numeric final updates. The host half below distills the program's
+inputs from the object model (numpy), as the reference's does.
 
 uint64 columns and scalars are int64 tensors holding the bit patterns
 (FAR_FUTURE_EPOCH = 2**64 - 1 is -1). Every compare, min/max, division
@@ -18,6 +19,8 @@ reference's own int64 slashing window.
 """
 from __future__ import annotations
 
+import itertools
+import operator
 from typing import NamedTuple
 
 import numpy as np
@@ -27,6 +30,7 @@ from ...ops import intmath
 from ...ops.intmath import (udivmod_u64, ule, ult, umax, umax_reduce, umin,
                             u64_key)
 from ...utils.config import load_preset
+from ...utils.ssz import bulk
 
 _I64 = torch.int64
 
@@ -56,8 +60,13 @@ class EpochConfig(NamedTuple):
 
     @classmethod
     def from_preset(cls, name_or_path: str) -> "EpochConfig":
-        consts = load_preset(name_or_path)
+        consts = dict(load_preset(name_or_path).items())
+        consts["GENESIS_EPOCH"] = consts["GENESIS_SLOT"] // consts["SLOTS_PER_EPOCH"]
         return cls(**{f: int(consts[f]) for f in cls._fields})
+
+    @classmethod
+    def from_spec(cls, spec) -> "EpochConfig":
+        return cls(**{f: int(getattr(spec, f)) for f in cls._fields})
 
 
 class ValidatorColumns(NamedTuple):
@@ -412,3 +421,474 @@ def synthetic_epoch_state(cfg: EpochConfig, V: int, rng,
         shard_comm_balance=comm_bal,
     )
     return cols, scal, inp
+
+# ===========================================================================
+# Host half: object-model state <-> numpy columns, input distillation
+# (port of the reference's host bridge; everything here is numpy, and the
+# resident core uploads what the device program needs through convert.py)
+# ===========================================================================
+
+def columns_np_from_state(state) -> dict:
+    """Numpy SoA extraction of the registry (shared by the device upload and
+    the vectorized input distillation, so the registry is walked once)."""
+    vr = state.validator_registry
+    n = len(vr)
+
+    def col(f, dtype=np.uint64):
+        # map(attrgetter) beats a genexpr ~30% at registry scale (no
+        # per-element generator frame) — this walk is the distill floor
+        return np.fromiter(map(operator.attrgetter(f), vr), dtype=dtype,
+                           count=n)
+
+    return {
+        "activation_eligibility_epoch": col("activation_eligibility_epoch"),
+        "activation_epoch": col("activation_epoch"),
+        "exit_epoch": col("exit_epoch"),
+        "withdrawable_epoch": col("withdrawable_epoch"),
+        "slashed": col("slashed", dtype=np.bool_),
+        "effective_balance": col("effective_balance"),
+        "balance": np.fromiter((b for b in state.balances), dtype=np.uint64, count=n),
+    }
+
+
+def scalars_from_state(state) -> EpochScalars:
+    """The state's epoch scalars as numpy uint64 (convert.py uploads)."""
+    u64 = np.uint64
+    return EpochScalars(
+        slot=u64(state.slot),
+        previous_justified_epoch=u64(state.previous_justified_epoch),
+        current_justified_epoch=u64(state.current_justified_epoch),
+        justification_bitfield=u64(state.justification_bitfield),
+        finalized_epoch=u64(state.finalized_epoch),
+        latest_start_shard=u64(state.latest_start_shard),
+        latest_slashed_balances=np.array(
+            [int(x) for x in state.latest_slashed_balances], dtype=np.uint64),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Vectorized input distillation
+#
+# The former implementation looped `get_attesting_indices` per attestation
+# and `get_winning_crosslink_and_attesting_indices` per shard — O(V·A) host
+# Python at 1M validators. This layer computes each epoch's committee layout
+# ONCE as numpy arrays (the batched swap-or-not permutation already exists
+# behind get_shuffle_permutation), decodes every attestation bitfield ONCE
+# with np.unpackbits, and reduces winners/balances with array ops. Reference
+# semantics it must reproduce exactly: get_attesting_indices
+# (0_beacon-chain.md:905-917), the matching-attestation filters (:1266-1322),
+# min-inclusion-delay first-tie order (:1423-1429), and crosslink winner
+# selection incl. ties + the default-Crosslink edge (:1308-1322).
+# ---------------------------------------------------------------------------
+
+class _Layout(NamedTuple):
+    """One epoch's committee layout: committee `off` of `count` is
+    shuffled[bounds[off]:bounds[off+1]] (compute_committee :884-891)."""
+    epoch: int
+    shuffled: np.ndarray     # [A] int64 - active indices in shuffled order
+    bounds: np.ndarray       # [count+1] int64
+    count: int
+    start_shard: int
+
+
+class EpochContext(NamedTuple):
+    """Everything the host distillation derives from the object state."""
+    n: int
+    np_cols: dict
+    layouts: dict            # epoch -> _Layout
+    prev_atts: list          # PendingAttestation (previous epoch list)
+    curr_atts: list
+    prev_parts: list         # [len(prev_atts)] np.ndarray participant indices
+    curr_parts: list
+    cl_roots: dict           # content tuple -> hash_tree_root(Crosslink)
+
+
+def _crosslink_root(spec, ctx: "EpochContext", c) -> bytes:
+    """hash_tree_root(Crosslink) through a content-keyed cache.
+
+    _crosslink_winners runs three times per transition (two epochs in
+    process_crosslinks + the deltas pass re-selecting against the updated
+    records, mirroring process_epoch's ordering :1251-1262) and most
+    candidates repeat — without the cache these tiny-container merkleizations
+    are >half of the 1M-validator distill wall-clock. build_epoch_context
+    pre-fills the cache in one vectorized batch (_prefill_crosslink_roots);
+    this per-record path is the fallback for records created mid-pass."""
+    key = (int(c.shard), int(c.start_epoch), int(c.end_epoch),
+           bytes(c.parent_root), bytes(c.data_root))
+    r = ctx.cl_roots.get(key)
+    if r is None:
+        r = ctx.cl_roots[key] = spec.hash_tree_root(c)
+    return r
+
+
+def _prefill_crosslink_roots(spec, ctx: "EpochContext", state) -> None:
+    """Batch every Crosslink merkleization the winner-selection passes will
+    query — the state's records + each attestation's candidate + the
+    default — into ONE [N, 8, 32] subtree_roots_batch call instead of ~2k
+    recursive per-container hash_tree_root walks (those were ~1.2 s of the
+    1M-validator distill). Chunk layout per container Merkleization rules
+    (simple-serialize.md:134-145): 5 field leaves (three uint64, two
+    Bytes32) padded to the next power of two."""
+    keys = {}
+    for c in itertools.chain(
+            state.current_crosslinks,
+            (a.data.crosslink for a in ctx.prev_atts),
+            (a.data.crosslink for a in ctx.curr_atts),
+            (spec.Crosslink(),)):
+        key = (int(c.shard), int(c.start_epoch), int(c.end_epoch),
+               bytes(c.parent_root), bytes(c.data_root))
+        if key not in keys and key not in ctx.cl_roots:
+            keys[key] = None
+    if not keys:
+        return
+    ks = list(keys)
+    n = len(ks)
+    leaves = np.zeros((n, 8, 32), dtype=np.uint8)
+    u64s = np.array([(k[0], k[1], k[2]) for k in ks], dtype="<u8")
+    leaves[:, 0:3, :8] = u64s.view(np.uint8).reshape(n, 3, 8)
+    leaves[:, 3, :] = np.frombuffer(b"".join(k[3] for k in ks),
+                                    np.uint8).reshape(n, 32)
+    leaves[:, 4, :] = np.frombuffer(b"".join(k[4] for k in ks),
+                                    np.uint8).reshape(n, 32)
+    roots = bulk.subtree_roots_batch(leaves, spec.device, spec.pair_fn)
+    for i, k in enumerate(ks):
+        ctx.cl_roots[k] = roots[i].tobytes()
+
+
+def _committee_count_for_active(spec, active_count: int) -> int:
+    return max(1, min(spec.SHARD_COUNT // spec.SLOTS_PER_EPOCH,
+                      active_count // spec.SLOTS_PER_EPOCH
+                      // spec.TARGET_COMMITTEE_SIZE)) * spec.SLOTS_PER_EPOCH
+
+
+def _active_count_np(np_cols: dict, epoch: int) -> int:
+    return int(np.count_nonzero(
+        (np_cols["activation_epoch"] <= np.uint64(epoch))
+        & (np.uint64(epoch) < np_cols["exit_epoch"])))
+
+
+def _start_shard_np(spec, state, np_cols: dict, epoch: int) -> int:
+    """get_epoch_start_shard (:741-745) with active counts from columns
+    (the helper recomputes the O(V) active list per shard-delta call)."""
+    current_epoch = spec.get_current_epoch(state)
+    assert epoch <= current_epoch + 1
+
+    def delta(e):
+        return min(_committee_count_for_active(spec, _active_count_np(np_cols, e)),
+                   spec.SHARD_COUNT - spec.SHARD_COUNT // spec.SLOTS_PER_EPOCH)
+
+    check_epoch = current_epoch + 1
+    shard = (state.latest_start_shard + delta(current_epoch)) % spec.SHARD_COUNT
+    while check_epoch > epoch:
+        check_epoch -= 1
+        shard = (shard + spec.SHARD_COUNT - delta(check_epoch)) % spec.SHARD_COUNT
+    return shard
+
+
+def _epoch_layout(spec, state, np_cols: dict, epoch: int) -> _Layout:
+    active = np.nonzero(
+        (np_cols["activation_epoch"] <= np.uint64(epoch))
+        & (np.uint64(epoch) < np_cols["exit_epoch"]))[0].astype(np.int64)
+    seed = spec.generate_seed(state, epoch)
+    perm = spec.get_shuffle_permutation(len(active), seed)
+    shuffled = active[perm] if len(active) else active
+    count = _committee_count_for_active(spec, len(active))
+    bounds = (len(active) * np.arange(count + 1, dtype=np.int64)) // count
+    return _Layout(epoch=epoch, shuffled=shuffled, bounds=bounds, count=count,
+                   start_shard=_start_shard_np(spec, state, np_cols, epoch))
+
+
+def _decode_participants(spec, layouts: dict, atts) -> list:
+    """Per attestation: participant validator indices
+    (get_attesting_indices :905-917; order is irrelevant downstream, so the
+    reference's sorted() is dropped).
+
+    Batched: every aggregation bitfield decodes through ONE concatenated
+    unpackbits and the committee bounds resolve as one vectorized pass per
+    epoch — at a full mainnet epoch (~2k attestations) the per-attestation
+    loop below does only the two ragged ops (slice + boolean gather)."""
+    if not atts:
+        return []
+    n = len(atts)
+    shards = np.fromiter((int(a.data.crosslink.shard) for a in atts),
+                         np.int64, n)
+    epochs = np.fromiter((int(a.data.target_epoch) for a in atts),
+                         np.int64, n)
+    bfs = [bytes(a.aggregation_bitfield) for a in atts]
+    lo = np.full(n, -1, np.int64)
+    hi = np.full(n, -1, np.int64)
+    for e, lay in layouts.items():
+        m = epochs == e
+        if not m.any():
+            continue
+        offs = (shards[m] + spec.SHARD_COUNT - lay.start_shard) % spec.SHARD_COUNT
+        lo[m] = lay.bounds[offs]
+        hi[m] = lay.bounds[offs + 1]
+    # deterministic diagnostic (the old per-attestation dict lookup raised
+    # KeyError) if a target epoch ever escapes build_epoch_context's union
+    assert (lo >= 0).all(), "attestation target epoch missing from layouts"
+    sizes = hi - lo
+    blens = np.fromiter((len(b) for b in bfs), np.int64, n)
+    assert (blens == (sizes + 7) // 8).all()  # verify_bitfield :355-361
+    allbits = np.unpackbits(np.frombuffer(b"".join(bfs), np.uint8),
+                            bitorder="little").astype(bool)
+    starts = np.concatenate([[0], np.cumsum(blens * 8)])
+    parts = []
+    for j in range(n):
+        lay = layouts[int(epochs[j])]
+        bits = allbits[starts[j]:starts[j] + sizes[j]]
+        parts.append(lay.shuffled[lo[j]:hi[j]][bits])
+    return parts
+
+
+def build_epoch_context(spec, state, np_cols: dict = None) -> EpochContext:
+    np_cols = np_cols if np_cols is not None else columns_np_from_state(state)
+    current_epoch = spec.get_current_epoch(state)
+    previous_epoch = spec.get_previous_epoch(state)
+    prev_atts = list(spec.get_matching_source_attestations(state, previous_epoch))
+    curr_atts = list(spec.get_matching_source_attestations(state, current_epoch))
+    layouts = {}
+    for e in {previous_epoch, current_epoch}.union(
+            int(a.data.target_epoch) for a in prev_atts + curr_atts):
+        layouts[e] = _epoch_layout(spec, state, np_cols, e)
+    ctx = EpochContext(
+        # column length, not len(validator_registry): identical for object
+        # states, and checkpoint-resumed resident states keep the registry
+        # as columns without materializing objects (resident.py)
+        n=len(np_cols["slashed"]), np_cols=np_cols, layouts=layouts,
+        prev_atts=prev_atts, curr_atts=curr_atts,
+        prev_parts=_decode_participants(spec, layouts, prev_atts),
+        curr_parts=_decode_participants(spec, layouts, curr_atts),
+        cl_roots={},
+    )
+    _prefill_crosslink_roots(spec, ctx, state)
+    return ctx
+
+
+def _union_flags(n: int, parts_iter) -> np.ndarray:
+    flags = np.zeros(n, dtype=bool)
+    chunks = list(parts_iter)
+    if chunks:
+        flags[np.concatenate(chunks)] = True
+    return flags
+
+
+def _unslashed_union(ctx: EpochContext, parts_list) -> np.ndarray:
+    """get_unslashed_attesting_indices (:1294-1300) as an index array."""
+    if not parts_list:
+        return np.empty(0, dtype=np.int64)
+    if len(parts_list) == 1:
+        # the common shape (one candidate attestation per group): bitfield
+        # decode already yields unique indices, so the dedupe sort is pure
+        # overhead — it was ~half the winner-selection time at 1M
+        idx = parts_list[0]
+    else:
+        idx = np.unique(np.concatenate(parts_list))
+    return idx[~ctx.np_cols["slashed"][idx]]
+
+
+def _balance_of(ctx: EpochContext, idx: np.ndarray) -> int:
+    """get_total_balance (:933-941): max(sum of effective balances, 1)."""
+    return max(int(ctx.np_cols["effective_balance"][idx].sum()), 1)
+
+
+def _attestation_data_slot(spec, lay: _Layout, data) -> int:
+    """get_attestation_data_slot (:747-754) from the cached layout."""
+    off = (int(data.crosslink.shard) + spec.SHARD_COUNT
+           - lay.start_shard) % spec.SHARD_COUNT
+    return (spec.get_epoch_start_slot(lay.epoch)
+            + off // (lay.count // spec.SLOTS_PER_EPOCH))
+
+
+def _crosslink_winners(spec, state, ctx: EpochContext, epoch: int):
+    """Per committee offset of `epoch`: (winning_crosslink,
+    unslashed_attesting_indices, attesting_balance) — the vectorized
+    get_winning_crosslink_and_attesting_indices (:1308-1322), evaluated
+    against the CURRENT state.current_crosslinks (callers control ordering
+    vs record mutation, exactly like the reference's sequential loops)."""
+    current_epoch = spec.get_current_epoch(state)
+    atts = ctx.curr_atts if epoch == current_epoch else ctx.prev_atts
+    parts = ctx.curr_parts if epoch == current_epoch else ctx.prev_parts
+    lay = ctx.layouts[epoch]
+
+    def htr(c):
+        return _crosslink_root(spec, ctx, c)
+
+    default_cl = spec.Crosslink()
+    default_root = htr(default_cl)
+
+    by_shard: dict = {}
+    for j, a in enumerate(atts):
+        by_shard.setdefault(int(a.data.crosslink.shard), []).append(j)
+
+    out = []
+    for off in range(lay.count):
+        shard = (lay.start_shard + off) % spec.SHARD_COUNT
+        js = by_shard.get(shard, ())
+        current_root = htr(state.current_crosslinks[shard])
+        # Candidate crosslinks grouped by root, first-occurrence order; the
+        # root filter is `current_root in (c.parent_root, hash_tree_root(c))`
+        groups: dict = {}
+        order = []
+        cl_of = {}
+        for j in js:
+            c = atts[j].data.crosslink
+            r = htr(c)
+            if current_root != bytes(c.parent_root) and current_root != r:
+                continue
+            if r not in groups:
+                groups[r] = []
+                order.append(r)
+                cl_of[r] = c
+            groups[r].append(j)
+        if not order:
+            # max(..., default=Crosslink()): the default still collects
+            # attestations whose crosslink equals it (:1318-1321)
+            win_js = [j for j in js if htr(atts[j].data.crosslink) == default_root]
+            win_idx = _unslashed_union(ctx, [parts[j] for j in win_js])
+            out.append((default_cl, win_idx, _balance_of(ctx, win_idx)))
+            continue
+        best = None
+        for r in order:
+            idx = _unslashed_union(ctx, [parts[j] for j in groups[r]])
+            key = (_balance_of(ctx, idx), bytes(cl_of[r].data_root))
+            if best is None or key > best[0]:  # strict: first max wins, like max()
+                best = (key, cl_of[r], idx)
+        out.append((best[1], best[2], best[0][0]))
+    return out
+
+
+def _committee_balances(ctx: EpochContext, lay: _Layout) -> np.ndarray:
+    """[count] committee effective-balance sums via one cumsum (>=1 each)."""
+    eff = ctx.np_cols["effective_balance"][lay.shuffled].astype(np.int64)
+    cs = np.concatenate([[0], np.cumsum(eff)])
+    return np.maximum(cs[lay.bounds[1:]] - cs[lay.bounds[:-1]], 1).astype(np.uint64)
+
+
+def process_crosslinks_vectorized(spec, state, ctx: EpochContext) -> None:
+    """process_crosslinks (:1377-1387) on the decoded context.
+
+    The reference mutates state.current_crosslinks[shard] as it loops
+    (epoch, offset) — but within one epoch each offset touches a DISTINCT
+    shard (count <= SHARD_COUNT consecutive shards) and selection for a
+    shard reads only that shard's record, so the epoch's winners can be
+    batch-computed before its updates. Across epochs the sequencing is
+    preserved: the current epoch's winners are selected against the
+    previous epoch's updated records."""
+    state.previous_crosslinks = [c for c in state.current_crosslinks]
+    for epoch in (spec.get_previous_epoch(state), spec.get_current_epoch(state)):
+        lay = ctx.layouts[epoch]
+        comm_bal = _committee_balances(ctx, lay)
+        winners = _crosslink_winners(spec, state, ctx, epoch)
+        for off, (winner, _, att_bal) in enumerate(winners):
+            shard = (lay.start_shard + off) % spec.SHARD_COUNT
+            if 3 * att_bal >= 2 * int(comm_bal[off]):
+                state.current_crosslinks[shard] = winner
+
+
+def build_epoch_inputs(spec, state, ctx: EpochContext = None) -> EpochInputs:
+    """Distill PendingAttestations + committee layout into the epoch
+    program's inputs, as numpy arrays (convert.py uploads them).
+
+    Must be called AFTER process_crosslinks has run on `state` (winner
+    selection for deltas reads the updated current_crosslinks, matching the
+    reference's process_epoch ordering :1251-1262).
+    """
+    ctx = ctx if ctx is not None else build_epoch_context(spec, state)
+    n = ctx.n
+    current_epoch = spec.get_current_epoch(state)
+    previous_epoch = spec.get_previous_epoch(state)
+    prev_lay = ctx.layouts[previous_epoch]
+
+    # Matching filters (:1266-1290) — cheap per-attestation byte compares
+    prev_target_root = spec.get_block_root(state, previous_epoch)
+    prev_src = _union_flags(n, ctx.prev_parts)
+    prev_tgt = _union_flags(n, (
+        p for a, p in zip(ctx.prev_atts, ctx.prev_parts)
+        if bytes(a.data.target_root) == prev_target_root))
+    prev_head = _union_flags(n, (
+        p for a, p in zip(ctx.prev_atts, ctx.prev_parts)
+        if bytes(a.data.beacon_block_root) == spec.get_block_root_at_slot(
+            state, _attestation_data_slot(
+                spec, ctx.layouts[int(a.data.target_epoch)], a.data))))
+    curr_target_root = spec.get_block_root(state, current_epoch)
+    curr_tgt = _union_flags(n, (
+        p for a, p in zip(ctx.curr_atts, ctx.curr_parts)
+        if bytes(a.data.target_root) == curr_target_root))
+
+    # Min-inclusion-delay attestation per source attester (:1423-1429);
+    # python min() keeps the first minimum, so strict < preserves tie order.
+    incl_delay = np.ones(n, dtype=np.uint64)
+    best = np.full(n, np.iinfo(np.uint64).max, dtype=np.uint64)
+    att_proposer = np.zeros(n, dtype=np.int32)
+    for a, idxs in zip(ctx.prev_atts, ctx.prev_parts):
+        better = a.inclusion_delay < best[idxs]
+        upd = idxs[better]
+        best[upd] = a.inclusion_delay
+        incl_delay[upd] = a.inclusion_delay
+        att_proposer[upd] = a.proposer_index
+
+    # Crosslink-committee layout + winners for the previous epoch (:1445-1463)
+    v_shard = np.full(n, -1, dtype=np.int32)
+    shards = ((prev_lay.start_shard + np.arange(prev_lay.count))
+              % spec.SHARD_COUNT).astype(np.int32)
+    v_shard[prev_lay.shuffled] = np.repeat(shards, np.diff(prev_lay.bounds))
+    in_winning = np.zeros(n, dtype=bool)
+    shard_att_balance = np.ones(spec.SHARD_COUNT, dtype=np.uint64)
+    shard_comm_balance = np.ones(spec.SHARD_COUNT, dtype=np.uint64)
+    comm_bal = _committee_balances(ctx, prev_lay)
+    winners = _crosslink_winners(spec, state, ctx, previous_epoch)
+    for off, (_, win_idx, att_bal) in enumerate(winners):
+        shard = int(shards[off])
+        in_winning[win_idx] = True
+        shard_att_balance[shard] = att_bal
+        shard_comm_balance[shard] = comm_bal[off]
+
+    return EpochInputs(
+        prev_src=prev_src,
+        prev_tgt=prev_tgt,
+        prev_head=prev_head,
+        curr_tgt=curr_tgt,
+        incl_delay=incl_delay,
+        att_proposer=att_proposer,
+        v_shard=v_shard,
+        in_winning=in_winning,
+        shard_att_balance=shard_att_balance,
+        shard_comm_balance=shard_comm_balance,
+    )
+
+
+def _apply_justification(spec, state, new_scal, report,
+                         previous_epoch, current_epoch) -> None:
+    """Justification scalars + the root writes they gate (:1326-1373);
+    new_scal and report downloaded as numpy (uint64 / bool)."""
+    if bool(report.justification_active):
+        state.previous_justified_root = state.current_justified_root
+        state.previous_justified_epoch = int(new_scal.previous_justified_epoch)
+        state.current_justified_epoch = int(new_scal.current_justified_epoch)
+        state.justification_bitfield = int(new_scal.justification_bitfield)
+        if bool(report.justified_prev_fired):
+            state.current_justified_root = spec.get_block_root(state, previous_epoch)
+        if bool(report.justified_curr_fired):
+            state.current_justified_root = spec.get_block_root(state, current_epoch)
+        state.finalized_epoch = int(new_scal.finalized_epoch)
+        if bool(report.finalized_fired):
+            state.finalized_root = spec.get_block_root(state, state.finalized_epoch)
+
+
+def _apply_validator_columns(state, new_cols) -> None:
+    """Numpy uint64 columns -> object registry (.tolist() yields python
+    ints ~10x faster than per-element int() casts at registry scale);
+    `slashed` is excluded — the numeric epoch stages never change it."""
+    arrs = {f: np.asarray(getattr(new_cols, f)).tolist()
+            for f in ValidatorColumns._fields if f != "slashed"}
+    for v, elig, act, exit_ep, wd, eff in zip(
+            state.validator_registry, arrs["activation_eligibility_epoch"],
+            arrs["activation_epoch"], arrs["exit_epoch"],
+            arrs["withdrawable_epoch"], arrs["effective_balance"]):
+        v.activation_eligibility_epoch = elig
+        v.activation_epoch = act
+        v.exit_epoch = exit_ep
+        v.withdrawable_epoch = wd
+        v.effective_balance = eff
+    state.balances = arrs["balance"]

@@ -1,0 +1,476 @@
+"""Phase-0 helper functions (bound as methods of Phase0Spec; port of
+consensus_specs_tpu/models/phase0/helpers.py).
+
+Semantics per consensus-specs specs/core/0_beacon-chain.md:580-1155. Every
+function takes the spec object first (giving access to constants, types, the
+BLS boundary, and caches) and is attached to Phase0Spec at build time.
+
+Performance redesign vs the reference: the committee path does not point-call
+`get_shuffled_index` per output slot (:884-891). Instead the *whole* swap-or-not
+permutation for (seed, n) is materialized once per epoch by a batched backend
+(the numpy host path below 2^13 indices, ops/shuffle.py on the spec's
+device from there up) and committees become array slices. `get_shuffled_index` remains as the
+one-point spec semantics and as the oracle the batched path is tested against.
+"""
+from __future__ import annotations
+
+import hashlib
+from typing import Any, List, Optional, Sequence
+
+import numpy as np
+
+from ...ops.shuffle import _MAX_N, shuffle_permutation_device
+from ...utils import merkle
+from ...utils.ssz.impl import hash_tree_root as ssz_hash_tree_root
+from ...utils.ssz.impl import signing_root as ssz_signing_root
+
+
+# ---------------------------------------------------------------------------
+# Primitives
+# ---------------------------------------------------------------------------
+
+def xor(spec, bytes1: bytes, bytes2: bytes) -> bytes:
+    return bytes(a ^ b for a, b in zip(bytes1, bytes2))
+
+
+def hash(spec, data: bytes) -> bytes:  # noqa: A001 - spec name
+    cached = spec._hash_cache.get(data)
+    if cached is None:
+        cached = hashlib.sha256(data).digest()
+        spec._hash_cache[data] = cached
+    return cached
+
+
+_state_root_backend = None
+
+
+def set_state_root_backend(backend) -> None:
+    """Install a full-BeaconState Merkleizer: fn(state) -> bytes|None.
+
+    The per-slot `hash_tree_root(state)` is the reference's hottest loop
+    (0_beacon-chain.md:1232-1245); the resident core
+    (models/phase0/resident.py) routes it here to its device forests.
+    Returning None falls back to the recursive oracle, so a backend can
+    decline states it does not hold.
+    """
+    global _state_root_backend
+    _state_root_backend = backend
+
+
+def hash_tree_root(spec, obj: Any, typ: Any = None) -> bytes:
+    if (_state_root_backend is not None and typ is None
+            and obj.__class__ is getattr(spec, "BeaconState", None)):
+        root = _state_root_backend(obj)
+        if root is not None:
+            return root
+    return ssz_hash_tree_root(obj, typ)
+
+
+def signing_root(spec, obj: Any) -> bytes:
+    return ssz_signing_root(obj)
+
+
+def int_to_bytes(spec, integer: int, length: int) -> bytes:
+    return int(integer).to_bytes(length, "little")
+
+
+def bytes_to_int(spec, data: bytes) -> int:
+    return int.from_bytes(data, "little")
+
+
+def bls_domain(spec, domain_type: int, fork_version: bytes = b"\x00\x00\x00\x00") -> int:
+    return int.from_bytes(int(domain_type).to_bytes(4, "little") + fork_version, "little")
+
+
+def integer_squareroot(spec, n: int) -> int:
+    assert n >= 0
+    x, y = n, (n + 1) // 2
+    while y < x:
+        x, y = y, (y + n // y) // 2
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Time math
+# ---------------------------------------------------------------------------
+
+def slot_to_epoch(spec, slot: int) -> int:
+    return slot // spec.SLOTS_PER_EPOCH
+
+
+def get_current_epoch(spec, state) -> int:
+    return spec.slot_to_epoch(state.slot)
+
+
+def get_previous_epoch(spec, state) -> int:
+    current_epoch = spec.get_current_epoch(state)
+    return spec.GENESIS_EPOCH if current_epoch == spec.GENESIS_EPOCH else current_epoch - 1
+
+
+def get_epoch_start_slot(spec, epoch: int) -> int:
+    return epoch * spec.SLOTS_PER_EPOCH
+
+
+def get_delayed_activation_exit_epoch(spec, epoch: int) -> int:
+    return epoch + 1 + spec.ACTIVATION_EXIT_DELAY
+
+
+# ---------------------------------------------------------------------------
+# Validator predicates and balances
+# ---------------------------------------------------------------------------
+
+def is_active_validator(spec, validator, epoch: int) -> bool:
+    return validator.activation_epoch <= epoch < validator.exit_epoch
+
+
+def is_slashable_validator(spec, validator, epoch: int) -> bool:
+    return (not validator.slashed) and (validator.activation_epoch <= epoch < validator.withdrawable_epoch)
+
+
+def get_active_validator_indices(spec, state, epoch: int) -> List[int]:
+    """Indices active at `epoch` (reference 0_beacon-chain.md:678-685).
+    The predicate is inlined: the committee machinery calls this dozens
+    of times per transition, and a per-element is_active_validator frame
+    dominates the scan at registry scale."""
+    return [i for i, v in enumerate(state.validator_registry)
+            if v.activation_epoch <= epoch < v.exit_epoch]
+
+
+def increase_balance(spec, state, index: int, delta: int) -> None:
+    state.balances[index] += delta
+
+
+def decrease_balance(spec, state, index: int, delta: int) -> None:
+    state.balances[index] = 0 if delta > state.balances[index] else state.balances[index] - delta
+
+
+def effective_balance_of(spec, state, index: int) -> int:
+    """Single-validator effective-balance read. An explicit spec method so
+    the resident pipeline (models/phase0/resident.py) can redirect it to
+    device-refreshed mirrors without cloning its callers (proposer
+    rejection sampling)."""
+    return state.validator_registry[index].effective_balance
+
+
+def get_total_balance(spec, state, indices: Sequence[int]) -> int:
+    return max(sum(state.validator_registry[i].effective_balance for i in indices), 1)
+
+
+def get_churn_limit(spec, state) -> int:
+    active = len(spec.get_active_validator_indices(state, spec.get_current_epoch(state)))
+    return max(spec.MIN_PER_EPOCH_CHURN_LIMIT, active // spec.CHURN_LIMIT_QUOTIENT)
+
+
+# ---------------------------------------------------------------------------
+# Committee counting and shard layout
+# ---------------------------------------------------------------------------
+
+def get_epoch_committee_count(spec, state, epoch: int) -> int:
+    active = len(spec.get_active_validator_indices(state, epoch))
+    return max(
+        1,
+        min(
+            spec.SHARD_COUNT // spec.SLOTS_PER_EPOCH,
+            active // spec.SLOTS_PER_EPOCH // spec.TARGET_COMMITTEE_SIZE,
+        ),
+    ) * spec.SLOTS_PER_EPOCH
+
+
+def get_shard_delta(spec, state, epoch: int) -> int:
+    return min(
+        spec.get_epoch_committee_count(state, epoch),
+        spec.SHARD_COUNT - spec.SHARD_COUNT // spec.SLOTS_PER_EPOCH,
+    )
+
+
+def get_epoch_start_shard(spec, state, epoch: int) -> int:
+    assert epoch <= spec.get_current_epoch(state) + 1
+    check_epoch = spec.get_current_epoch(state) + 1
+    shard = (state.latest_start_shard + spec.get_shard_delta(state, spec.get_current_epoch(state))) % spec.SHARD_COUNT
+    while check_epoch > epoch:
+        check_epoch -= 1
+        shard = (shard + spec.SHARD_COUNT - spec.get_shard_delta(state, check_epoch)) % spec.SHARD_COUNT
+    return shard
+
+
+def get_attestation_data_slot(spec, state, data) -> int:
+    committee_count = spec.get_epoch_committee_count(state, data.target_epoch)
+    offset = (data.crosslink.shard + spec.SHARD_COUNT
+              - spec.get_epoch_start_shard(state, data.target_epoch)) % spec.SHARD_COUNT
+    return spec.get_epoch_start_slot(data.target_epoch) + offset // (committee_count // spec.SLOTS_PER_EPOCH)
+
+
+# ---------------------------------------------------------------------------
+# Roots, mixes, seeds
+# ---------------------------------------------------------------------------
+
+def get_block_root_at_slot(spec, state, slot: int) -> bytes:
+    assert slot < state.slot <= slot + spec.SLOTS_PER_HISTORICAL_ROOT
+    return state.latest_block_roots[slot % spec.SLOTS_PER_HISTORICAL_ROOT]
+
+
+def get_block_root(spec, state, epoch: int) -> bytes:
+    return spec.get_block_root_at_slot(state, spec.get_epoch_start_slot(epoch))
+
+
+def get_randao_mix(spec, state, epoch: int) -> bytes:
+    return state.latest_randao_mixes[epoch % spec.LATEST_RANDAO_MIXES_LENGTH]
+
+
+def get_active_index_root(spec, state, epoch: int) -> bytes:
+    return state.latest_active_index_roots[epoch % spec.LATEST_ACTIVE_INDEX_ROOTS_LENGTH]
+
+
+def generate_seed(spec, state, epoch: int) -> bytes:
+    return spec.hash(
+        spec.get_randao_mix(state, epoch + spec.LATEST_RANDAO_MIXES_LENGTH - spec.MIN_SEED_LOOKAHEAD)
+        + spec.get_active_index_root(state, epoch)
+        + spec.int_to_bytes(epoch, length=32)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Swap-or-not shuffling
+# ---------------------------------------------------------------------------
+
+def get_shuffled_index(spec, index: int, index_count: int, seed: bytes) -> int:
+    """One-point swap-or-not image (reference 0_beacon-chain.md:860-882)."""
+    assert index < index_count
+    assert index_count <= 2 ** 40
+    for current_round in range(spec.SHUFFLE_ROUND_COUNT):
+        round_byte = spec.int_to_bytes(current_round, length=1)
+        pivot = spec.bytes_to_int(spec.hash(seed + round_byte)[0:8]) % index_count
+        flip = (pivot + index_count - index) % index_count
+        position = max(index, flip)
+        source = spec.hash(seed + round_byte + spec.int_to_bytes(position // 256, length=4))
+        bit = (source[(position % 256) // 8] >> (position % 8)) % 2
+        index = flip if bit else index
+    return index
+
+
+# From this many indices up the permutation runs on the spec's device (the
+# reference's install_device_shuffler threshold); below, the numpy host path.
+_DEVICE_SHUFFLE_MIN = 1 << 13
+
+
+def get_shuffle_permutation(spec, index_count: int, seed: bytes) -> np.ndarray:
+    """perm[i] == get_shuffled_index(i, index_count, seed) for all i, batched.
+
+    All rounds vectorized over the full index range; per round only the
+    ceil(n/256) distinct position-block hashes are computed. Cached per
+    (seed, n) — committees for a whole epoch reuse one permutation.
+    """
+    if index_count == 0:
+        return np.empty(0, dtype=np.int64)
+    key = (bytes(seed), index_count)
+    cached = spec._perm_cache.get(key)
+    if cached is not None:
+        return cached
+    if _DEVICE_SHUFFLE_MIN <= index_count < _MAX_N:
+        return _cache_permutation(spec, key, shuffle_permutation_device(
+            bytes(seed), index_count, spec.SHUFFLE_ROUND_COUNT, spec.device))
+    n = index_count
+    idx = np.arange(n, dtype=np.int64)
+    n_blocks = (n + 255) // 256
+    for current_round in range(spec.SHUFFLE_ROUND_COUNT):
+        round_byte = bytes([current_round])
+        pivot = int.from_bytes(hashlib.sha256(seed + round_byte).digest()[:8], "little") % n
+        flip = (pivot + n - idx) % n
+        position = np.maximum(idx, flip)
+        source = np.frombuffer(
+            b"".join(hashlib.sha256(seed + round_byte + int(b).to_bytes(4, "little")).digest()
+                     for b in range(n_blocks)),
+            dtype=np.uint8,
+        ).reshape(n_blocks, 32)
+        byte = source[position // 256, (position % 256) // 8]
+        bit = (byte >> (position % 8).astype(np.uint8)) & 1
+        idx = np.where(bit.astype(bool), flip, idx)
+    return _cache_permutation(spec, key, idx)
+
+
+def _cache_permutation(spec, key, perm: np.ndarray) -> np.ndarray:
+    if len(spec._perm_cache) > 64:
+        spec._perm_cache.clear()
+    spec._perm_cache[key] = perm
+    return perm
+
+
+def compute_committee(spec, indices: Sequence[int], seed: bytes, index: int, count: int) -> List[int]:
+    start = (len(indices) * index) // count
+    end = (len(indices) * (index + 1)) // count
+    perm = spec.get_shuffle_permutation(len(indices), seed)
+    return [indices[perm[i]] for i in range(start, end)]
+
+
+def get_crosslink_committee(spec, state, epoch: int, shard: int) -> List[int]:
+    return spec.compute_committee(
+        indices=spec.get_active_validator_indices(state, epoch),
+        seed=spec.generate_seed(state, epoch),
+        index=(shard + spec.SHARD_COUNT - spec.get_epoch_start_shard(state, epoch)) % spec.SHARD_COUNT,
+        count=spec.get_epoch_committee_count(state, epoch),
+    )
+
+
+def get_beacon_proposer_index(spec, state) -> int:
+    """Balance-weighted rejection sampling over the first committee of the slot
+    (reference 0_beacon-chain.md:819-841).
+
+    A block's attestation family calls this once per attestation (up to
+    128x, 0_beacon-chain.md:1703-1718) with an identical result — inside
+    that loop the only state mutations are PendingAttestation appends.
+    block.process_attestations_batched pins the answer on the state for
+    exactly that scope (cleared in its finally); the (slot, registry
+    length) key is belt-and-suspenders. Mirrors the reference epilogue's
+    committee memo (scripts/build_spec.py:78-91)."""
+    memo = getattr(state, "_proposer_memo", None)
+    if memo is not None and memo[0] == (int(state.slot),
+                                        len(state.validator_registry)):
+        return memo[1]
+    return _compute_beacon_proposer_index(spec, state)
+
+
+def _compute_beacon_proposer_index(spec, state) -> int:
+    epoch = spec.get_current_epoch(state)
+    committees_per_slot = spec.get_epoch_committee_count(state, epoch) // spec.SLOTS_PER_EPOCH
+    offset = committees_per_slot * (state.slot % spec.SLOTS_PER_EPOCH)
+    shard = (spec.get_epoch_start_shard(state, epoch) + offset) % spec.SHARD_COUNT
+    first_committee = spec.get_crosslink_committee(state, epoch, shard)
+    max_random_byte = 2 ** 8 - 1
+    seed = spec.generate_seed(state, epoch)
+    i = 0
+    while True:
+        candidate_index = first_committee[(epoch + i) % len(first_committee)]
+        random_byte = spec.hash(seed + spec.int_to_bytes(i // 32, length=8))[i % 32]
+        effective_balance = spec.effective_balance_of(state, candidate_index)
+        if effective_balance * max_random_byte >= spec.MAX_EFFECTIVE_BALANCE * random_byte:
+            return candidate_index
+        i += 1
+
+
+# ---------------------------------------------------------------------------
+# Bitfields and attestations
+# ---------------------------------------------------------------------------
+
+def get_bitfield_bit(spec, bitfield: bytes, i: int) -> int:
+    return (bitfield[i // 8] >> (i % 8)) % 2
+
+
+def verify_bitfield(spec, bitfield: bytes, committee_size: int) -> bool:
+    if len(bitfield) != (committee_size + 7) // 8:
+        return False
+    for i in range(committee_size, len(bitfield) * 8):
+        if spec.get_bitfield_bit(bitfield, i) == 0b1:
+            return False
+    return True
+
+
+def get_attesting_indices(spec, state, attestation_data, bitfield: bytes) -> List[int]:
+    committee = spec.get_crosslink_committee(state, attestation_data.target_epoch, attestation_data.crosslink.shard)
+    assert spec.verify_bitfield(bitfield, len(committee))
+    return sorted(index for i, index in enumerate(committee) if spec.get_bitfield_bit(bitfield, i) == 0b1)
+
+
+def convert_to_indexed(spec, state, attestation):
+    attesting_indices = spec.get_attesting_indices(state, attestation.data, attestation.aggregation_bitfield)
+    custody_bit_1_indices = spec.get_attesting_indices(state, attestation.data, attestation.custody_bitfield)
+    custody_bit_0_indices = [i for i in attesting_indices if i not in custody_bit_1_indices]
+    return spec.IndexedAttestation(
+        custody_bit_0_indices=custody_bit_0_indices,
+        custody_bit_1_indices=custody_bit_1_indices,
+        data=attestation.data,
+        signature=attestation.signature,
+    )
+
+
+def validate_indexed_attestation(spec, state, indexed_attestation) -> None:
+    bit_0_indices = indexed_attestation.custody_bit_0_indices
+    bit_1_indices = indexed_attestation.custody_bit_1_indices
+
+    # No custody bits set yet [phase 0], bounded size, disjoint, sorted.
+    assert len(bit_1_indices) == 0
+    assert len(bit_0_indices) + len(bit_1_indices) <= spec.MAX_INDICES_PER_ATTESTATION
+    assert len(set(bit_0_indices) & set(bit_1_indices)) == 0
+    assert list(bit_0_indices) == sorted(bit_0_indices) and list(bit_1_indices) == sorted(bit_1_indices)
+    pubkey_sets = [
+        [state.validator_registry[i].pubkey for i in bit_0_indices],
+        [state.validator_registry[i].pubkey for i in bit_1_indices],
+    ]
+    message_hashes = [
+        spec.hash_tree_root(spec.AttestationDataAndCustodyBit(data=indexed_attestation.data, custody_bit=False)),
+        spec.hash_tree_root(spec.AttestationDataAndCustodyBit(data=indexed_attestation.data, custody_bit=True)),
+    ]
+    domain = spec.get_domain(state, spec.DOMAIN_ATTESTATION, indexed_attestation.data.target_epoch)
+    sink = spec._att_verify_sink
+    if sink is not None and spec.bls.bls_active:
+        # Deferred: process_operations collects the whole block's checks
+        # into one grouped device pipeline (block.py) — the verdict is
+        # asserted there, with identical failure semantics.
+        sink.append((pubkey_sets, message_hashes,
+                     bytes(indexed_attestation.signature), domain))
+        return
+    assert spec.bls.bls_verify_multiple(
+        pubkeys=[spec.bls.bls_aggregate_pubkeys(s) for s in pubkey_sets],
+        message_hashes=message_hashes,
+        signature=indexed_attestation.signature,
+        domain=domain,
+    )
+
+
+def is_slashable_attestation_data(spec, data_1, data_2) -> bool:
+    return (
+        # Double vote
+        (data_1 != data_2 and data_1.target_epoch == data_2.target_epoch)
+        # Surround vote
+        or (data_1.source_epoch < data_2.source_epoch and data_2.target_epoch < data_1.target_epoch)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Domains and Merkle branches
+# ---------------------------------------------------------------------------
+
+def get_domain(spec, state, domain_type: int, message_epoch: Optional[int] = None) -> int:
+    epoch = spec.get_current_epoch(state) if message_epoch is None else message_epoch
+    fork_version = state.fork.previous_version if epoch < state.fork.epoch else state.fork.current_version
+    return spec.bls_domain(domain_type, bytes(fork_version))
+
+
+def verify_merkle_branch(spec, leaf: bytes, proof: Sequence[bytes], depth: int, index: int, root: bytes) -> bool:
+    return merkle.verify_merkle_branch(leaf, proof, depth, index, root)
+
+
+# ---------------------------------------------------------------------------
+# Validator status mutations
+# ---------------------------------------------------------------------------
+
+def initiate_validator_exit(spec, state, index: int) -> None:
+    validator = state.validator_registry[index]
+    if validator.exit_epoch != spec.FAR_FUTURE_EPOCH:
+        return
+
+    exit_epochs = [v.exit_epoch for v in state.validator_registry if v.exit_epoch != spec.FAR_FUTURE_EPOCH]
+    exit_queue_epoch = max(exit_epochs + [spec.get_delayed_activation_exit_epoch(spec.get_current_epoch(state))])
+    exit_queue_churn = sum(1 for v in state.validator_registry if v.exit_epoch == exit_queue_epoch)
+    if exit_queue_churn >= spec.get_churn_limit(state):
+        exit_queue_epoch += 1
+
+    validator.exit_epoch = exit_queue_epoch
+    validator.withdrawable_epoch = validator.exit_epoch + spec.MIN_VALIDATOR_WITHDRAWABILITY_DELAY
+
+
+def slash_validator(spec, state, slashed_index: int, whistleblower_index: Optional[int] = None) -> None:
+    current_epoch = spec.get_current_epoch(state)
+    spec.initiate_validator_exit(state, slashed_index)
+    state.validator_registry[slashed_index].slashed = True
+    state.validator_registry[slashed_index].withdrawable_epoch = current_epoch + spec.LATEST_SLASHED_EXIT_LENGTH
+    slashed_balance = state.validator_registry[slashed_index].effective_balance
+    state.latest_slashed_balances[current_epoch % spec.LATEST_SLASHED_EXIT_LENGTH] += slashed_balance
+
+    proposer_index = spec.get_beacon_proposer_index(state)
+    if whistleblower_index is None:
+        whistleblower_index = proposer_index
+    whistleblowing_reward = slashed_balance // spec.WHISTLEBLOWING_REWARD_QUOTIENT
+    proposer_reward = whistleblowing_reward // spec.PROPOSER_REWARD_QUOTIENT
+    spec.increase_balance(state, proposer_index, proposer_reward)
+    spec.increase_balance(state, whistleblower_index, whistleblowing_reward - proposer_reward)
+    spec.decrease_balance(state, slashed_index, whistleblowing_reward)

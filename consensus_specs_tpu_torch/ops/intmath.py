@@ -105,19 +105,24 @@ def muldiv_u64(a: torch.Tensor, b: torch.Tensor, d) -> torch.Tensor:
 
 
 def isqrt_u64(n: torch.Tensor) -> torch.Tensor:
-    """Exact floor square root of uint64 bit patterns, all of [0, 2**64).
+    """Integer square root of uint64 bit patterns, in the reference's
+    operation order: a float64 seed (the correctly rounded value of n,
+    its two 32-bit halves summed once), at least 1; three Newton steps
+    x <- (x + n // x) >> 1; one step down where x*x > n and one up where
+    (x+1)*(x+1) <= n, both products wrapping mod 2**64; 0 for n = 0.
 
-    A float64 seed of the unsigned value, clamped to [0, 2**32 - 1] (the
-    largest root below 2**64), then corrected until r*r <= n < (r+1)**2.
-    The seed is within one of the root, so two steps each way suffice;
-    the (r+1)**2 test treats r+1 == 2**32 as too large."""
+    Exact below (2**32 - 1)**2; from there up the wrapped (x+1)*(x+1)
+    gives 2**32, as the reference does (the epoch program's total
+    balances never get there)."""
     n = torch.as_tensor(n, dtype=torch.int64)
-    as_float = ushr(n, 1).to(torch.float64) * 2.0 + (n & 1).to(torch.float64)
-    r = torch.sqrt(as_float).to(torch.int64).clamp(0, _U32_MASK)
-    for _ in range(2):
-        r = torch.where(ult(n, r * r), r - 1, r)
-    for _ in range(2):
-        up = r + 1
-        fits = (up <= _U32_MASK) & ule(up * up, n)
-        r = torch.where(fits, up, r)
-    return r
+    as_float = (ushr(n, 32).to(torch.float64) * 4294967296.0
+                + (n & _U32_MASK).to(torch.float64))
+    x = torch.sqrt(as_float).to(torch.int64)
+    x = torch.clamp(x, min=1)
+    for _ in range(3):
+        # x reaches 0 only where n == 0 (masked below): divide by 1 there
+        x = ushr(x + udivmod_u64(n, torch.clamp(x, min=1))[0], 1)
+    x = torch.where(ult(n, x * x), x - 1, x)
+    up = x + 1
+    x = torch.where(ule(up * up, n), up, x)
+    return torch.where(n == 0, torch.zeros_like(x), x)

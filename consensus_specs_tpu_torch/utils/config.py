@@ -1,8 +1,11 @@
-"""Preset constants from configs/{mainnet,minimal}.yaml.
+"""Constant presets: immutable config objects loaded from configs/*.yaml
+(own copy of consensus_specs_tpu/utils/config.py).
 
-A small loader for the fields the epoch program and the shuffle need
-(the reference's utils/config.py builds whole spec objects; the port
-reads the same YAML files and returns plain dicts)."""
+A preset is a frozen mapping; spec objects (types whose Vector lengths
+depend on constants, and the functions that close over them) are built per
+preset by the spec factory (models/phase0/spec.py) and cached, so two
+presets coexist as two spec objects instead of mutated module globals.
+"""
 from __future__ import annotations
 
 import os
@@ -15,13 +18,66 @@ _CONFIG_DIR = os.path.join(
     "configs")
 
 
-def load_preset(name_or_path: str) -> Dict[str, Any]:
-    """Constants of a preset by name ('mainnet'/'minimal') or YAML path,
-    plus the derived GENESIS_EPOCH (GENESIS_SLOT // SLOTS_PER_EPOCH)."""
+class Preset:
+    """Frozen namespace of protocol constants. `cfg.SLOTS_PER_EPOCH` etc."""
+
+    def __init__(self, name: str, constants: Dict[str, Any]):
+        object.__setattr__(self, "name", name)
+        object.__setattr__(self, "_constants", dict(constants))
+        for k, v in constants.items():
+            object.__setattr__(self, k, v)
+
+    def __setattr__(self, key: str, value: Any):
+        raise AttributeError("Preset is immutable")
+
+    def __getitem__(self, key: str) -> Any:
+        return self._constants[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._constants
+
+    def keys(self):
+        return self._constants.keys()
+
+    def items(self):
+        return self._constants.items()
+
+    def __repr__(self):
+        return f"Preset({self.name!r}, {len(self._constants)} constants)"
+
+
+def _parse_value(key: str, value: Any) -> Any:
+    if isinstance(value, str) and value.startswith("0x"):
+        return bytes.fromhex(value[2:])
+    return value
+
+
+def load_preset_file(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    return {k: _parse_value(k, v) for k, v in raw.items()}
+
+
+_preset_cache: Dict[str, Preset] = {}
+
+
+def load_preset(name_or_path: str) -> Preset:
+    """Load a preset by name ('mainnet'/'minimal') or explicit YAML path."""
+    if name_or_path in _preset_cache:
+        return _preset_cache[name_or_path]
     path = name_or_path
+    name = os.path.splitext(os.path.basename(path))[0]
     if not os.path.exists(path):
         path = os.path.join(_CONFIG_DIR, f"{name_or_path}.yaml")
-    with open(path) as f:
-        consts = yaml.safe_load(f)
-    consts["GENESIS_EPOCH"] = consts["GENESIS_SLOT"] // consts["SLOTS_PER_EPOCH"]
-    return consts
+        name = name_or_path
+    preset = Preset(name, load_preset_file(path))
+    _preset_cache[name_or_path] = preset
+    return preset
+
+
+def mainnet() -> Preset:
+    return load_preset("mainnet")
+
+
+def minimal() -> Preset:
+    return load_preset("minimal")

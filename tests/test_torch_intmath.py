@@ -83,12 +83,14 @@ def test_muldiv_scalar_divisor_like_epoch_program():
 
 
 def test_isqrt_exact_floor_root():
+    """Exact floor roots everywhere below (2**32-1)**2, where the
+    reference's wrapping (x+1)**2 correction cannot wrap."""
     rng = np.random.default_rng(7)
-    xs = np.array(_EDGES + _REAL + [(2 ** 32 - 1) ** 2 - 1, (2 ** 32 - 1) ** 2,
-                                    (2 ** 32 - 1) ** 2 + 1]
+    top = (2 ** 32 - 1) ** 2
+    xs = np.array([v for v in _EDGES + _REAL if v < top] + [top - 1]
                   + [k * k + e for k in (1, 2 ** 16, 2 ** 31, 2 ** 32 - 2)
                      for e in (-1, 0, 1)]
-                  + list(rng.integers(0, 2 ** 64, 3000, dtype=np.uint64)),
+                  + list(rng.integers(0, top, 3000, dtype=np.uint64)),
                   dtype=np.uint64)
     got = _u(TI.isqrt_u64(_t(xs)))
     assert got == [math.isqrt(int(x)) for x in xs]
@@ -105,12 +107,25 @@ def test_isqrt_matches_jax_below_its_range_limit():
 
 
 def test_isqrt_divergence_from_jax_at_top_of_range():
-    """Pins the one divergence found porting: for n >= (2**32-1)**2 the
-    reference returns 2**32 (its (x+1)**2 wraps to 0); the port returns
-    the exact floor root 2**32 - 1."""
-    n = np.array([(2 ** 32 - 1) ** 2, 2 ** 64 - 1], dtype=np.uint64)
-    assert [int(v) for v in np.asarray(JI.isqrt_u64(n))] == [2 ** 32, 2 ** 32]
-    assert _u(TI.isqrt_u64(_t(n))) == [2 ** 32 - 1, 2 ** 32 - 1]
+    """The port equals the reference on all of [0, 2**64), the top of the
+    range included: for n >= (2**32-1)**2 both return 2**32 (the wrapped
+    (x+1)**2 correction), one more than the exact root. Edges, squares
+    and their neighbours, float64 rounding ties and random values over
+    the whole range."""
+    rng = np.random.default_rng(9)
+    top = (2 ** 32 - 1) ** 2
+    ties = [(1 << 53) + 1, (1 << 54) + 2, (1 << 63) + (1 << 10) + 1,
+            (1 << 64) - (1 << 11) - 1, (1 << 64) - (1 << 10)]
+    xs = np.array(_EDGES + _REAL + ties + [top - 1, top, top + 1]
+                  + [k * k + e for k in (1, 2 ** 16, 2 ** 26 + 3, 2 ** 31,
+                                         2 ** 32 - 2, 2 ** 32 - 1)
+                     for e in (-1, 0, 1)]
+                  + list(rng.integers(0, 2 ** 64, 5000, dtype=np.uint64))
+                  + list(rng.integers(top, 2 ** 64, 500, dtype=np.uint64)),
+                  dtype=np.uint64)
+    want = [int(v) for v in np.asarray(JI.isqrt_u64(xs))]
+    assert _u(TI.isqrt_u64(_t(xs))) == want
+    assert want[_EDGES.index(2 ** 64 - 1)] == 2 ** 32
 
 
 @pytest.mark.parametrize("k", [0, 1, 31, 32, 63])
