@@ -64,6 +64,32 @@ ResidentCore, the spec's process_block), mainnet preset at full width:
     ResidentCore and through the port's unpatched object model, per-slot
     roots, full roots and serialized states equal.
 
+Then the attestation firehose (consensus_specs_tpu_torch.streaming) at the
+reference's steady-state shape, 128 groups x 3 pairs a batch, a verdict
+ring of 1,024, the port's stage_example_groups(8) tiled as traffic: the
+warm wave's verdicts must equal the synchronous _grouped_pairing_dispatch,
+one 128 x 3 batch from stage_group_arrays (a padded tail, one group's
+signature swapped) must give bit-identical Fq12 limbs through the kernels
+and through the plain functions on the card, every verdict True, 4 waves with a pump after each and one flush (no host
+synchronization while the waves are dispatched: torch.cuda's sync debug
+mode "error", and none in their torch.profiler range), occupancy >= 128,
+0 deadline misses under a 2,000 ms flush budget, 0 retrace and 0
+re-layout watchdog events, the ring's data_ptr constant, and a wave with
+one group's signature swapped must read False at that key only.
+
+The block drive also carries two gossip slots: the slot's attestations
+published as SSZ through the port's GossipRouter to a StreamingVerifier
+(a duplicate publish reaches no subscriber), pumped and flushed, then the
+block carrying them with spec._streaming_verifier set: 16 cache hits, 0
+new pipeline launches, and the post-state root equal to the same block
+run synchronously from its pre-state's checkpoint bytes; a gossip
+attestation with a swapped signature must read False and its block be
+rejected in process_attestations_batched.
+
+Then fork choice at V = 1,000,000: a Store over a forked DAG of 96
+blocks, seeded latest messages; lmd_ghost (get_head's vote sum and head
+walk) on the card must equal the CPU path.
+
 Kernel times: at 1,048,576 lanes beside each kernel's bound, and at the
 lane count the verify launches most, beside an empty kernel's launch on
 the same stream (per eager call, host included, and per launch replayed
@@ -92,10 +118,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from consensus_specs_tpu_torch import convert
+from consensus_specs_tpu_torch import convert, streaming, telemetry
 from consensus_specs_tpu_torch.crypto import bls12_381 as bls_host
 from consensus_specs_tpu_torch.models import phase0
-from consensus_specs_tpu_torch.models.phase0 import epoch_soa
+from consensus_specs_tpu_torch.models.phase0 import epoch_soa, fork_choice
 from consensus_specs_tpu_torch.models.phase0.resident import (ResidentColumns,
                                                              ResidentCore)
 from consensus_specs_tpu_torch.ops import _nvcc, sha256, sha256_cuda
@@ -103,7 +129,10 @@ from consensus_specs_tpu_torch.ops import bls_torch, fq_cuda, fq_tower
 from consensus_specs_tpu_torch.ops import fq as fq_mod
 from consensus_specs_tpu_torch.ops import shuffle as shuffle_mod
 from consensus_specs_tpu_torch.utils.config import load_preset
+from consensus_specs_tpu_torch.networking.gossip import (GossipRouter,
+                                                         TOPIC_BEACON_ATTESTATION)
 from consensus_specs_tpu_torch.utils.ssz import bulk as ssz_bulk
+from consensus_specs_tpu_torch.utils.ssz import impl as ssz_impl
 from consensus_specs_tpu_torch.utils.ssz.columns import state_bytes_from_columns
 
 V_MAIN = 1_000_000
@@ -130,6 +159,21 @@ N_REFERENCE_BLOCKS = 12
 # maximum SM clock = 16.7 T ops/s per pipe.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+# the firehose (streaming verifier) at the reference's committed
+# steady-state shape: G = 128 groups x P = 3 pairs, a ring of 1,024
+FIREHOSE_G = 128
+FIREHOSE_RING = 1024
+FIREHOSE_WAVES = 4
+FIREHOSE_DISTINCT = 8       # signed groups, tiled (device work value-independent)
+FIREHOSE_BAD_KEY = 37       # the group whose signature is swapped
+FIREHOSE_PAD = 3            # padded groups of the kernel-vs-plain batch
+# the flush budget: the attestation deadline, a third of a 6 s slot
+FIREHOSE_DEADLINE_MS = 2000.0
+# fork choice: latest messages of 1M validators over a forked block DAG
+V_FORK_CHOICE = 1_000_000
+FORK_CHOICE_BLOCKS = 96
+FORK_CHOICE_REPS = 20
 
 N_KEYS = 64                 # keypairs cycled over the committee members
 BLS_DOMAIN = 0x0100000000000000 + 1
@@ -561,6 +605,24 @@ class Block:
         self.corrupt = self.items[:BAD_ITEM] + [tuple(bad)] + self.items[BAD_ITEM + 1:]
 
 
+def pairing_routes(g1, g2, what: str):
+    """One grouped pairing (miller_loop_grouped, final_exponentiation_3x)
+    of g1 [G,P,2,L] / g2 [G,P,2,2,L] on the card through the kernels
+    (fq_tower.DEVICE) and through the plain functions (fq_tower.PLAIN):
+    the Miller values and the final powers must be bit-identical. ->
+    (kernel route's final powers [G,2,3,2,L], kernel ms, plain ms)."""
+    routes, ms = {}, {}
+    for name, tower in (("kernel", fq_tower.DEVICE), ("plain", fq_tower.PLAIN)):
+        def pair(tower=tower):
+            f = bls_torch.miller_loop_grouped(g1, g2, tower)
+            return f, bls_torch.final_exponentiation_3x(f, tower)
+        routes[name], ms[name] = fenced_ms(pair)
+    for k_t, p_t in zip(routes["kernel"], routes["plain"]):
+        if not torch.equal(k_t, p_t):
+            raise AssertionError(f"{what} grouped pairing: kernel route != plain route")
+    return routes["kernel"][1], ms["kernel"], ms["plain"]
+
+
 def drive_bls(block: Block, dev):
     """The slice on the card: verify_indexed_batch of the valid block
     (counted: the launches of the main path), warm verify, the corrupted
@@ -626,21 +688,239 @@ def drive_bls(block: Block, dev):
 
     # kernel route vs plain route, one grouped pairing of the block
     n = min(PLAIN_GROUPS, g1.shape[0])
-    routes = {}
-    for name, tower in (("kernel", fq_tower.DEVICE), ("plain", fq_tower.PLAIN)):
-        def pair(tower=tower):
-            f = bls_torch.miller_loop_grouped(g1[:n], g2[:n], tower)
-            return f, bls_torch.final_exponentiation_3x(f, tower)
-        routes[name], out[f"pairing_{name}_ms"] = fenced_ms(pair)
-    for k_t, p_t in zip(routes["kernel"], routes["plain"]):
-        if not torch.equal(k_t, p_t):
-            raise AssertionError("grouped pairing: kernel route != plain route")
+    _, out["pairing_kernel_ms"], out["pairing_plain_ms"] = pairing_routes(
+        g1[:n], g2[:n], "block")
     out["pairing_groups_compared"] = n
     out["pairing_trace"] = device_busy(
         lambda: bls_torch.grouped_pairing_check(g1, g2))
     out["shape"] = {"attestations": block.n_att, "committee": block.size,
                     "pubkeys": block.n_att * block.size, "pairs": int(g1.shape[1])}
     return out
+
+# ---------------------------------------------------------------------------
+# the firehose: the streaming verifier at its committed steady-state shape
+# ---------------------------------------------------------------------------
+
+def tele_count(name: str):
+    """An always-on telemetry counter's value."""
+    return telemetry.counter(name, always=True).value
+
+
+SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize")
+
+
+def profile_window(steps):
+    """steps: [(label, fn)] run in order under torch.profiler (CPU and CUDA
+    activity), each inside a record_function range of its label. Returns
+    {wall_ms, device_ms, busy_share, syncs: {label: n}}: syncs counts the
+    host synchronizations (stream, device, event) and device-to-host copies
+    that start inside each label's range; device_ms sums the device time of
+    every kernel and copy on the device timeline (None where the trace
+    holds no device time); the wall includes the profiler's overhead."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for label, fn in steps:
+            with record_function(label):
+                fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    from torch.autograd import DeviceType
+    labels = [label for label, _ in steps]
+    events = prof.events()
+    # each label's range on the host's timeline: its device-side
+    # annotation spans its kernels, which may run on into the next range
+    ranges = {e.name: (e.time_range.start, e.time_range.end)
+              for e in events if e.name in labels and e.device_type == DeviceType.CPU}
+    syncs = dict.fromkeys(labels, 0)
+    for e in events:
+        if e.name in SYNC_EVENTS or "DtoH" in e.name:
+            for label, (a, b) in ranges.items():
+                if a <= e.time_range.start <= b:
+                    syncs[label] += 1
+    # device events only (kernels, copies): a CPU-side event's device time
+    # repeats its kernels', and the labels' own device-side annotation
+    # ranges span the kernels they hold
+    dev_us = sum(e.time_range.elapsed_us() for e in events
+                 if e.device_type == DeviceType.CUDA and e.name not in labels)
+    return {"wall_ms": wall, "device_ms": dev_us / 1e3 if dev_us > 0 else None,
+            "busy_share": dev_us / 1e3 / wall if dev_us > 0 else None,
+            "syncs": syncs}
+
+
+def drive_firehose(dev, rng):
+    """The streaming verifier (consensus_specs_tpu_torch.streaming) at the
+    reference's steady-state shape, G = 128 groups x P = 3 pairs, ring of
+    1,024: the port's stage_example_groups(8) tiled and submitted with
+    submit_staged (the reference bench's traffic). One warm wave (verdicts
+    == the synchronous _grouped_pairing_dispatch), one padded 128 x 3
+    batch through the kernels and the plain functions (bit-identical),
+    FIREHOSE_WAVES waves with a pump after each and one flush (timed,
+    kernel launches counted, the waves and pumps under torch.cuda's sync
+    debug mode "error": any host synchronization raises), the same window
+    traced (device-busy share, synchronizations counted per range), then
+    a wave with one group's signature swapped. Returns the numbers; raises
+    on any failed check."""
+    g1d, g2d = bls_torch.stage_example_groups(FIREHOSE_DISTINCT, FIREHOSE_DISTINCT)
+    n_distinct, P = g1d.shape[0], g1d.shape[1]
+
+    def pairs_for(k, bad=False):
+        i = k % n_distinct
+        pairs = [(g1d[i, p], g2d[i, p]) for p in range(P)]
+        if bad:      # another group's signature, over another message
+            pairs[0] = (g1d[i, 0], g2d[(i + 1) % n_distinct, 0])
+        return pairs
+
+    v = streaming.StreamingVerifier(
+        device=dev, target_groups=FIREHOSE_G, ring_capacity=FIREHOSE_RING,
+        deadline_ms=FIREHOSE_DEADLINE_MS, register=False)
+    ring_ptr = v.pipeline.ring.data_ptr()
+
+    def wave(tag, bad_key=None):
+        for k in range(FIREHOSE_G):
+            v.submit_staged((tag, k), pairs_for(k, bad=k == bad_key))
+
+    def waves(tag):
+        for w in range(FIREHOSE_WAVES):
+            wave((tag, w))
+            v.pump()
+
+    def one_wave(tag, bad_key=None):
+        wave(tag, bad_key)
+        v.pump()
+        return v.flush()
+
+    out = {"groups": FIREHOSE_G, "pairs": P, "ring": FIREHOSE_RING,
+           "waves": FIREHOSE_WAVES, "deadline_ms": FIREHOSE_DEADLINE_MS}
+    warm, out["warm_ms"] = fenced_ms(lambda: one_wave("warm"))
+    if len(warm) != FIREHOSE_G or not all(warm.values()):
+        raise AssertionError("firehose: the warm wave did not verify")
+    sync_verdicts, out["sync_dispatch_ms"] = fenced_ms(
+        lambda: bls_torch._grouped_pairing_dispatch(
+            [(("warm", k), pairs_for(k)) for k in range(FIREHOSE_G)], dev))
+    if sync_verdicts != warm:
+        raise AssertionError("firehose: streamed verdicts != synchronous dispatch")
+
+    # kernel route vs plain route at the firehose's batch shape: one batch
+    # from the shared staging point (stage_group_arrays), FIREHOSE_PAD
+    # copies of the last group filling the tail up to 128 x 3, the swapped
+    # group in it; Fq12 limbs bit-identical, verdicts False there only
+    real = FIREHOSE_G - FIREHOSE_PAD
+    g1, g2 = bls_torch.stage_group_arrays(
+        [(np.stack([a for a, _ in p]), np.stack([b for _, b in p]))
+         for p in (pairs_for(k, bad=k == FIREHOSE_BAD_KEY) for k in range(real))], P)
+    if g1.shape[:2] != (FIREHOSE_G, P):
+        raise AssertionError(f"firehose: staged batch shape {g1.shape}")
+    final, out["pairing_kernel_ms"], out["pairing_plain_ms"] = pairing_routes(
+        torch.from_numpy(g1).to(dev), torch.from_numpy(g2).to(dev), "firehose")
+    ok = fq_tower.DEVICE.fq12_eq(final, fq_tower.fq12_ones((FIREHOSE_G,), final.device))
+    if [k for k, b in enumerate(ok.tolist()) if not b] != [FIREHOSE_BAD_KEY]:
+        raise AssertionError("firehose: the staged batch's verdicts")
+    out["pairing_shape"] = list(g1.shape[:2])
+
+    retrace0 = telemetry.counter("watchdog.retrace_events").value
+    relayout0 = telemetry.counter("watchdog.relayout_events").value
+    miss0 = tele_count("firehose.deadline_miss")
+    occ0, launches0 = len(v.pipeline.occupancies), v.pipeline.launches
+    # the steady-state window: the kernels' counts set to 0 just before it
+    zero_fq_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        waves("steady")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    t1 = time.perf_counter()
+    res = v.flush()
+    t2 = time.perf_counter()
+    out["launches"], out["lanes"] = fq_launches(), fq_lanes()
+    batches = v.pipeline.launches - launches0
+    groups = FIREHOSE_WAVES * FIREHOSE_G
+    if len(res) != groups or not all(res.values()):
+        raise AssertionError("firehose: steady-state verdicts")
+    occupancies = list(v.pipeline.occupancies)[occ0:]
+    out.update(batches=batches, occupancy_min=min(occupancies),
+               dispatch_ms=(t1 - t0) * 1e3, flush_ms=(t2 - t1) * 1e3,
+               window_ms=(t2 - t0) * 1e3)
+    out["ms_per_batch"] = out["window_ms"] / batches
+    out["aggverify_per_s"] = groups / (t2 - t0)
+    out["pairings_per_s"] = groups * P / (t2 - t0)
+    out["per_batch"] = {k: n / batches for k, n in out["launches"].items()}
+    if out["occupancy_min"] < FIREHOSE_G:
+        raise AssertionError(f"firehose: occupancy {out['occupancy_min']} < {FIREHOSE_G}")
+    if min(out["launches"]["fq_mul"], out["launches"]["fq_bilinear"]) <= 0:
+        raise AssertionError(f"firehose launched {out['launches']}")
+
+    # the same window traced: device-busy share, synchronizations per range
+    out["trace"] = profile_window([("firehose.waves", lambda: waves("traced")),
+                                   ("firehose.flush", v.flush)])
+    if out["trace"]["syncs"]["firehose.waves"]:
+        raise AssertionError(f"firehose: host synchronizations outside the flush:"
+                             f" {out['trace']['syncs']}")
+
+    bad, out["bad_ms"] = fenced_ms(lambda: one_wave("bad", FIREHOSE_BAD_KEY))
+    wrong = [k for k, ok in bad.items() if not ok]
+    if wrong != [("bad", FIREHOSE_BAD_KEY)] or len(bad) != FIREHOSE_G:
+        raise AssertionError(f"firehose: swapped-signature wave read False at {wrong}")
+    out["deadline_misses"] = tele_count("firehose.deadline_miss") - miss0
+    out["retrace_events"] = telemetry.counter("watchdog.retrace_events").value - retrace0
+    out["relayout_events"] = telemetry.counter("watchdog.relayout_events").value - relayout0
+    out["ring_ptr_constant"] = v.pipeline.ring.data_ptr() == ring_ptr
+    if out["deadline_misses"] or out["retrace_events"] or out["relayout_events"]:
+        raise AssertionError(f"firehose: {out['deadline_misses']} deadline misses,"
+                             f" {out['retrace_events']} retrace / {out['relayout_events']}"
+                             " re-layout events")
+    if not out["ring_ptr_constant"]:
+        raise AssertionError("firehose: the verdict ring moved")
+    out["launch_times"] = small_launch_times(out["lanes"], dev, rng)
+    return out
+
+
+def report_firehose(fh) -> None:
+    per = fh["per_batch"]
+    log(f"phase firehose: {fh['groups']} groups x {fh['pairs']} pairs a batch, ring"
+        f" {fh['ring']}, stage_example_groups({FIREHOSE_DISTINCT}) tiled | warm wave"
+        f" {fh['warm_ms']:.1f} ms (synchronous dispatch of the same groups"
+        f" {fh['sync_dispatch_ms']:.1f} ms, verdicts equal) | steady state"
+        f" {fh['waves']} waves + pumps {fh['dispatch_ms']:.1f} ms, flush"
+        f" {fh['flush_ms']:.1f} ms: {fh['batches']} batches, {fh['ms_per_batch']:.1f} ms"
+        f" per batch, {fh['aggverify_per_s']:.1f} aggverify/s,"
+        f" {fh['pairings_per_s']:.1f} pairings/s | occupancy min {fh['occupancy_min']}")
+    tr = fh["trace"]
+    log(f"phase firehose launches: per batch fq_mul {per['fq_mul']:.1f} / fq_redc"
+        f" {per['fq_redc']:.1f} / fq_bilinear {per['fq_bilinear']:.1f} | lanes per"
+        f" launch: fq_mul {hist(fh['lanes']['fq_mul'])}; fq_bilinear"
+        f" {hist(fh['lanes']['fq_bilinear'])}")
+    log("phase firehose trace: the same window under torch.profiler: wall"
+        f" {tr['wall_ms']:.1f} ms, device "
+        + ("not measured (no device time in the trace)" if tr["device_ms"] is None
+           else f"{tr['device_ms']:.1f} ms, busy share {tr['busy_share']:.3f}")
+        + f" | synchronizations and device-to-host copies per range {tr['syncs']}")
+    log("phase firehose launch: at the firehose's most frequent lane counts, ms per"
+        " eager call (host and device) / per launch replayed from a CUDA graph: "
+        + "; ".join(f"{k} {t['lanes']} lanes {t['call_ms']:.4f} / {t['graph_ms']:.4f}"
+                    + (f" (bound {t['bound_ms']:.6f})" if "bound_ms" in t else "")
+                    for k, t in fh["launch_times"].items()))
+    log(f"phase firehose checks: warm verdicts == synchronous dispatch; a"
+        f" {fh['pairing_shape'][0]} x {fh['pairing_shape'][1]} batch from"
+        f" stage_group_arrays ({FIREHOSE_PAD} padded groups, key {FIREHOSE_BAD_KEY}"
+        f" swapped) bit-identical through kernels ({fh['pairing_kernel_ms']:.1f} ms)"
+        f" and plain functions ({fh['pairing_plain_ms']:.1f} ms); every verdict"
+        f" True; the wave with key {FIREHOSE_BAD_KEY}'s signature swapped reads False"
+        f" there only ({fh['bad_ms']:.1f} ms); {fh['deadline_misses']} deadline misses"
+        f" under {fh['deadline_ms']:.0f} ms; {fh['retrace_events']} retrace /"
+        f" {fh['relayout_events']} re-layout events; ring data_ptr constant; no host"
+        f" synchronization in the waves (sync debug mode \"error\")")
+
+
+def hist(lanes):
+    """'lanes x launches', most launches first."""
+    top = sorted(lanes.items(), key=lambda kv: -kv[1])
+    return ", ".join(f"{k} x {v}" for k, v in top) or "-"
+
 
 # ---------------------------------------------------------------------------
 # the spec path: ResidentCore through the system's own entry points
@@ -869,18 +1149,57 @@ def proposed_block(spec, state, attestations=(), exits=(), signed=True):
     return block
 
 
+def publish_and_verify(spec, state, atts, v, sync):
+    """One slot's attestations published as SSZ through a GossipRouter whose
+    subscriber is the firehose `v` (ingest_gossip: decode, indexed item,
+    dedup), then pump (staging) and flush (the partial batch launched and
+    the ring read back). A second publish of each payload must reach no
+    subscriber. Returns (digest per attestation, ms per part, verdicts)."""
+    router = GossipRouter()
+    digests = []
+    router.subscribe("firehose", TOPIC_BEACON_ATTESTATION,
+                     lambda _topic, payload: digests.append(
+                         v.ingest_gossip(spec, state, payload)))
+    payloads = [ssz_impl.serialize(a, spec.Attestation) for a in atts]
+    sync()
+    t0 = time.perf_counter()
+    for payload in payloads:
+        if router.publish("peer", TOPIC_BEACON_ATTESTATION, payload) != 1:
+            raise AssertionError("gossip: a publish did not reach the firehose")
+    t1 = time.perf_counter()
+    v.pump()
+    sync()
+    t2 = time.perf_counter()
+    got = v.flush()
+    t3 = time.perf_counter()
+    if sum(router.publish("peer2", TOPIC_BEACON_ATTESTATION, p) for p in payloads):
+        raise AssertionError("gossip: a duplicate publish reached a subscriber")
+    if None in digests or sorted(got) != sorted(digests):
+        raise AssertionError("gossip: an attestation was not verified")
+    ms = {"ingest_ms": (t1 - t0) * 1e3, "pump_ms": (t2 - t1) * 1e3,
+          "flush_ms": (t3 - t2) * 1e3, "verify_ms": (t3 - t0) * 1e3}
+    return digests, ms, got
+
+
 def drive_blocks(spec, V: int, n_blocks: int, sync, dev):
     """The object entry with BLS on: ResidentCore(spec, state) over V
     validators (keys cycled over N_KEYS keypairs) at an epoch past
     PERSISTENT_COMMITTEE_PERIOD; n_blocks blocks each carrying the
     attestations of the slot MIN_ATTESTATION_INCLUSION_DELAY before it,
-    then a block with a signed voluntary exit (the fallback path), then a
-    block whose attestation signatures BAD_ITEM and BAD_ITEM + 1 are
-    swapped, which the batched verify must reject with exactly those two
-    items False. Every slot advance and block is one row; sha256_launches
-    is the sum of the entry's and the rows' launches (the checks after the
-    drive and the host staging between rows are not in it). Returns the
-    numbers."""
+    then the gossip slot (its attestations published through a
+    GossipRouter to a StreamingVerifier, pumped and flushed, then the block
+    carrying them with spec._streaming_verifier set: every verdict a cache
+    hit, no new pipeline launch), then a block with a signed voluntary exit
+    (the fallback path), then a block whose attestation signatures BAD_ITEM
+    and BAD_ITEM + 1 are swapped, which the batched verify must reject with
+    exactly those two items False, then a gossip slot with BAD_ITEM's
+    signature swapped (False in the firehose, the block rejected on it).
+    After the drive, the gossip-fed block runs again from its pre-state's
+    checkpoint bytes on a core of its own, verified synchronously: the
+    roots must be equal. Every slot advance and block is one row;
+    sha256_launches is the sum of the entry's and the rows' launches (the
+    checks after the drive and the host staging between rows are not in
+    it). Returns the numbers."""
     from consensus_specs_tpu_torch.crypto import bls as spec_bls
     pubs = [bls_host.privtopub(k + 1) for k in range(N_KEYS)]
     spe = spec.SLOTS_PER_EPOCH
@@ -970,6 +1289,49 @@ def drive_blocks(spec, V: int, n_blocks: int, sync, dev):
             if not (row["fq_mul"] > 0 and row["fq_bilinear"] > 0):
                 raise AssertionError(f"block {b} verified without the kernels: {row}")
 
+        # the gossip slot: its attestations through the router and the
+        # firehose, then the block carrying them served from its cache
+        v = streaming.StreamingVerifier(backend=backend, target_groups=FIREHOSE_G,
+                                        deadline_ms=FIREHOSE_DEADLINE_MS,
+                                        register=False)
+
+        def gossip_block(kind, swap):
+            slot_now = state.slot + 1
+            slots = advance(slot_now)
+            atts = slot_attestations(spec, state, slot_now - delay, sign_committee)
+            if swap:
+                atts[BAD_ITEM].signature = atts[BAD_ITEM + 1].signature
+            block = proposed_block(spec, state, atts)
+            pre = core.checkpoint_bytes() if not swap else None
+            zero_fq_counters()
+            digests, ms, got = publish_and_verify(spec, state, atts, v, sync)
+            g = {"verify": ms, "verify_launches": fq_launches(),
+                 "false_at": [k for k, d in enumerate(digests) if not got[d]]}
+            if g["false_at"] != ([BAD_ITEM] if swap else []):
+                raise AssertionError(f"gossip: verdicts False at {g['false_at']}")
+            hits0, launches0 = tele_count("firehose.cache_hits"), v.pipeline.launches
+            spec._streaming_verifier = v
+            try:
+                row, raised = apply(block, kind, slots)
+            finally:
+                spec._streaming_verifier = None
+            g["cache_hits"] = tele_count("firehose.cache_hits") - hits0
+            g["new_launches"] = v.pipeline.launches - launches0
+            g["block_ms"], g["attestations"] = row["block_ms"], len(atts)
+            if g["cache_hits"] != len(atts) or g["new_launches"] or row["verify_ms"]:
+                raise AssertionError(f"gossip block: {g['cache_hits']} cache hits,"
+                                     f" {g['new_launches']} new launches, verify"
+                                     f" {row['verify_ms']} ms")
+            return g, raised, pre, block
+
+        g, raised, gossip_pre, block = gossip_block("gossip-fed (firehose cache)", False)
+        if raised is not None:
+            raise raised
+        slot = int(state.slot)
+        g["root"] = core._state_root(state).hex()
+        out["gossip"] = {"good": g, "pre": gossip_pre,
+                         "block": ssz_impl.serialize(block, spec.BeaconBlock)}
+
         slot += 1
         slots = advance(slot)
         leaver = (spec.get_beacon_proposer_index(state) + 1) % V
@@ -1009,6 +1371,16 @@ def drive_blocks(spec, V: int, n_blocks: int, sync, dev):
             raise AssertionError(f"bad block raised in {where.name}, not after the"
                                  f" batched verify: {raised!r}")
         out["bad_block_verdicts"] = verdicts[0]
+
+        # a gossip attestation with a swapped signature reads False in the
+        # firehose, and the block carrying it is rejected on that verdict
+        g, raised, _, _ = gossip_block("gossip-fed, 1 swapped signature (rejected)", True)
+        if raised is None:
+            raise AssertionError("the gossip-fed block with a swapped signature was accepted")
+        where = traceback.extract_tb(raised.__traceback__)[-1]
+        if where.name != "process_attestations_batched":
+            raise AssertionError(f"gossip bad block raised in {where.name}: {raised!r}")
+        out["gossip"]["bad"] = g
         out["sha256_launches"] = out["enter_launches"] + sum(
             r["slots_launches"] + r["sha256_launches"] for r in out["blocks"])
         root = core._state_root(state)
@@ -1020,6 +1392,29 @@ def drive_blocks(spec, V: int, n_blocks: int, sync, dev):
     # the registry as objects again, rooted by the bulk path
     if ssz_bulk.state_root_bulk(state, dev) != root:
         raise AssertionError("resident root != bulk root of the exited state")
+    # the gossip-fed block's synchronous twin: the same block from its
+    # pre-state's checkpoint bytes on a core of its own, its attestations
+    # through verify_indexed_batch
+    gossip = out["gossip"]
+    spec_bls.bls_active = True
+    twin = None
+    t0 = time.perf_counter()
+    try:
+        twin_state = ssz_impl.deserialize(gossip.pop("pre"), spec.BeaconState)
+        twin = ResidentCore(spec, twin_state)
+        t1 = time.perf_counter()
+        twin.state_transition(twin_state, ssz_impl.deserialize(
+            gossip.pop("block"), spec.BeaconBlock))
+        sync()
+        gossip["twin_block_ms"] = (time.perf_counter() - t1) * 1e3
+        twin_root = twin._state_root(twin_state).hex()
+    finally:
+        spec_bls.bls_active = was_active
+        if twin is not None:
+            twin.exit()
+    gossip["twin_s"] = time.perf_counter() - t0
+    if twin_root != gossip["good"]["root"]:
+        raise AssertionError("gossip-fed block root != its synchronous twin's")
     out["shape"] = {"validators": V, "attestations_per_block": len(atts),
                     "committee": len(spec.get_crosslink_committee(
                         state, spec.get_current_epoch(state),
@@ -1036,7 +1431,6 @@ def drive_reference(spec, V: int, n_blocks: int, dev):
     Per-slot state roots and full roots must agree after every block, and
     the serialized states at the end."""
     from consensus_specs_tpu_torch.crypto import bls as spec_bls
-    from consensus_specs_tpu_torch.utils.ssz import impl as ssz_impl
     spe = spec.SLOTS_PER_EPOCH
     state = beacon_state(spec, V, 3 * spe - n_blocks // 2, lambda i: i.to_bytes(48, "little"), dev)
     ref, res = copy.deepcopy(state), state
@@ -1150,6 +1544,25 @@ def report_spec_path(sp) -> dict:
         f" at items {bad} only, AssertionError from process_attestations_batched |"
         f" sha256_pairs launches {b['sha256_launches']} (entry + slots + blocks)"
         f" | peak device memory {b['peak_device_gib']:.2f} GiB")
+    gs = b["gossip"]
+    for name, label in (("good", "the gossip slot"),
+                        ("bad", "the gossip slot with 1 swapped signature")):
+        g, ms = gs[name], gs[name]["verify"]
+        log(f"phase gossip: {label}: {g['attestations']} attestations published as SSZ"
+            f" through the GossipRouter (a duplicate publish reached 0 subscribers) |"
+            f" firehose verify {ms['verify_ms']:.1f} ms (ingest {ms['ingest_ms']:.1f} /"
+            f" pump, the staging {ms['pump_ms']:.1f} / flush {ms['flush_ms']:.1f}),"
+            f" fq_mul {g['verify_launches']['fq_mul']} / fq_bilinear"
+            f" {g['verify_launches']['fq_bilinear']} launches, False at {g['false_at']} |"
+            f" block state_transition {g['block_ms']:.1f} ms with {g['cache_hits']} cache"
+            f" hits and {g['new_launches']} new pipeline launches")
+    sync_ms = [row["block_ms"] for row in b["blocks"] if row["kind"] == "attestations"]
+    log(f"phase gossip checks: the gossip-fed block's root == the same block run"
+        f" synchronously from its pre-state's checkpoint bytes on a core of its own"
+        f" (block {gs['twin_block_ms']:.1f} ms, {gs['twin_s']:.1f} s with the entry); the"
+        f" swapped attestation read False in the firehose and its block was rejected in"
+        f" process_attestations_batched | this run's synchronous attestation blocks"
+        f" {min(sync_ms):.1f}-{max(sync_ms):.1f} ms")
     ref = sp["reference"]
     log(f"phase spec reference: V={ref['validators']:,} mainnet, {ref['blocks']} blocks, slots"
         f" {ref['slots'][0]}-{ref['slots'][1]} across the epoch boundary: per-slot roots,"
@@ -1162,6 +1575,69 @@ def report_spec_path(sp) -> dict:
     if b["sha256_launches"] <= 0:
         raise AssertionError("the block drive never launched sha256_pairs")
     return spec_launches
+
+
+def drive_fork_choice(dev, seed: int):
+    """The fork-choice duty at mainnet scale: a Store over a DAG of
+    FORK_CHOICE_BLOCKS blocks with forks (each block's parent among the
+    eight before it), latest messages of V_FORK_CHOICE validators to random
+    blocks from `seed` (a tenth vote again later, at higher slots), random
+    effective balances, 2% inactive. fork_choice.lmd_ghost -- get_head's
+    vote sum and head walk -- on the card (the scatter-add of the votes)
+    must equal the same call on the CPU, head and subtree weights. Timed
+    per call (the head comes back to the host, so the host clock holds the
+    device work)."""
+    from types import SimpleNamespace
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    store = fork_choice.Store()
+
+    def root(i):
+        return hashlib.sha256(i.to_bytes(8, "little")).digest()
+
+    store.add_block(root(0), SimpleNamespace(slot=0), None)
+    for i in range(1, FORK_CHOICE_BLOCKS):
+        parent = int(rng.integers(max(0, i - 8), i))
+        store.add_block(root(i), SimpleNamespace(slot=store.slots[parent] + int(
+            rng.integers(1, 3))), store.roots[parent])
+    V = V_FORK_CHOICE
+    first = rng.integers(0, FORK_CHOICE_BLOCKS, V)
+    for b in range(FORK_CHOICE_BLOCKS):
+        store.on_attestation(np.flatnonzero(first == b), store.roots[b], store.slots[b])
+    later = rng.choice(V, V // 10, replace=False)
+    again = rng.integers(0, FORK_CHOICE_BLOCKS, later.shape[0])
+    for b in range(FORK_CHOICE_BLOCKS):
+        store.on_attestation(later[again == b], store.roots[b], store.slots[b] + 64)
+    balances = rng.integers(17, 33, V).astype(np.int64) * 10 ** 9
+    active = np.flatnonzero(rng.random(V) >= 0.02)
+    build_s = time.perf_counter() - t0
+    start = store.roots[0]
+
+    def head(device):
+        return fork_choice.lmd_ghost(store, balances, active, start, device=device)
+
+    def times(device, reps):
+        out = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            h = head(device)
+            out.append((time.perf_counter() - t) * 1e3)
+        return h, out
+
+    got, card_ms = times(dev, FORK_CHOICE_REPS + 1)        # the first call is cold
+    want, cpu_ms = times("cpu", 3)
+    if got != want:
+        raise AssertionError("fork choice: the head on the card != the CPU path's")
+    w_card = fork_choice.subtree_weights(store, balances, active, dev)
+    w_cpu = fork_choice.subtree_weights(store, balances, active, "cpu")
+    if not (w_card == w_cpu).all():
+        raise AssertionError("fork choice: subtree weights differ between card and CPU")
+    forks = sum(len(c) > 1 for c in store.children)
+    return {"validators": V, "blocks": FORK_CHOICE_BLOCKS, "forks": forks,
+            "voting": int((store.msg_target >= 0).sum()), "active": int(active.shape[0]),
+            "build_s": build_s, "cold_ms": card_ms[0], "card_ms": card_ms[1:],
+            "cpu_ms": cpu_ms, "head_index": store.block_index[got],
+            "head_slot": store.slots[store.block_index[got]]}
 
 
 def main() -> int:
@@ -1365,11 +1841,6 @@ def main() -> int:
     stage_s = time.perf_counter() - t0
     bls = drive_bls(block, dev)
     shape = bls["shape"]
-    def hist(lanes):
-        """'lanes x launches', most launches first."""
-        top = sorted(lanes.items(), key=lambda kv: -kv[1])
-        return ", ".join(f"{k} x {v}" for k, v in top) or "-"
-
     for name, st in bls["stages"].items():
         log(f"phase bls {STAGE_LABELS[name]}: {st['ms']:.1f} ms, fq_mul"
             f" {st['fq_mul']} / fq_redc {st['fq_redc']} / fq_bilinear"
@@ -1414,14 +1885,33 @@ def main() -> int:
                     for k, v in small.items()))
     result["small_launch"] = small
 
-    # -- 8. the spec path: ResidentCore through the entry points ---------------
+    # -- 8. the firehose: the streaming verifier at 128 x 3 ---------------------
+    torch.cuda.empty_cache()
+    fh = drive_firehose(dev, rng)
+    report_firehose(fh)
+    result["firehose"] = fh
+
+    # -- 9. the spec path: ResidentCore through the entry points, gossip ------
     torch.cuda.empty_cache()
     sp = spec_path(dev, sync)
     result["spec_path"] = sp
     spec_launches = report_spec_path(sp)
     r, b = sp["resume"], sp["blocks"]
 
-    # -- 9. kernels line ---------------------------------------------------------
+    # -- 10. fork choice at 1M validators ---------------------------------------
+    fc = drive_fork_choice(dev, SEED + 4)
+    log(f"phase fork choice: Store of {fc['blocks']} blocks ({fc['forks']} forks),"
+        f" latest messages of {fc['voting']:,} of V={fc['validators']:,} validators"
+        f" ({fc['active']:,} active), built in {fc['build_s']:.1f} s (untimed) |"
+        f" lmd_ghost on the card ms min / median / max {min(fc['card_ms']):.2f} /"
+        f" {float(np.median(fc['card_ms'])):.2f} / {max(fc['card_ms']):.2f} over"
+        f" {len(fc['card_ms'])} calls (cold {fc['cold_ms']:.1f}), on the CPU median"
+        f" {float(np.median(fc['cpu_ms'])):.2f} | head == the CPU path's (block"
+        f" {fc['head_index']}, slot {fc['head_slot']}), subtree weights equal")
+    result["fork_choice"] = fc
+
+    # -- 11. kernels line --------------------------------------------------------
+    gossip_launches = b["gossip"]["good"]["verify_launches"]
     kernels = [{
         "name": "sha256_pairs",
         "route": "cuda",
@@ -1447,7 +1937,9 @@ def main() -> int:
                      "fq_redc": "consensus_specs_tpu/ops/fq.py:413"}[name],
         "launches": spec_launches[name],
         "launches_by_path": {"bls_verify": bls["launches"][name],
-                             "spec_blocks": spec_launches[name]},
+                             "spec_blocks": spec_launches[name],
+                             "firehose": fh["launches"][name],
+                             "gossip_verify": gossip_launches[name]},
         "max_abs_err": fq_k[name]["max_abs_err"],
         "ms": fq_k[name]["ms"],
         "plain_ms": fq_k[name]["plain_ms"],
@@ -1465,7 +1957,9 @@ def main() -> int:
         "replaces": "consensus_specs_tpu/ops/fq_tower.py:522",
         "launches": spec_launches["fq_bilinear"],
         "launches_by_path": {"bls_verify": bls["launches"]["fq_bilinear"],
-                             "spec_blocks": spec_launches["fq_bilinear"]},
+                             "spec_blocks": spec_launches["fq_bilinear"],
+                             "firehose": fh["launches"]["fq_bilinear"],
+                             "gossip_verify": gossip_launches["fq_bilinear"]},
         "max_abs_err": max(k["max_abs_err"] for k in fq_k["fq_bilinear"].values()),
         "ms": mul12["check_ms"],
         "plain_ms": mul12["plain_ms"],

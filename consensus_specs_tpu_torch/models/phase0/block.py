@@ -108,6 +108,13 @@ def process_attestations_batched(spec, state, attestations) -> None:
     crypto-off runs take the unchanged sequential path."""
     batch = (getattr(spec.bls.get_backend(), "verify_indexed_batch", None)
              if spec.bls.bls_active and _batching_enabled else None)
+    # streaming firehose: when a StreamingVerifier is installed on the
+    # spec, the sink's verdicts come from its queue -- attestations the
+    # gossip firehose already verified are served from the verdict cache,
+    # misses ride the same pipeline with an immediate flush. Verdicts are
+    # bit-identical to verify_indexed_batch, so failure is unchanged.
+    streaming = (getattr(spec, "_streaming_verifier", None)
+                 if batch is not None else None)
     # Within this loop the only state mutations are PendingAttestation
     # appends, so the slot's proposer index is invariant: pin it for the
     # scope (each process_attestation consults it; up to 128 rejection-
@@ -129,7 +136,10 @@ def process_attestations_batched(spec, state, attestations) -> None:
         finally:
             spec._att_verify_sink = None
         if sink:
-            assert all(batch(sink))
+            if streaming is not None:
+                assert all(streaming.verdicts_for(sink))
+            else:
+                assert all(batch(sink))
     finally:
         if len(attestations) > 1:
             state._proposer_memo = None

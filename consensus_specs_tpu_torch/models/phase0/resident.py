@@ -32,19 +32,21 @@ ported here.
 from __future__ import annotations
 
 import contextlib
-import time
+import itertools
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ... import convert
+from ... import telemetry
 from ...convert import columns_from_numpy, to_tensor
 from ...device import resolve
 from ...ops.intmath import udivmod_u64, ule, ult
 from ...ops.sha256 import PairFn, words_to_bytes
 from ...ops.shuffle import shuffle_permutation_on_device
 from ...resilience.errors import CheckpointCorrupt
+from ...telemetry import watchdog as _watchdog
 from ...utils.ssz import bulk
 from ...utils.ssz import impl as ssz_impl
 from ...utils.ssz.bulk import (balances_chunk_words_device, mix_in_length,
@@ -268,9 +270,7 @@ def _common_path_block(block) -> bool:
                 or len(b.transfers))
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+_CORE_SEQ = itertools.count()
 
 
 class ResidentCore:
@@ -289,8 +289,9 @@ class ResidentCore:
     in a `finally`.
 
     self.timings holds the last boundary's {"stage", "device",
-    "refresh"} seconds (host clock, the device synchronized at the end of
-    each part). The registry holds at least one validator
+    "refresh"} seconds, read from the telemetry spans of those parts
+    (host clock, each part's device work waited for at its end). The
+    registry holds at least one validator
     (ResidentColumns)."""
 
     def __init__(self, spec, state):
@@ -305,6 +306,7 @@ class ResidentCore:
         self.device = spec.device
         self.cfg = EpochConfig.from_spec(spec)
         self.timings: Dict[str, float] = {}
+        self._tkey = f"resident{next(_CORE_SEQ)}"   # watchdog key prefix
         self._saved_methods: Dict[str, object] = {}
         self._saved_root_backend = None
         self._installed = False
@@ -649,7 +651,8 @@ class ResidentCore:
 
     def _process_slot(self, state) -> None:
         spec = self.spec
-        root = self._state_root(state)
+        with telemetry.span("resident.slot_root"):
+            root = self._state_root(state)
         state.latest_state_roots[state.slot % spec.SLOTS_PER_HISTORICAL_ROOT] = root
         if state.latest_block_header.state_root == spec.ZERO_HASH:
             state.latest_block_header.state_root = root
@@ -657,55 +660,62 @@ class ResidentCore:
             spec.signing_root(state.latest_block_header)
 
     def process_epoch_resident(self, state) -> None:
-        """The boundary transition on resident columns, in three parts:
-        "stage" (host distillation off the mirrors, uploads included),
-        "device" (the epoch program in place on the resident columns),
-        "refresh" (scalar and mirror downloads, byte-rooted final updates,
-        forest rebuild and roots). self.timings gets their seconds."""
+        """The boundary transition on resident columns, under telemetry
+        spans: "resident.stage" (host distillation off the mirrors,
+        uploads included), "resident.device" (the epoch program in place
+        on the resident columns), "resident.refresh" (scalar and mirror
+        downloads, byte-rooted final updates, forest rebuild and roots).
+        Each span waits at its exit for the device work it fenced.
+        self.timings gets their seconds (zeros with telemetry off). The
+        re-layout watchdog holds the chained columns under one key."""
         spec, dev = self.spec, self.device
-        t0 = time.perf_counter()
-        current_epoch = spec.get_current_epoch(state)
-        previous_epoch = spec.get_previous_epoch(state)
-        ctx = build_epoch_context(spec, state, dict(
-            self.mirrors,
-            activation_eligibility_epoch=None,  # unused by the context
-            withdrawable_epoch=None,
-            balance=None))
-        process_crosslinks_vectorized(spec, state, ctx)
-        _, scal, inp = convert.columns_from_numpy(
-            None, scalars_from_state(state), build_epoch_inputs(spec, state, ctx), dev)
-        _sync(dev)
-        t1 = time.perf_counter()
+        with telemetry.span("resident.stage") as sp_stage:
+            current_epoch = spec.get_current_epoch(state)
+            previous_epoch = spec.get_previous_epoch(state)
+            ctx = build_epoch_context(spec, state, dict(
+                self.mirrors,
+                activation_eligibility_epoch=None,  # unused by the context
+                withdrawable_epoch=None,
+                balance=None))
+            process_crosslinks_vectorized(spec, state, ctx)
+            _, scal, inp = convert.columns_from_numpy(
+                None, scalars_from_state(state),
+                build_epoch_inputs(spec, state, ctx), dev)
+            sp_stage.fence(scal, inp)   # uploads land in "resident.stage"
 
-        # the columns are updated in place: no second copy of the registry
-        _, dev_scal, dev_report = epoch_transition_device(
-            self.cfg, self.res.cols, scal, inp)
-        _sync(dev)
-        t2 = time.perf_counter()
+        with telemetry.span("resident.device") as sp_dev:
+            # the columns are updated in place: no second copy of the
+            # registry; input and output fingerprints must match
+            _watchdog.layout_check(f"{self._tkey}.epoch.cols", self.res.cols)
+            _, dev_scal, dev_report = epoch_transition_device(
+                self.cfg, self.res.cols, scal, inp)
+            _watchdog.layout_check(f"{self._tkey}.epoch.cols", self.res.cols)
+            sp_dev.fence(self.res.cols, dev_scal, dev_report)
 
-        # the boundary dirties every leaf (rewards touch all balances):
-        # degenerate to a full forest rebuild
-        self.res.registry_forest = None
-        self.res.balances_forest = None
-        self._big_roots = None
-        self._active_idx_memo.clear()
-        _, new_scal, report = convert.columns_to_numpy(None, dev_scal, dev_report)
-        _apply_justification(spec, state, new_scal, report,
-                             previous_epoch, current_epoch)
-        state.latest_slashed_balances = [
-            int(x) for x in new_scal.latest_slashed_balances]
-        state.latest_start_shard = int(new_scal.latest_start_shard)
-        # refresh ONLY the columns host logic reads; slashed never
-        # changes in the epoch program, balances stay device-only
-        for f in ("activation_epoch", "exit_epoch", "effective_balance"):
-            self.mirrors[f] = convert.to_numpy(getattr(self.res.cols, f))
-        spec.final_updates_byte_rooted(state)   # reads the overrides
-        # prune attestation-root memo entries the rotation dropped
-        live = {id(a) for a in state.previous_epoch_attestations}
-        live.update(id(a) for a in state.current_epoch_attestations)
-        self._att_root_memo = {k: v for k, v in self._att_root_memo.items()
-                               if k in live}
-        self._registry_balances_roots()      # rebuild + cache the roots
-        _sync(dev)
-        t3 = time.perf_counter()
-        self.timings = {"stage": t1 - t0, "device": t2 - t1, "refresh": t3 - t2}
+        with telemetry.span("resident.refresh") as sp_ref:
+            # the boundary dirties every leaf (rewards touch all balances):
+            # degenerate to a full forest rebuild
+            self.res.registry_forest = None
+            self.res.balances_forest = None
+            self._big_roots = None
+            self._active_idx_memo.clear()
+            _, new_scal, report = convert.columns_to_numpy(
+                None, dev_scal, dev_report)
+            _apply_justification(spec, state, new_scal, report,
+                                 previous_epoch, current_epoch)
+            state.latest_slashed_balances = [
+                int(x) for x in new_scal.latest_slashed_balances]
+            state.latest_start_shard = int(new_scal.latest_start_shard)
+            # refresh ONLY the columns host logic reads; slashed never
+            # changes in the epoch program, balances stay device-only
+            for f in ("activation_epoch", "exit_epoch", "effective_balance"):
+                self.mirrors[f] = convert.to_numpy(getattr(self.res.cols, f))
+            spec.final_updates_byte_rooted(state)   # reads the overrides
+            # prune attestation-root memo entries the rotation dropped
+            live = {id(a) for a in state.previous_epoch_attestations}
+            live.update(id(a) for a in state.current_epoch_attestations)
+            self._att_root_memo = {k: v for k, v in self._att_root_memo.items()
+                                   if k in live}
+            self._registry_balances_roots()      # rebuild + cache the roots
+        self.timings = {"stage": sp_stage.duration, "device": sp_dev.duration,
+                        "refresh": sp_ref.duration}

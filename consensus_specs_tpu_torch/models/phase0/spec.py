@@ -2,7 +2,7 @@
 and the device (port of consensus_specs_tpu/models/phase0/spec.py).
 
 Constants are attributes, SSZ classes are attributes, and every spec
-function from helpers/epoch/block/genesis is bound as a method. The spec
+function from helpers/epoch/block/genesis/validator is bound as a method. The spec
 also names the device its batched work runs on: the committee shuffle
 from 2^13 indices up, the large hash batches of utils/ssz/bulk.py, and
 the resident core built on it. "cuda" is the default and raises without
@@ -24,8 +24,9 @@ from . import containers
 from . import epoch as epoch_mod
 from . import genesis as genesis_mod
 from . import helpers as helpers_mod
+from . import validator as validator_mod
 
-_FUNCTION_MODULES = (helpers_mod, epoch_mod, block_mod, genesis_mod)
+_FUNCTION_MODULES = (helpers_mod, epoch_mod, block_mod, genesis_mod, validator_mod)
 
 
 class Phase0Spec:
@@ -68,6 +69,12 @@ class Phase0Spec:
         # appends (pubkey_sets, message_hashes, signature, domain) here
         # instead of verifying inline (block.process_attestations_batched)
         self._att_verify_sink = None
+
+        # Streaming firehose hook: a streaming.StreamingVerifier installed
+        # here serves the sink's verdicts from its cross-slot queue and
+        # verdict cache instead of a per-block verify_indexed_batch
+        # (block.process_attestations_batched)
+        self._streaming_verifier = None
 
         # Caches
         self._hash_cache: Dict[bytes, bytes] = {}

@@ -16,10 +16,13 @@ compare bit for bit with it. What differs:
   and of the exponents are Python loops with Python `if`.
 - The reference pads batch shapes to powers of two to bound its jit cache
   (`stage_group_arrays`, the group axis of stage 1, `hash_to_g2_batch`).
-  The port runs eagerly and pads no group or message count: each group is
-  computed on its own lanes, so verdicts and values are unchanged. Only
-  the committee axis of an aggregation tree is padded to a power of two
-  (with infinity points), because the tree halves it.
+  The port runs eagerly and pads the group axis of a grouped pairing only
+  (`stage_group_arrays`, copies of the last member, shared by
+  `_grouped_pairing_dispatch` and the streaming firehose, so ring offsets
+  and occupancy count as in the reference); each group is computed on its
+  own lanes, so verdicts and values are unchanged. The committee axis of
+  an aggregation tree is padded to a power of two too (with infinity
+  points), because the tree halves it; message counts are not padded.
 - The pairing functions take `tower=`: `fq_tower.DEVICE` (the default:
   the hand-written Montgomery kernel for CUDA tensors, the plain version
   for CPU tensors) or `fq_tower.PLAIN` (the plain version everywhere),
@@ -37,6 +40,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..crypto import bls12_381 as gt
 from ..device import resolve
 from . import decompress as decomp
@@ -344,18 +348,40 @@ def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
+def stage_group_arrays(stacks, count: int):
+    """[(g1 [count,2,L], g2 [count,2,2,L])] per group -> padded
+    (g1 [G,count,2,L], g2 [G,count,2,2,L]) numpy batch arrays, G the next
+    power of two, copies of the last member filling the tail. The one
+    batch-shape staging point of _grouped_pairing_dispatch and the
+    streaming firehose (streaming/pipeline.py): both launch the same
+    shapes, and occupancy (real against padded groups) counts the same."""
+    g = _next_pow2(len(stacks))
+    g1 = np.zeros((g, count, 2, F.L), np.int64)
+    g2 = np.zeros((g, count, 2, 2, F.L), np.int64)
+    for k in range(g):
+        a, b = stacks[min(k, len(stacks) - 1)]
+        g1[k] = a
+        g2[k] = b
+    return g1, g2
+
+
 def _grouped_pairing_dispatch(groups, dev: torch.device,
                               tower: T.Tower = T.DEVICE) -> dict:
     """[(key, [(g1 [2,L], g2 [2,2,L])...])] -> {key: verdict}: groups
-    bucketed by pair count, one grouped check per bucket, every bucket
-    launched before any verdict is read back."""
+    bucketed by pair count, each bucket padded by stage_group_arrays, one
+    grouped check per bucket, every bucket launched before any verdict is
+    read back."""
     by_count: dict = {}
     for key, pairs in groups:
         by_count.setdefault(len(pairs), []).append((key, pairs))
     launched = []
-    for members in by_count.values():
-        g1 = np.stack([np.stack([a for a, _ in pairs]) for _, pairs in members])
-        g2 = np.stack([np.stack([b for _, b in pairs]) for _, pairs in members])
+    for count, members in by_count.items():
+        g1, g2 = stage_group_arrays(
+            [(np.stack([a for a, _ in pairs]), np.stack([b for _, b in pairs]))
+             for _, pairs in members], count)
+        telemetry.counter("bls.grouped.launches").inc()
+        telemetry.counter("bls.grouped.groups").inc(len(members))
+        telemetry.histogram("bls.grouped.occupancy").observe(len(members))
         launched.append((members, grouped_pairing_check(
             _tensor(g1, dev), _tensor(g2, dev), tower)))
     verdicts = {}
@@ -364,6 +390,34 @@ def _grouped_pairing_dispatch(groups, dev: torch.device,
         for k, (key, _) in enumerate(members):
             verdicts[key] = bool(ok[k])
     return verdicts
+
+
+def stage_example_groups(n_groups: int, n_distinct: int = 8):
+    """Host-stage n_groups spec-shaped pair triples (-G1 / sig, pk0 /
+    H(m), pk1 / H(m)) with real signatures, so every group verifies: the
+    firehose's example traffic (the reference's bench and smoke batches).
+    Only `n_distinct` groups are signed with the host bignum code, then
+    tiled: the device work does not depend on the values. The aggregate
+    of the two signatures is the one signature under the sum of the keys,
+    the same point the reference's aggregate gives, so the limbs equal
+    the reference's. -> (g1 [n,3,2,L], g2 [n,3,2,2,L]) numpy."""
+    if n_groups > n_distinct:
+        g1d, g2d = stage_example_groups(n_distinct, n_distinct)
+        reps = -(-n_groups // n_distinct)
+        return (np.tile(g1d, (reps, 1, 1, 1))[:n_groups],
+                np.tile(g2d, (reps, 1, 1, 1, 1))[:n_groups])
+    g1 = np.zeros((n_groups, 3, 2, F.L), np.int64)
+    g2 = np.zeros((n_groups, 3, 2, 2, F.L), np.int64)
+    for g in range(n_groups):
+        msg = bytes([g % 256]) * 32
+        k0, k1 = 2 * g + 1, 2 * g + 2
+        agg = gt.sign(msg, (k0 + k1) % gt.r, 1)
+        h = gt.hash_to_g2(msg, 1)
+        pairs = [(gt.ec_neg(gt.G1_GEN), gt.decompress_g2(agg))]
+        pairs += [(gt.decompress_g1(gt.privtopub(k)), h) for k in (k0, k1)]
+        g1[g] = np.stack([g1_to_limbs(a) for a, _ in pairs])
+        g2[g] = np.stack([g2_to_limbs(b) for _, b in pairs])
+    return g1, g2
 
 
 def _decompress_and_aggregate(encodings, dev, *, enc_len, label, parse,

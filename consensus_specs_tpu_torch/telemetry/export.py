@@ -1,0 +1,142 @@
+"""Export surfaces: Chrome-trace/Perfetto JSON, Prometheus text
+exposition, and a JSONL snapshot sink (copy of
+consensus_specs_tpu/telemetry/export.py).
+
+  * `chrome_trace()` renders the span ring buffer as the Chrome trace
+    event format (load in chrome://tracing or ui.perfetto.dev): one
+    complete ("ph": "X") event per finished span, microsecond
+    timestamps relative to the process's time zero.
+  * `prometheus_text()` renders the metrics registry + span aggregates
+    as the Prometheus text exposition format (0.0.4): counters end in
+    `_total`, histograms emit cumulative `_bucket{le=...}` rows with the
+    mandatory `+Inf` bucket plus `_sum`/`_count`, span aggregates become
+    the `cstpu_span_seconds_total` / `cstpu_span_total` pair labeled by
+    span name.
+  * `write_jsonl(path)` appends one `snapshot()` line per call — the
+    durable sink for long drives (one line per epoch/stage).
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import time
+from typing import Optional
+
+from . import core
+
+_NAME_OK = re.compile(r"[^a-zA-Z0-9_:]")
+_PREFIX = "cstpu_"
+
+
+def _metric_name(name: str, suffix: str = "") -> str:
+    base = _NAME_OK.sub("_", name)
+    if not re.match(r"[a-zA-Z_:]", base):
+        base = "_" + base
+    return f"{_PREFIX}{base}{suffix}"
+
+
+def _fmt(v) -> str:
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, int):
+        return str(v)
+    return repr(float(v))
+
+
+# ---------------------------------------------------------------------------
+# Chrome trace
+# ---------------------------------------------------------------------------
+
+def chrome_trace() -> dict:
+    """The span ring buffer in Chrome trace event format."""
+    events = []
+    for rec in core.ring():
+        event = {
+            "name": rec["name"],
+            "ph": "X",
+            "ts": round(rec["ts"] * 1e6, 3),
+            "dur": round(rec["dur"] * 1e6, 3),
+            "pid": os.getpid(),
+            "tid": rec["tid"],
+        }
+        args = dict(rec["args"] or {})
+        if rec["parent"]:
+            args["parent"] = rec["parent"]
+        if args:
+            event["args"] = args
+        events.append(event)
+    events.sort(key=lambda e: e["ts"])
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def dump_chrome_trace(path: str) -> None:
+    with open(path, "w") as fh:
+        json.dump(chrome_trace(), fh)
+
+
+# ---------------------------------------------------------------------------
+# Prometheus text exposition
+# ---------------------------------------------------------------------------
+
+def prometheus_text() -> str:
+    """The registry in Prometheus text exposition format 0.0.4."""
+    snap = core.snapshot()
+    out = []
+
+    for name, value in snap["counters"].items():
+        metric = _metric_name(name, "_total")
+        out.append(f"# TYPE {metric} counter")
+        out.append(f"{metric} {_fmt(value)}")
+
+    for name, value in snap["gauges"].items():
+        metric = _metric_name(name)
+        out.append(f"# TYPE {metric} gauge")
+        out.append(f"{metric} {_fmt(value)}")
+
+    for name, hist in snap["histograms"].items():
+        metric = _metric_name(name)
+        out.append(f"# TYPE {metric} histogram")
+        cumulative = 0
+        # snapshot() bucket keys are upper-bound strings ("0", "1", "2",
+        # "4", ... as 2**k); emit in ascending numeric order, cumulative
+        for le, count in sorted(hist["buckets"].items(),
+                                key=lambda kv: float(kv[0])):
+            cumulative += count
+            out.append(f'{metric}_bucket{{le="{float(le)}"}} {cumulative}')
+        out.append(f'{metric}_bucket{{le="+Inf"}} {hist["count"]}')
+        out.append(f"{metric}_sum {_fmt(hist['sum'])}")
+        out.append(f"{metric}_count {hist['count']}")
+
+    if snap["spans"]:
+        out.append(f"# TYPE {_PREFIX}span_seconds_total counter")
+        for name, agg in snap["spans"].items():
+            out.append(f'{_PREFIX}span_seconds_total{{span="{name}"}} '
+                       f'{_fmt(agg["total_ms"] / 1e3)}')
+        out.append(f"# TYPE {_PREFIX}span_total counter")
+        for name, agg in snap["spans"].items():
+            out.append(f'{_PREFIX}span_total{{span="{name}"}} '
+                       f'{agg["count"]}')
+
+    out.append(f"# TYPE {_PREFIX}telemetry_enabled gauge")
+    out.append(f"{_PREFIX}telemetry_enabled {_fmt(snap['enabled'])}")
+    return "\n".join(out) + "\n"
+
+
+def dump_prometheus(path: str) -> None:
+    with open(path, "w") as fh:
+        fh.write(prometheus_text())
+
+
+# ---------------------------------------------------------------------------
+# JSONL sink
+# ---------------------------------------------------------------------------
+
+def write_jsonl(path: str, extra: Optional[dict] = None) -> None:
+    """Append one snapshot line (wall-clock stamped) to `path`."""
+    row = {"time": time.time()}
+    if extra:
+        row.update(extra)
+    row.update(core.snapshot())
+    with open(path, "a") as fh:
+        fh.write(json.dumps(row) + "\n")

@@ -19,7 +19,7 @@ from consensus_specs_tpu_torch import convert
 from consensus_specs_tpu_torch.crypto import bls12_381 as pgt
 from consensus_specs_tpu_torch.ops import bls_torch as BT
 
-from _release_jax import release_jax_programs  # noqa: F401 (autouse)
+from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
 rng = random.Random(0xB15)
 DOMAIN = 5
@@ -96,7 +96,7 @@ def _oracle_indexed(py, item):
     return py.verify_multiple(aggs, msgs, sig, domain)
 
 
-def test_indexed_block_matches_python_backend(backends):
+def test_indexed_block_matches_python_backend(backends, monkeypatch):
     """A small block in the phase-0 shape (custody-bit-0 set, empty
     custody-bit-1 set): valid items, a wrong signature, wrong
     participants, an all-empty item, an infinity aggregate, malformed
@@ -137,8 +137,16 @@ def test_indexed_block_matches_python_backend(backends):
     want = [_oracle_indexed(py, it) for it in items]
     assert want == [True, False, False, True, True, False, False, False,
                     False, False, True]
+    staged = []
+    stage = tb.stage_indexed_batch
+
+    def recording(batch_items):
+        staged.append(stage(batch_items))
+        return staged[-1]
+
+    monkeypatch.setattr(tb, "stage_indexed_batch", recording)
     assert tb.verify_indexed_batch(items) == want
-    results, groups = tb.stage_indexed_batch(items)
+    [(results, groups)] = staged          # the staging the verify used
     assert [i for i, _ in groups] == [0, 1, 2, 4, 10]
     assert all(len(pairs) == 2 for _, pairs in groups)
     assert results[3] is True and results[5] is False

@@ -25,7 +25,7 @@ from consensus_specs_tpu_torch.ops import bls_torch as BT
 from consensus_specs_tpu_torch.ops import decompress as TD
 from consensus_specs_tpu_torch.ops import scalar_mul as TSM
 
-from _release_jax import release_jax_programs  # noqa: F401 (autouse)
+from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
 rng = random.Random(0x7C0)
 
@@ -94,11 +94,12 @@ def test_jac_add_double_match_jax_and_oracle(group):
     got = TSM.jac_add(tops, t1, t2)
     for g, j in zip(got, BJ.jac_add(jops, p1, p2)):
         _same(g, j)
-    for g, j in zip(TSM.jac_double(tops, t1), BJ.jac_double(jops, p1)):
+    doubled = TSM.jac_double(tops, t1)
+    for g, j in zip(doubled, BJ.jac_double(jops, p1)):
         _same(g, j)
     x, y, inf = TSM.jac_to_affine(tops, got)
     assert affine(_np(x), _np(y), _np(inf)) == want
-    dbl = TSM.jac_to_affine(tops, TSM.jac_double(tops, t1))
+    dbl = TSM.jac_to_affine(tops, doubled)
     assert affine(*map(_np, dbl))[0] == gt.ec_double(a)
 
 
@@ -224,16 +225,19 @@ def _oracle(decode, data):
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_decompression_matches_jax_and_oracle(group):
+def test_decompression_matches_jax_and_oracle(group, monkeypatch):
+    """The traced decompression's limbs == the reference's on the parsed
+    encodings (recorded from the one call the batch entry makes on them),
+    and the batch entry's verdicts and points == the bignum oracle's."""
     if group == "g1":
         cases, parse, width = _g1_cases(), TD.parse_g1_bytes, 48
         decode, affine = gt.decompress_g1, _affine_g1
-        t_traced, j_traced = TD._g1_decompress_traced, JD._g1_decompress_traced
+        name, j_traced = "_g1_decompress_traced", JD._g1_decompress_traced
         batch = TD.g1_decompress_batch
     else:
         cases, parse, width = _g2_cases(), TD.parse_g2_bytes, 96
         decode, affine = gt.decompress_g2, _affine_g2
-        t_traced, j_traced = TD._g2_decompress_traced, JD._g2_decompress_traced
+        name, j_traced = "_g2_decompress_traced", JD._g2_decompress_traced
         batch = TD.g2_decompress_batch
     data = np.stack([np.frombuffer(c, np.uint8) for c in cases])
     assert data.shape[1] == width
@@ -241,12 +245,22 @@ def test_decompression_matches_jax_and_oracle(group):
     for mine, ref in zip(parse(data), j_parse(data)):
         assert (mine == ref).all()
     x_raw, a_flag, _, _ = parse(data)
-    got = t_traced(_t(x_raw), _b(a_flag))
+    calls = []
+    t_traced = getattr(TD, name)
+
+    def traced(x, flag):
+        out = t_traced(x, flag)
+        calls.append(((x, flag), out))
+        return out
+
+    monkeypatch.setattr(TD, name, traced)
+    x, y, valid, inf = batch(data, "cpu")
+    [((x_in, flag_in), got)] = calls
+    assert (_np(x_in) == x_raw).all() and (flag_in.numpy() == a_flag).all()
     want = j_traced(x_raw, a_flag)
     for g, j in zip(got, want):
         _same(g, j)
 
-    x, y, valid, inf = batch(data, "cpu")
     pts = affine(_np(x), _np(y), inf)
     verdicts = ["invalid" if not valid[k] else pts[k] for k in range(len(cases))]
     expected = [_oracle(decode, c) for c in cases]

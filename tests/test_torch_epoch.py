@@ -11,7 +11,7 @@ from consensus_specs_tpu.models.phase0 import get_spec
 from consensus_specs_tpu_torch.convert import columns_from_numpy, columns_to_numpy
 from consensus_specs_tpu_torch.models.phase0 import epoch_soa as TE
 
-from _release_jax import release_jax_programs  # noqa: F401 (autouse)
+from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("preset", ["minimal", "mainnet"])

@@ -17,7 +17,7 @@ from consensus_specs_tpu_torch import convert
 from consensus_specs_tpu_torch.ops import fq as TF
 from consensus_specs_tpu_torch.ops import fq_cuda
 
-from _release_jax import release_jax_programs  # noqa: F401 (autouse)
+from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
 KERNEL_SOURCE = (Path(__file__).resolve().parent.parent
                  / "consensus_specs_tpu_torch" / "csrc" / "fq_mont.cu")

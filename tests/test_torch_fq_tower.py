@@ -12,7 +12,7 @@ from consensus_specs_tpu.ops import fq_tower as JT
 from consensus_specs_tpu_torch import convert
 from consensus_specs_tpu_torch.ops import fq_tower as TT
 
-from _release_jax import release_jax_programs  # noqa: F401 (autouse)
+from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
 
 # One batch shape throughout: the reference runs eagerly here, and its
@@ -63,8 +63,9 @@ def test_fq2_ops_match_jax():
     a, b = _rand(rng, BATCH + (2,)), _rand(rng, BATCH + (2,))
     s = _rand(rng, BATCH)
     ta, tb = _t(a), _t(b)
-    _same(TT.fq2_mul(ta, tb), JT.fq2_mul(a, b))
-    _same(TT.PLAIN.fq2_mul(ta, tb), JT.fq2_mul(a, b))
+    want = JT.fq2_mul(a, b)
+    _same(TT.fq2_mul(ta, tb), want)
+    _same(TT.PLAIN.fq2_mul(ta, tb), want)
     _same(TT.fq2_sqr(ta), JT.fq2_sqr(a))
     _same(TT.fq2_scale(ta, _t(s)), JT.fq2_scale(a, s))
     _same(TT.fq2_mul_xi(ta), JT.fq2_mul_xi(a))
@@ -98,10 +99,9 @@ def test_fq12_products_match_jax():
     b0 = np.broadcast_to(b[0], b.shape)                      # broadcast
     _same(TT.fq12_mul(ta, tb[0]), JT.fq12_mul(a, b0))
     _same(TT.fq12_sqr(ta), JT.fq12_sqr(a))
-    _same(TT.fq12_mul_line(ta, _t(ca), _t(cv), _t(cvw)),
-          JT.fq12_mul_line(a, ca, cv, cvw))
-    _same(TT.PLAIN.fq12_mul_line(ta, _t(ca), _t(cv), _t(cvw)),
-          JT.fq12_mul_line(a, ca, cv, cvw))
+    want = JT.fq12_mul_line(a, ca, cv, cvw)
+    _same(TT.fq12_mul_line(ta, _t(ca), _t(cv), _t(cvw)), want)
+    _same(TT.PLAIN.fq12_mul_line(ta, _t(ca), _t(cv), _t(cvw)), want)
     _same(TT.fq12_conj(ta), JT.fq12_conj(a))
     _same(TT.fq12_eq(ta, ta), JT.fq12_eq(a, a))
     _same(TT.fq12_eq(ta, tb), JT.fq12_eq(a, b))

@@ -9,7 +9,7 @@ import torch
 from consensus_specs_tpu.ops import intmath as JI
 from consensus_specs_tpu_torch.ops import intmath as TI
 
-from _release_jax import release_jax_programs  # noqa: F401 (autouse)
+from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
 _EDGES = [0, 1, 2, 3, 2 ** 32 - 1, 2 ** 32, 2 ** 62, 2 ** 63 - 1, 2 ** 63,
           2 ** 63 + 1, 2 ** 64 - 2, 2 ** 64 - 1]

@@ -16,7 +16,7 @@ from consensus_specs_tpu_torch.utils.ssz import bulk as TB
 from consensus_specs_tpu_torch.utils.ssz.incremental import (
     tree_from_chunks as t_tree_from_chunks)
 
-from _release_jax import release_jax_programs  # noqa: F401 (autouse)
+from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
 FAR = 2 ** 64 - 1
 

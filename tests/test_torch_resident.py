@@ -17,7 +17,7 @@ from consensus_specs_tpu_torch.models.phase0.epoch_soa import (
 from consensus_specs_tpu_torch.models.phase0.resident import ResidentColumns
 from consensus_specs_tpu_torch.utils.config import load_preset
 
-from _release_jax import release_jax_programs  # noqa: F401 (autouse)
+from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
 V = 301            # not a power of two, not a multiple of 4
 ROUNDS = load_preset("minimal")["SHUFFLE_ROUND_COUNT"]

@@ -31,7 +31,7 @@ from consensus_specs_tpu_torch.resilience.errors import CheckpointCorrupt
 from consensus_specs_tpu_torch.utils.merkle import tree_depth
 from consensus_specs_tpu_torch.utils.ssz import impl as PI
 
-from _release_jax import release_jax_programs  # noqa: F401 (autouse)
+from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture

@@ -14,7 +14,7 @@ from consensus_specs_tpu.ops.sha256_pallas import sha256_pairs_pallas
 from consensus_specs_tpu_torch.ops import sha256 as TS
 from consensus_specs_tpu_torch.ops.sha256_cuda import sha256_pairs_cuda
 
-from _release_jax import release_jax_programs  # noqa: F401 (autouse)
+from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
 
 def _u32(t: torch.Tensor) -> np.ndarray:

@@ -6,7 +6,7 @@ import pytest
 from consensus_specs_tpu.ops import shuffle as JSH
 from consensus_specs_tpu_torch.ops import shuffle as TSH
 
-from _release_jax import release_jax_programs  # noqa: F401 (autouse)
+from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("n", [1, 2, 100, 1000])

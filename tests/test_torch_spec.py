@@ -27,7 +27,7 @@ from consensus_specs_tpu_torch.utils import config as PC
 from consensus_specs_tpu_torch.utils.ssz import bulk as PB
 from consensus_specs_tpu_torch.utils.ssz import impl as PI
 
-from _release_jax import release_jax_programs  # noqa: F401 (autouse)
+from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture
