@@ -31,14 +31,19 @@ verify_indexed_batch. Checks:
     Field.is_zero and canon ask for) and fq_redc at 1,048,576 lanes and at
     N = 1, 5, 300; the fused tower product fq_bilinear for each of its
     five tables (Fq2 multiply, Fq12 multiply, square and line multiply,
-    cyclotomic square) at N = 1, 5, 300 and 65,536;
+    cyclotomic square) at N = 1, 5, 300 and 65,536; the chains of tower
+    products (fq_bilinear_chain: the exponentiation by |z| and |z| + 1,
+    the Miller step's f-update for 2 and 3 pairs) at N = 1, 5, 300, 16
+    and 128, against the plain chain and against the same products
+    launched one at a time, each step's phases clocked at 128 lanes;
   * the valid block gives 16 x True, the block with one signature swapped
     for another committee's gives exactly that item False;
   * one grouped pairing of the block gives bit-identical Fq12 limbs
     through the kernels and through the plain functions on the card;
-  * the verify launched fq_mul and fq_bilinear (launch counts read
-    around it), one fq_bilinear per tower product, and no plain wide
-    product ran on the card (ops.fq.cuda_wide_calls read around it).
+  * the verify launched fq_mul, fq_bilinear and fq_bilinear_chain
+    (launch counts read around it), one fq_bilinear per tower product
+    outside the chains, and no plain wide product ran on the card
+    (ops.fq.cuda_wide_calls read around it).
 
 Then the spec path: the port's ResidentCore driven through the system's
 own entry points (consensus_specs_tpu_torch.models.phase0: get_spec,
@@ -347,7 +352,8 @@ def device_busy(fn):
 
 
 FQ_COUNTERS = {"fq_mul": fq_cuda.mul_counter, "fq_redc": fq_cuda.redc_counter,
-               "fq_bilinear": fq_cuda.bilinear_counter}
+               "fq_bilinear": fq_cuda.bilinear_counter,
+               "fq_bilinear_chain": fq_cuda.chain_counter}
 
 
 def aten_ops(fn):
@@ -368,12 +374,22 @@ def aten_ops(fn):
     return Count.n
 
 
+# the Montgomery kernels every BLS path launches (fq_redc runs inside the
+# tower products)
+BLS_PATH = ("fq_mul", "fq_bilinear", "fq_bilinear_chain")
+
+
+def launched_path(launches) -> bool:
+    return min(launches[k] for k in BLS_PATH) > 0
+
+
 def fq_launches():
     return {name: c.launches for name, c in FQ_COUNTERS.items()}
 
 
 def fq_lanes():
-    """Launches by lanes per launch ("table:lanes" for fq_bilinear)."""
+    """Launches by lanes per launch ("table:lanes" for fq_bilinear,
+    "steps:lanes" for fq_bilinear_chain)."""
     return {name: {(k if isinstance(k, int) else f"{k[0]}:{k[1]}"): v
                    for k, v in c.lanes.items()}
             for name, c in FQ_COUNTERS.items()}
@@ -387,8 +403,9 @@ def zero_fq_counters():
 def sass_counts(lib: Path) -> dict:
     """{kernel: Counter of SASS opcodes} of a built library, read with
     cuobjdump -sass; {} where the toolkit has no cuobjdump. Static counts:
-    the arithmetic of a row (carry rounds, schoolbook, REDC) is unrolled,
-    the staging and the tower product's pre-sum and gamma loops are not."""
+    the arithmetic of a row (carry rounds, schoolbook, REDC) and the
+    compiled tables' pre-sums and gamma sums are unrolled, the staging and
+    a chain's step loop are not."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return {}
@@ -396,7 +413,7 @@ def sass_counts(lib: Path) -> dict:
                           text=True, check=True).stdout
     counts, cur = {}, None
     for line in text.splitlines():
-        m = re.search(r"Function : \S*?(fq_mul|fq_redc|fq_bilinear)_kernel", line)
+        m = re.search(r"Function : \S*?(fq_mul|fq_redc|fq_chain)_kernel", line)
         if m:
             cur = counts.setdefault(m.group(1), collections.Counter())
             continue
@@ -544,12 +561,104 @@ def check_fq_kernels(rng, dev):
     return out
 
 
-def small_launch_times(lanes_seen, dev, rng):
+CHAIN_LANES = RAGGED + (16, FIREHOSE_G)
+POW_BITS = {68: bls_torch._Z_BITS, 69: bls_torch._ZP1_BITS}   # by steps
+
+
+def chain_program_of(steps: int, pairs: int):
+    """The main path's chain of `steps` steps in a pairing of `pairs`
+    pairs: a pow_abs exponentiation (68 or 69 steps), else the Miller
+    doubling (pairs + 1) or addition (pairs) step."""
+    if steps in POW_BITS:
+        return fq_tower.pow_abs_program(POW_BITS[steps])
+    return fq_tower.lines_program(pairs, steps == pairs + 1)
+
+
+def chain_args(rng, steps, pairs, n, dev):
+    """(acc, program, base, operand) of that chain at n lanes, inputs at
+    the multiply budget's edges: the exponentiation's base is its
+    accumulator (f), the Miller step's operand its [n, P, 6, 14] lines."""
+    acc = torch.from_numpy(fq_kernel_inputs(rng, n, "mul", (12,))).to(dev)
+    prog = chain_program_of(steps, pairs)
+    if steps in POW_BITS:
+        return acc, prog, acc, None
+    lines = torch.from_numpy(fq_kernel_inputs(rng, n, "mul", (pairs, 6))).to(dev)
+    return acc, prog, None, lines
+
+
+# every chain of the main path: (steps, pairs)
+CHAINS = {"pow_abs |z|": (68, 3), "pow_abs |z|+1": (69, 3),
+          "Miller doubling P=3": (4, 3), "Miller addition P=3": (3, 3),
+          "Miller doubling P=2": (3, 2), "Miller addition P=2": (2, 2)}
+
+
+def chain_bound(prog, base, operand, lanes):
+    return fq_cuda.chain_bound_ms(
+        prog, fq_tower.TABLES, lanes, INT32_OPS_PER_S, HBM_BYTES_PER_S,
+        Cb=0 if base is None else base.shape[-2],
+        S=0 if operand is None else operand.shape[-3],
+        Cs=0 if operand is None else operand.shape[-2])
+
+
+def check_chains(rng, dev):
+    """fq_bilinear_chain kernel vs the plain chain and vs the same
+    products launched one at a time (fq_bilinear_cuda), bit-identical,
+    for every chain of the main path at CHAIN_LANES lanes; then, at the
+    firehose's 128 lanes, each chain's kernel, per-product and plain ms
+    beside its bound, and block 0's clock cycles per phase of each step
+    (phases A pre-sums, B leaves, C gamma sums, D REDCs), summed by
+    product kind and scaled to the chain's measured time: clocked once
+    right after the plain chain's torch kernels ran ("cold") and once
+    right after that ("warm", reported by kind). Returns
+    {"max_abs_err": 0, "chains": {label: numbers}}."""
+    tables = fq_tower.TABLES
+    errs = []
+    for n in CHAIN_LANES:
+        for label, (steps, pairs) in CHAINS.items():
+            acc, prog, base, op = chain_args(rng, steps, pairs, n, dev)
+            got = fq_cuda.fq_bilinear_chain_cuda(acc, prog, tables, base, op)
+            errs.append(_same(got, fq_mod.fq_bilinear_chain_plain(acc, prog, tables, base, op),
+                              f"chain {label} N={n}"))
+            _same(got, fq_mod.chain_by_products(fq_cuda.fq_bilinear_cuda, acc, prog,
+                                                tables, base, op),
+                  f"chain {label} N={n} vs the products launched one at a time")
+    rows = {}
+    for label, (steps, pairs) in CHAINS.items():
+        acc, prog, base, op = chain_args(rng, steps, pairs, FIREHOSE_G, dev)
+        row = {"steps": steps, "lanes": FIREHOSE_G,
+               "ms": time_cuda(lambda: fq_cuda.fq_bilinear_chain_cuda(
+                   acc, prog, tables, base, op), 20),
+               "per_product_ms": time_cuda(lambda: fq_mod.chain_by_products(
+                   fq_cuda.fq_bilinear_cuda, acc, prog, tables, base, op), 5),
+               "plain_ms": time_cuda(lambda: fq_mod.fq_bilinear_chain_plain(
+                   acc, prog, tables, base, op), 1)}
+        row["bound_ms"], row["bound_by"] = chain_bound(prog, base, op, FIREHOSE_G)
+        cold = fq_cuda.chain_phase_clocks(acc, prog, tables, base, op)
+        cycles = fq_cuda.chain_phase_clocks(acc, prog, tables, base, op)
+        row["first_step_cycles"] = {"cold": cold[0].tolist(), "warm": cycles[0].tolist()}
+        us_per_cycle = row["ms"] * 1e3 / max(int(cycles.sum()), 1)
+        phases = {}
+        for code, cyc in zip(prog, cycles):
+            name = tables[int(code) & fq_mod.KIND_MASK].name
+            ph = phases.setdefault(name, {"steps": 0, "cycles": np.zeros(4, np.int64)})
+            ph["steps"] += 1
+            ph["cycles"] += cyc
+        row["phases"] = {name: {"steps": ph["steps"],
+                                "cycles_per_step": (ph["cycles"] / ph["steps"]).tolist(),
+                                "us_per_step": (ph["cycles"] / ph["steps"]
+                                                * us_per_cycle).tolist()}
+                         for name, ph in phases.items()}
+        rows[label] = row
+    return {"max_abs_err": max(errs), "chains": rows}
+
+
+def small_launch_times(lanes_seen, dev, rng, pairs):
     """Each kernel at the lane count the verify launched it with most
-    (for fq_bilinear: each table at its own), per eager call (host and
-    device) and per launch replayed from a CUDA graph (device), beside the
-    same two times of an empty kernel. lanes_seen: fq_lanes() of the
-    verify. Returns {"empty": {...}, name or table: {...}}."""
+    (for fq_bilinear: each table at its own; for fq_bilinear_chain: each
+    chain, by its steps, of a pairing of `pairs` pairs), per eager call
+    (host and device) and per launch replayed from a CUDA graph (device),
+    beside the same two times of an empty kernel. lanes_seen: fq_lanes()
+    of the verify. Returns {"empty": {...}, name, table or chain: {...}}."""
     out = {"empty": {"lanes": 0, "call_ms": time_cuda(fq_cuda.empty_launch, 500),
                      "graph_ms": graph_ms(fq_cuda.empty_launch, 200)}}
 
@@ -562,6 +671,8 @@ def small_launch_times(lanes_seen, dev, rng):
         a, b = (torch.from_numpy(fq_kernel_inputs(rng, n, "mul")).to(dev)
                 for _ in range(2))
         put("fq_mul", n, lambda: fq_cuda.fq_mul_cuda(a, b), count)
+        out["fq_mul"]["bound_ms"], _ = fq_cuda.bound_ms("fq_mul", n, INT32_OPS_PER_S,
+                                                        HBM_BYTES_PER_S)
     by_table = collections.defaultdict(dict)
     for key, count in lanes_seen["fq_bilinear"].items():
         name, n = key.split(":")
@@ -574,6 +685,17 @@ def small_launch_times(lanes_seen, dev, rng):
         put(tb.name, n, lambda av=av, bv=bv, tb=tb: fq_cuda.fq_bilinear_cuda(av, bv, tb),
             count)
         out[tb.name]["bound_ms"], _ = bilinear_bound(tb, n)
+    by_steps = collections.defaultdict(dict)
+    for key, count in lanes_seen["fq_bilinear_chain"].items():
+        steps, n = map(int, key.split(":"))
+        by_steps[steps][n] = count
+    for steps, seen in sorted(by_steps.items(), reverse=True):
+        n, count = max(seen.items(), key=lambda kv: kv[1])
+        acc, prog, base, op = chain_args(rng, steps, pairs, n, dev)
+        key = f"chain {steps} steps"
+        put(key, n, lambda acc=acc, prog=prog, base=base, op=op:
+            fq_cuda.fq_bilinear_chain_cuda(acc, prog, fq_tower.TABLES, base, op), count)
+        out[key]["bound_ms"], _ = chain_bound(prog, base, op, n)
     return out
 
 
@@ -639,7 +761,7 @@ def drive_bls(block: Block, dev):
     out["launches"] = fq_launches()
     if verdicts != [True] * block.n_att:
         raise AssertionError(f"valid block verdicts {verdicts}")
-    if min(out["launches"]["fq_mul"], out["launches"]["fq_bilinear"]) <= 0:
+    if not launched_path(out["launches"]):
         raise AssertionError(f"verify launched {out['launches']}")
     zero_fq_counters()
     _, out["verify_warm_ms"] = fenced_ms(lambda: tb.verify_indexed_batch(block.items))
@@ -710,6 +832,29 @@ SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "cudaEventSynchronize")
 
 
+def syncs_in_ranges(events, labels):
+    """{label: n}: the host synchronizations (SYNC_EVENTS) and
+    device-to-host copies that start inside each label's range, all on
+    the host's timeline. A label's range is its host event (its
+    device-side annotation spans its kernels, which may run on into the
+    next range). A copy counts at the host op that issued it, the op whose
+    kernels list the device-side copy: the copy's own device event starts
+    at a device time that the profiler projects onto the host clock, and
+    that projection may fall a little before the range that issued it."""
+    from torch.autograd import DeviceType
+    ranges = {e.name: (e.time_range.start, e.time_range.end)
+              for e in events if e.name in labels and e.device_type == DeviceType.CPU}
+    syncs = dict.fromkeys(labels, 0)
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in SYNC_EVENTS or any("DtoH" in k.name for k in e.kernels):
+            for label, (a, b) in ranges.items():
+                if a <= e.time_range.start <= b:
+                    syncs[label] += 1
+    return syncs
+
+
 def profile_window(steps):
     """steps: [(label, fn)] run in order under torch.profiler (CPU and CUDA
     activity), each inside a record_function range of its label. Returns
@@ -730,16 +875,7 @@ def profile_window(steps):
     from torch.autograd import DeviceType
     labels = [label for label, _ in steps]
     events = prof.events()
-    # each label's range on the host's timeline: its device-side
-    # annotation spans its kernels, which may run on into the next range
-    ranges = {e.name: (e.time_range.start, e.time_range.end)
-              for e in events if e.name in labels and e.device_type == DeviceType.CPU}
-    syncs = dict.fromkeys(labels, 0)
-    for e in events:
-        if e.name in SYNC_EVENTS or "DtoH" in e.name:
-            for label, (a, b) in ranges.items():
-                if a <= e.time_range.start <= b:
-                    syncs[label] += 1
+    syncs = syncs_in_ranges(events, labels)
     # device events only (kernels, copies): a CPU-side event's device time
     # repeats its kernels', and the labels' own device-side annotation
     # ranges span the kernels they hold
@@ -849,9 +985,13 @@ def drive_firehose(dev, rng):
     out["aggverify_per_s"] = groups / (t2 - t0)
     out["pairings_per_s"] = groups * P / (t2 - t0)
     out["per_batch"] = {k: n / batches for k, n in out["launches"].items()}
+    by_steps = collections.Counter()
+    for key, count in out["lanes"]["fq_bilinear_chain"].items():
+        by_steps["pow_abs" if int(key.split(":")[0]) in POW_BITS else "miller"] += count
+    out["chains_per_batch"] = {k: by_steps[k] / batches for k in ("pow_abs", "miller")}
     if out["occupancy_min"] < FIREHOSE_G:
         raise AssertionError(f"firehose: occupancy {out['occupancy_min']} < {FIREHOSE_G}")
-    if min(out["launches"]["fq_mul"], out["launches"]["fq_bilinear"]) <= 0:
+    if not launched_path(out["launches"]):
         raise AssertionError(f"firehose launched {out['launches']}")
 
     # the same window traced: device-busy share, synchronizations per range
@@ -875,7 +1015,7 @@ def drive_firehose(dev, rng):
                              " re-layout events")
     if not out["ring_ptr_constant"]:
         raise AssertionError("firehose: the verdict ring moved")
-    out["launch_times"] = small_launch_times(out["lanes"], dev, rng)
+    out["launch_times"] = small_launch_times(out["lanes"], dev, rng, P)
     return out
 
 
@@ -890,10 +1030,15 @@ def report_firehose(fh) -> None:
         f" per batch, {fh['aggverify_per_s']:.1f} aggverify/s,"
         f" {fh['pairings_per_s']:.1f} pairings/s | occupancy min {fh['occupancy_min']}")
     tr = fh["trace"]
+    chains = fh["chains_per_batch"]
     log(f"phase firehose launches: per batch fq_mul {per['fq_mul']:.1f} / fq_redc"
-        f" {per['fq_redc']:.1f} / fq_bilinear {per['fq_bilinear']:.1f} | lanes per"
-        f" launch: fq_mul {hist(fh['lanes']['fq_mul'])}; fq_bilinear"
-        f" {hist(fh['lanes']['fq_bilinear'])}")
+        f" {per['fq_redc']:.1f} / fq_bilinear {per['fq_bilinear']:.1f} /"
+        f" fq_bilinear_chain {per['fq_bilinear_chain']:.1f} (pow_abs chains"
+        f" {chains['pow_abs']:.1f}, Miller-step chains {chains['miller']:.1f}); the"
+        f" fq_bilinear family {per['fq_bilinear'] + per['fq_bilinear_chain']:.1f}, all"
+        f" hand-kernel launches {sum(per.values()):.1f} | lanes per launch: fq_mul"
+        f" {hist(fh['lanes']['fq_mul'])}; fq_bilinear {hist(fh['lanes']['fq_bilinear'])};"
+        f" fq_bilinear_chain (steps:lanes) {hist(fh['lanes']['fq_bilinear_chain'])}")
     log("phase firehose trace: the same window under torch.profiler: wall"
         f" {tr['wall_ms']:.1f} ms, device "
         + ("not measured (no device time in the trace)" if tr["device_ms"] is None
@@ -1286,7 +1431,7 @@ def drive_blocks(spec, V: int, n_blocks: int, sync, dev):
                 raise raised
             if row["attestations"] != len(block.body.attestations):
                 raise AssertionError(f"block {b}: {row['attestations']} attestations kept")
-            if not (row["fq_mul"] > 0 and row["fq_bilinear"] > 0):
+            if not launched_path(row):
                 raise AssertionError(f"block {b} verified without the kernels: {row}")
 
         # the gossip slot: its attestations through the router and the
@@ -1530,7 +1675,8 @@ def report_spec_path(sp) -> dict:
             f" state_transition {row['block_ms']:.1f} ms, of which verify_indexed_batch"
             f" {row['verify_ms']:.1f} ms and {row['single_verifies']} single verifies"
             f" {row['single_verify_ms']:.1f} ms | fq_mul {row['fq_mul']} / fq_bilinear"
-            f" {row['fq_bilinear']} / sha256_pairs {row['sha256_launches']} launches"
+            f" {row['fq_bilinear']} / fq_bilinear_chain {row['fq_bilinear_chain']} /"
+            f" sha256_pairs {row['sha256_launches']} launches"
             + (f" | host signing {row['staging_s']:.1f} s (untimed)"
                if "staging_s" in row else ""))
     shape = b["shape"]
@@ -1553,7 +1699,9 @@ def report_spec_path(sp) -> dict:
             f" firehose verify {ms['verify_ms']:.1f} ms (ingest {ms['ingest_ms']:.1f} /"
             f" pump, the staging {ms['pump_ms']:.1f} / flush {ms['flush_ms']:.1f}),"
             f" fq_mul {g['verify_launches']['fq_mul']} / fq_bilinear"
-            f" {g['verify_launches']['fq_bilinear']} launches, False at {g['false_at']} |"
+            f" {g['verify_launches']['fq_bilinear']} / fq_bilinear_chain"
+            f" {g['verify_launches']['fq_bilinear_chain']} launches, False at"
+            f" {g['false_at']} |"
             f" block state_transition {g['block_ms']:.1f} ms with {g['cache_hits']} cache"
             f" hits and {g['new_launches']} new pipeline launches")
     sync_ms = [row["block_ms"] for row in b["blocks"] if row["kind"] == "attestations"]
@@ -1571,7 +1719,7 @@ def report_spec_path(sp) -> dict:
     spec_launches = {
         "sha256_pairs": r["launches"] + b["sha256_launches"],
         **{k: sum(row[k] for row in b["blocks"])
-           for k in ("fq_mul", "fq_redc", "fq_bilinear")}}
+           for k in ("fq_mul", "fq_redc", "fq_bilinear", "fq_bilinear_chain")}}
     if b["sha256_launches"] <= 0:
         raise AssertionError("the block drive never launched sha256_pairs")
     return spec_launches
@@ -1727,6 +1875,24 @@ def main() -> int:
             f" {k['check_bound_ms']:.4f} ms")
     result["fq_kernels"] = fq_k
     torch.cuda.empty_cache()
+    fq_ch = check_chains(rng, dev)
+    for label, c in fq_ch["chains"].items():
+        log(f"phase kernel: fq_bilinear_chain {label} ({c['steps']} steps) bit-identical"
+            f" to the plain chain and to its products launched one at a time at"
+            f" N={list(CHAIN_LANES)} (max_abs_err {fq_ch['max_abs_err']}) |"
+            f" {c['lanes']} lanes: kernel {c['ms']:.4f} ms"
+            f" ({c['ms'] / c['steps'] * 1e3:.2f} us a step), one launch per product"
+            f" {c['per_product_ms']:.4f} ms, plain {c['plain_ms']:.2f} ms, bound"
+            f" {c['bound_ms']:.6f} ms by {c['bound_by']} | phases A / B / C / D of a"
+            " step, us (block 0's cycles): " + "; ".join(
+                f"{name} x {ph['steps']} "
+                + " / ".join(f"{u:.2f}" for u in ph["us_per_step"])
+                + " (" + " / ".join(f"{x:.0f}" for x in ph["cycles_per_step"]) + ")"
+                for name, ph in c["phases"].items())
+            + " | first step's cycles right after the plain chain's kernels / again"
+            " right after: " + " / ".join(str(x) for x in c["first_step_cycles"]["cold"])
+            + "; " + " / ".join(str(x) for x in c["first_step_cycles"]["warm"]))
+    result["fq_chains"] = fq_ch
 
     preset = load_preset("mainnet")
     cfg = epoch_soa.EpochConfig.from_preset("mainnet")
@@ -1844,10 +2010,11 @@ def main() -> int:
     for name, st in bls["stages"].items():
         log(f"phase bls {STAGE_LABELS[name]}: {st['ms']:.1f} ms, fq_mul"
             f" {st['fq_mul']} / fq_redc {st['fq_redc']} / fq_bilinear"
-            f" {st['fq_bilinear']} launches, {st['aten_ops']} aten ops (an extra,"
-            f" untimed run) | lanes per launch: fq_mul"
-            f" {hist(st['lanes']['fq_mul'])}; fq_bilinear"
-            f" {hist(st['lanes']['fq_bilinear'])}")
+            f" {st['fq_bilinear']} / fq_bilinear_chain {st['fq_bilinear_chain']}"
+            f" launches, {st['aten_ops']} aten ops (an extra, untimed run) | lanes"
+            f" per launch: fq_mul {hist(st['lanes']['fq_mul'])}; fq_bilinear"
+            f" {hist(st['lanes']['fq_bilinear'])}; fq_bilinear_chain (steps:lanes)"
+            f" {hist(st['lanes']['fq_bilinear_chain'])}")
     launches, warm = bls["launches"], bls["warm_launches"]
     log(f"phase bls verify: {shape['attestations']} x {shape['committee']}"
         f" ({shape['pubkeys']} pubkeys, {shape['pairs']} pairs per group) |"
@@ -1856,7 +2023,10 @@ def main() -> int:
         f" fq_mul {launches['fq_mul']} / {warm['fq_mul']}, fq_redc"
         f" {launches['fq_redc']} / {warm['fq_redc']}, fq_bilinear"
         f" {launches['fq_bilinear']} / {warm['fq_bilinear']} (one per tower"
-        f" product), plain wide products on the card {bls['plain_wide_on_card']},"
+        f" product outside the chains), fq_bilinear_chain"
+        f" {launches['fq_bilinear_chain']} / {warm['fq_bilinear_chain']} (family"
+        f" {launches['fq_bilinear'] + launches['fq_bilinear_chain']}), plain wide"
+        f" products on the card {bls['plain_wide_on_card']},"
         f" aten ops per verify {bls['aten_ops_per_verify']} (an extra, untimed run) |"
         f" peak device memory {bls['peak_device_gib']:.2f} GiB | host staging"
         f" {stage_s:.1f} s (untimed)")
@@ -1877,7 +2047,7 @@ def main() -> int:
     result["bls"] = bls
 
     # -- where a launch of the main path's size stands ---------------------------
-    small = small_launch_times(bls["warm_lanes"], dev, rng)
+    small = small_launch_times(bls["warm_lanes"], dev, rng, shape["pairs"])
     log("phase launch: at the verify's most frequent lane counts, ms per eager"
         " call (host and device) / per launch replayed from a CUDA graph: "
         + "; ".join(f"{k} {v['lanes']} lanes {v['call_ms']:.4f} / {v['graph_ms']:.4f}"
@@ -1968,6 +2138,28 @@ def main() -> int:
         "library_ms": None,
         "lanes": BILINEAR_CHECK,
         "table": "fq12_mul",
+        "bit_identical": True,
+    })
+    pow_z = fq_ch["chains"]["pow_abs |z|"]
+    kernels.append({
+        "name": "fq_bilinear_chain",
+        "route": "cuda",
+        "source": "consensus_specs_tpu_torch/csrc/fq_mont.cu",
+        "replaces": "consensus_specs_tpu/ops/bls_jax.py:201",
+        "launches": spec_launches["fq_bilinear_chain"],
+        "launches_by_path": {"bls_verify": bls["launches"]["fq_bilinear_chain"],
+                             "spec_blocks": spec_launches["fq_bilinear_chain"],
+                             "firehose": fh["launches"]["fq_bilinear_chain"],
+                             "gossip_verify": gossip_launches["fq_bilinear_chain"]},
+        "max_abs_err": fq_ch["max_abs_err"],
+        "ms": pow_z["ms"],
+        "plain_ms": pow_z["plain_ms"],
+        "bound_ms": pow_z["bound_ms"],
+        "bound_by": pow_z["bound_by"],
+        "library_ms": None,
+        "lanes": FIREHOSE_G,
+        "chain": "pow_abs |z|",
+        "per_product_ms": pow_z["per_product_ms"],
         "bit_identical": True,
     })
     # every tower product's REDC runs inside fq_bilinear now, so no path

@@ -1,41 +1,53 @@
 // BLS12-381 Montgomery arithmetic for Hopper (sm_90a), on the port's lazy
 // 29-bit x 14 signed int64 limb layout.
 //
-//   fq_mul:      [N,14] x [N,14] -> [N,14]   three carry rounds on each
-//                input, the 14x14 schoolbook into 28 columns, the 14-step
-//                interleaved REDC, three closing carry rounds (and, on
-//                request, 17 more: the unique signed-top form)
-//   fq_redc:     [N,28] -> [N,14]             the REDC and closing rounds
-//   fq_bilinear: [N,Ca,14] x [N,Cb,14] -> [N,R,14], one tower product
-//                (Fq2 multiply, Fq12 multiply / square / line multiply,
-//                cyclotomic square): for each of P leaves, the alpha and
-//                beta pre-sums of the input coefficients, three carry
-//                rounds on each, the schoolbook and three wide carry
-//                rounds; for each of R outputs, the gamma sum of the
-//                leaves' columns, the REDC and the closing rounds
+//   fq_mul:   [N,14] x [N,14] -> [N,14]   three carry rounds on each
+//             input, the 14x14 schoolbook into 28 columns, the 14-step
+//             interleaved REDC, three closing carry rounds (and, on
+//             request, 17 more: the unique signed-top form)
+//   fq_redc:  [N,28] -> [N,14]             the REDC and closing rounds
+//   fq_chain: [N,Ca,14] -> [N,Ca,14], a program of tower products (Fq2
+//             multiply, Fq12 multiply / square / line multiply,
+//             cyclotomic square) on one accumulator, each step's b the
+//             accumulator (a square), a fixed base [N,Cb,14] or slice p
+//             of an operand [N,S,Cs,14]. A product: for each of P leaves,
+//             the alpha and beta pre-sums of the input coefficients,
+//             three carry rounds on each, the schoolbook and three wide
+//             carry rounds; for each of R outputs, the gamma sum of the
+//             leaves' columns, the REDC and the closing rounds. A single
+//             tower product (ops/fq_cuda.py::fq_bilinear_cuda) is a
+//             program of one step.
 //
-// Replaces consensus_specs_tpu/ops/fq.py:450 fq_mul and :413 fq_redc, and
-// for fq_bilinear the coeff-placement tower product of
+// Replaces consensus_specs_tpu/ops/fq.py:450 fq_mul and :413 fq_redc;
+// fq_chain the coeff-placement tower product of
 // consensus_specs_tpu/ops/fq_tower.py:509 _bilinear_wide_cols / :522
-// _bilinear (also :130 fq2_mul and :569 fq12_cyclo_sqr): XLA programs, no
-// Pallas kernel. In eager PyTorch one tower product was a REDC launch
-// behind some 145-430 small torch ops (pre-sums, carry rounds, the skewed
-// outer product, gathers); it is one launch here. Output limbs are
-// bit-identical to the plain versions (ops/fq.py, fq_mul_plain,
-// fq_redc_plain, fq_bilinear_plain): the carry rounds sit at the same
-// points and every other step is an exact integer sum, whose order does
-// not matter, inside the reference's proven budget.
+// _bilinear (also :130 fq2_mul and :569 fq12_cyclo_sqr) and the two loops
+// of nothing but such products in consensus_specs_tpu/ops/bls_jax.py:
+// :201 _pow_abs (cyclotomic squarings and multiplies by f, a
+// lax.fori_loop) and the Miller step's f-update, :291-310 (one Fq12
+// squaring and P line multiplies). XLA programs, no Pallas kernel. Output
+// limbs are bit-identical to the plain versions (ops/fq.py, fq_mul_plain,
+// fq_redc_plain, fq_bilinear_plain, fq_bilinear_chain_plain): the carry
+// rounds sit at the same points and every other step is an exact integer
+// sum, whose order does not matter, inside the reference's proven budget.
+// Each step of a chain is the same integer computation as one product
+// launched alone (norm_in's three rounds on the accumulator, one_col's
+// Montgomery one included), so a chain's limbs equal those of the loop of
+// single products bit for bit.
 //
 // What bounds them on this card. Counting products alone, bytes: a lane
 // of fq_mul moves 336 bytes for 406 limb products, fq_redc 336 bytes for
 // 210, an Fq12 multiply 4,032 bytes for 13,104 (54 schoolbooks of 196 and
 // 12 REDCs of 210), and at one 32 x 32 -> 64-bit multiply-add
 // (IMAD.WIDE) per product, 64 per clock per SM, the products take less
-// time than the bytes at 3.35 TB/s. fq_mul and fq_redc come close to that
-// bound. fq_bilinear also runs its pre-sums, carry rounds and gamma sums,
-// several times the instructions of its products, so at large lane counts
-// it is bound by instruction issue, and on the main path, where a launch
-// covers 16-64 lanes, by the latency of its three dependent phases.
+// time than the bytes at 3.35 TB/s. A chain reads its inputs once and
+// writes its output once for all its products, so a chain of more than
+// a few steps is bound by its products (the |z| exponentiation, 69
+// steps: 594,720 products a lane). fq_mul and fq_redc come close to their
+// bound. A tower product also runs its pre-sums, carry rounds and gamma
+// sums; on the main path, where a launch covers 16-768 lanes, it is bound
+// by the latency of its dependent phases, and before chains by the host's
+// cost of one launch per product.
 //
 // Design:
 // - Coalesced staging. A block stages its tile of rows into shared memory
@@ -47,8 +59,9 @@
 //   warp's 8 rows start on distinct 16-byte bank groups). Outputs go back
 //   through shared memory and leave as 16-byte coalesced stores.
 // - Broadcast without copies. Each operand comes with its own strides
-//   over up to four lane axes (0 where it is broadcast) and a
-//   coefficient stride; the block works out each lane's row offset once.
+//   over up to four lane axes (0 where it is broadcast), a coefficient
+//   stride and a slice stride; the block works out each lane's row offset
+//   once.
 // - 32-bit arithmetic where the budget allows it. A multiply operand's
 //   limbs fit int32 after the first of its three input carry rounds (body
 //   in [-2^6, 2^29 + 2^6), top within 2^19 + 2^6), so the other two run
@@ -57,24 +70,42 @@
 //   (only its low 29 bits count), and m x q_j is one unsigned
 //   mad.wide.u32. A leaf's columns fit int32 after two of its three wide
 //   rounds (body in [-16, 2^29 + 16], column 27 within 2^10 + 1): the
-//   third runs in int32, the leaves are kept as int32, and each gamma
-//   term is one mad.wide.s32. REDC columns stay int64.
-//   tests/test_torch_fq_tower.py proves these ranges from the budget.
-// - fq_bilinear in three phases over a tile of lanes, all in shared
-//   memory: one thread per (lane, leaf) builds its two operands from the
-//   staged coefficients and the alpha / beta rows, multiplies and
-//   normalizes, and stores 28 leaf columns; one thread per (lane, output,
-//   4 columns) sums its gamma row, reading the leaves 16 bytes at a time;
-//   one thread per (lane, output) reduces. A block takes as many lanes
-//   as keep one leaf per thread (256 threads) in about 96 KB of shared
-//   memory, and fewer when a launch has fewer lanes than the card has
-//   SMs. So a launch of 16 lanes of an Fq12 multiply runs 864 leaf
-//   threads where a lane-per-thread kernel would run 16. The tables (CSR rows of
-//   (coefficient << 16 | column) entries) are uploaded once per device
-//   and copied into shared memory by each block. With `norm_in` the
-//   staged input coefficients take three carry rounds first; with
-//   `one_col` b gets Montgomery one as an extra coefficient (the
-//   cyclotomic square's passthrough).
+//   third runs in int32 and the leaves are kept as int32. REDC columns
+//   stay int64. tests/test_torch_fq_tower.py proves these ranges from the
+//   budget.
+// - Chains. A block owns its lanes for the whole program: the accumulator
+//   stays in shared memory from step to step, the base and the operand
+//   are staged once with it, and only the last step's result goes to
+//   device memory. Lanes are independent, so blocks never talk to each
+//   other. The program (an int32 code per step: kind | source << 4) is
+//   passed by value with the launch.
+// - Tables compiled in. The five tower products are Table<K>
+//   specializations in csrc/fq_tables.cuh, generated from the port's
+//   tables (ops/fq_tables_gen.py): the alpha and beta pre-sums and the
+//   gamma sums are straight-line code with immediate coefficients. No
+//   table is copied to a block or decoded at run time. A product's code
+//   is selected once per step by its kind, which is the same for the
+//   whole block, so no warp diverges on it.
+// - A product in four phases over the block's tile, all in shared memory,
+//   each phase's threads running one code path: (A) one thread per (lane,
+//   operand, limb) computes that limb of every leaf's operand (the table's
+//   straight-line pre-sum; a-threads and b-threads in separate warps);
+//   (B) one thread per (lane, leaf) narrows its two operands, multiplies
+//   and normalizes, and stores its 28 int32 columns over its own a row;
+//   (C) one thread per (lane, column) sums that column of every output
+//   (the gamma code); (D) one thread per (lane, output) reduces and
+//   writes the new accumulator coefficient. With `norm_in` the
+//   accumulator's rows take three carry rounds first; with `one_col` b's
+//   extra row is Montgomery one, kept after the accumulator's rows.
+// - Lanes per block: as many as keep one leaf per thread (256 threads) in
+//   about 96 KB of shared memory (an Fq12 chain lane needs about 17.8 KB:
+//   accumulator and one 1,456 B, base 1,344 B, leaf operands 2 x 6,048 B,
+//   gamma sums 2,880 B; so 4 lanes of an Fq12 multiply), and fewer when a
+//   launch has fewer lanes than the card has SMs: a chain at the
+//   firehose's 128 lanes runs one lane per block on 128 SMs (64 threads),
+//   where 16 blocks of 8 lanes would leave 116 SMs idle, because at these
+//   lane counts a product's time is the latency of its phases, not the
+//   card's throughput.
 //
 // Signed overflow is undefined in C++, so every intermediate stays inside
 // the budget the reference proves (pre-sums of <= 8 inputs with body
@@ -104,15 +135,19 @@ __constant__ long long kQ[kL] = {
     0x09507b58LL, 0x0afd9cc3LL, 0x109e70a2LL, 0x1764774bLL, 0x121a5d66LL,
     0x12c6e9edLL, 0x12ffcd34LL, 0x00111ea3LL, 0x0000000dLL};
 
+// The tower products' tables as code: Table<0 .. kNumKinds - 1>.
+#include "fq_tables.cuh"
+
 constexpr int kMaxDims = 4;
 
-// Row (lane, c) of an operand starts at
-// ptr + sum_d index_d(lane) * stride[d] + c * cstride; its limbs are
-// contiguous. vec16: every row start is 16-byte aligned.
+// Row (lane, s, c) of an operand starts at
+// ptr + sum_d index_d(lane) * stride[d] + s * sstride + c * cstride; its
+// limbs are contiguous. vec16: every row start is 16-byte aligned.
 struct Operand {
   const long long* ptr;
   long long stride[kMaxDims];
   long long cstride;
+  long long sstride;
   int vec16;
 };
 
@@ -122,16 +157,10 @@ struct Lanes {
   int ndim;
 };
 
-// A tower product's shape, and the lanes a block takes.
-struct Shape {
-  int P, R, Ca, Cb;     // leaves, outputs, a's and b's own coefficients
-  int one_col, norm_in;
-  int table_len;        // int32 entries of the packed tables
-  int tile;             // lanes per block
-};
-
-// layout[] (1 + 4 + 2 x 6 int64s): ndim, size[4], then per operand
-// stride[4], cstride, vec16.
+// layout[] (1 + 4 + 3 x 6 + 3 int64s): ndim, size[4], then per operand
+// stride[4], cstride, vec16, then the three operands' slice strides.
+constexpr int kOperandLen = kMaxDims + 2;
+constexpr int kSliceAt = 1 + kMaxDims + 3 * kOperandLen;
 
 Lanes parse_lanes(const long long* layout) {
   Lanes ln;
@@ -141,12 +170,13 @@ Lanes parse_lanes(const long long* layout) {
 }
 
 Operand parse_operand(const long long* layout, int k, const void* ptr) {
-  const long long* p = layout + 1 + kMaxDims + k * (kMaxDims + 2);
+  const long long* p = layout + 1 + kMaxDims + k * kOperandLen;
   Operand op;
   op.ptr = static_cast<const long long*>(ptr);
   for (int d = 0; d < kMaxDims; ++d) op.stride[d] = p[d];
   op.cstride = p[kMaxDims];
   op.vec16 = static_cast<int>(p[kMaxDims + 1]);
+  op.sstride = layout[kSliceAt + k];
   return op;
 }
 
@@ -190,29 +220,31 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Block-cooperative copy of rows (l, c), l < nl, c < C, of W limbs each
-// into dst row l * rows_per_lane + c (pitch limbs apart). off[l] is lane
-// l's row offset. Completes at cp_async_wait_all().
+// Block-cooperative copy of rows (l, s, c), l < nl, s < S, c < C, of W
+// limbs each into dst row l * rows_per_lane + s * C + c (pitch limbs
+// apart). off[l] is lane l's row offset. Completes at cp_async_wait_all().
 template <int W>
 __device__ __forceinline__ void stage_rows(long long* dst, int pitch,
                                            int rows_per_lane, const Operand& op,
-                                           const long long* off, int nl, int C) {
+                                           const long long* off, int nl, int S,
+                                           int C) {
+  const int SC = S * C;
   if (op.vec16) {
     constexpr int kPieces = W / 2;
-    const int n = nl * C * kPieces;
+    const int n = nl * SC * kPieces;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       const int row = i / kPieces, piece = i - row * kPieces;
-      const int l = row / C, c = row - l * C;
-      cp_async16(dst + (l * rows_per_lane + c) * pitch + 2 * piece,
-                 op.ptr + off[l] + c * op.cstride + 2 * piece);
+      const int l = row / SC, sc = row - l * SC, s = sc / C, c = sc - s * C;
+      cp_async16(dst + (l * rows_per_lane + sc) * pitch + 2 * piece,
+                 op.ptr + off[l] + s * op.sstride + c * op.cstride + 2 * piece);
     }
   } else {
-    const int n = nl * C * W;
+    const int n = nl * SC * W;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       const int row = i / W, k = i - row * W;
-      const int l = row / C, c = row - l * C;
-      cp_async8(dst + (l * rows_per_lane + c) * pitch + k,
-                op.ptr + off[l] + c * op.cstride + k);
+      const int l = row / SC, sc = row - l * SC, s = sc / C, c = sc - s * C;
+      cp_async8(dst + (l * rows_per_lane + sc) * pitch + k,
+                op.ptr + off[l] + s * op.sstride + c * op.cstride + k);
     }
   }
 }
@@ -345,27 +377,12 @@ __device__ __forceinline__ void redc(long long (&c)[kW], long long (&out)[kL]) {
   carry_rounds(out);
 }
 
-// x = sum over CSR entries [e0, e1) of coefficient * rows[column].
-__device__ __forceinline__ void presum(const int* tab, int e0, int e1,
-                                       const long long* rows, long long (&x)[kL]) {
-#pragma unroll
-  for (int k = 0; k < kL; ++k) x[k] = 0;
-  for (int e = e0; e < e1; ++e) {
-    const int ent = tab[e];
-    const long long coef = ent >> 16;
-    const long long* r = rows + (ent & 0xffff) * kL;
-#pragma unroll
-    for (int k = 0; k < kL; ++k) x[k] += coef * r[k];
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Kernels
+// fq_mul, fq_redc
 // ---------------------------------------------------------------------------
 
 constexpr int kMulTile = 128;
 constexpr int kRedcTile = 128;
-constexpr int kBiThreads = 256;
 
 constexpr int kNormFull = kL + 3;     // rounds to the unique signed-top form
 
@@ -383,8 +400,8 @@ fq_mul_kernel(Operand a, Operand b, long long* __restrict__ out, Lanes lanes,
     offb[t] = lane_offset(lanes, b, lane0 + t);
   }
   __syncthreads();
-  stage_rows<kL>(sa, kL, 1, a, offa, nl, 1);
-  stage_rows<kL>(sb, kL, 1, b, offb, nl, 1);
+  stage_rows<kL>(sa, kL, 1, a, offa, nl, 1, 1);
+  stage_rows<kL>(sb, kL, 1, b, offb, nl, 1, 1);
   cp_async_wait_all();
   __syncthreads();
   if (t < nl) {
@@ -419,7 +436,7 @@ fq_redc_kernel(Operand cols, long long* __restrict__ out, Lanes lanes,
   const int t = threadIdx.x;
   if (t < nl) off[t] = lane_offset(lanes, cols, lane0 + t);
   __syncthreads();
-  stage_rows<kW>(sc, kWPitch, 1, cols, off, nl, 1);
+  stage_rows<kW>(sc, kWPitch, 1, cols, off, nl, 1, 1);
   cp_async_wait_all();
   __syncthreads();
   if (t < nl) {
@@ -433,117 +450,210 @@ fq_redc_kernel(Operand cols, long long* __restrict__ out, Lanes lanes,
   copy_out(out + static_cast<long long>(lane0) * kL, so, nl * kL);
 }
 
-__global__ void __launch_bounds__(kBiThreads)
-fq_bilinear_kernel(Operand a, Operand b, const long long* __restrict__ one,
-                   const int* __restrict__ table, long long* __restrict__ out,
-                   Lanes lanes, unsigned n, Shape sh) {
+// ---------------------------------------------------------------------------
+// fq_chain: a program of tower products on one accumulator
+// ---------------------------------------------------------------------------
+
+constexpr int kChainThreads = 256;
+constexpr int kMaxSteps = 128;
+constexpr int kKindBits = 4;          // a step's code: kind | source << 4
+constexpr int kSrcAcc = 0, kSrcBase = 1, kSrcOperand = 2;
+constexpr int kPhases = 4;            // clock stamps per step (A, B, C, D)
+
+// What the kernel needs of a kind at run time (the rest is in its code).
+struct KindInfo {
+  int P, R, Ca, Cb;
+  bool one_col, norm_in;
+};
+
+static_assert(kNumKinds == 5, "the kind lists below name kinds 0 .. 4");
+#define FQ_INFO(K)                                                       \
+  {Table<K>::P, Table<K>::R, Table<K>::Ca, Table<K>::Cb, Table<K>::one_col, \
+   Table<K>::norm_in}
+#define FQ_KIND_INFO {FQ_INFO(0), FQ_INFO(1), FQ_INFO(2), FQ_INFO(3), FQ_INFO(4)}
+__constant__ KindInfo kKinds[kNumKinds] = FQ_KIND_INFO;
+constexpr KindInfo kKindsHost[kNumKinds] = FQ_KIND_INFO;
+
+struct Chain {
+  int n_steps;
+  int Ca;          // the accumulator's coefficients (every step's Ca and R)
+  int Cb;          // the base's rows (0: no base)
+  int S, Cs;       // the operand's slices and rows per slice (0: no operand)
+  int P;           // the most leaves of any step
+  int tile;        // lanes per block
+  int step[kMaxSteps];
+};
+
+// A block's shared memory, per lane: the accumulator's Ca rows and
+// Montgomery one; the base's Cb rows; the operand's S x Cs rows; the
+// leaves' a and b operands (P rows each; after phase B the a rows hold the
+// leaves' int32 columns); the gamma sums (Ca rows of kWPitch); then the
+// three operands' lane offsets.
+struct Regions {
+  long long *acc, *base, *opr, *x, *y, *gsum, *off;
+  int acc_r, base_r, opr_r, x_r;      // int64s per lane
+};
+
+__device__ __forceinline__ Regions regions(long long* smem, const Chain& ch) {
+  Regions g;
+  g.acc_r = (ch.Ca + 1) * kL;
+  g.base_r = ch.Cb * kL;
+  g.opr_r = ch.S * ch.Cs * kL;
+  g.x_r = ch.P * kL;
+  g.acc = smem;
+  g.base = g.acc + ch.tile * g.acc_r;
+  g.opr = g.base + ch.tile * g.base_r;
+  g.x = g.opr + ch.tile * g.opr_r;
+  g.y = g.x + ch.tile * g.x_r;
+  g.gsum = g.y + ch.tile * g.x_r;
+  g.off = g.gsum + ch.tile * ch.Ca * kWPitch;
+  return g;
+}
+
+__device__ __forceinline__ void phase_end(long long* stamp) {
+  __syncthreads();
+  if (stamp) *stamp = clock64();
+}
+
+// Phase A: limb t of every leaf's a and b operand for each lane, one
+// thread per (lane, operand, limb); a-threads and b-threads start at
+// warp boundaries, so no warp runs both codes.
+template <class T>
+__device__ __forceinline__ void presums(const Regions& g, const Chain& ch,
+                                        int src, int nl) {
+  const int items = nl * kL;
+  const int padded = (items + 31) & ~31;
+  for (int i = threadIdx.x; i < 2 * padded; i += blockDim.x) {
+    const bool is_b = i >= padded;
+    const int j = is_b ? i - padded : i;
+    if (j >= items) continue;
+    const int l = j / kL, t = j - l * kL;
+    if (!is_b) {
+      T::alpha(g.acc + l * g.acc_r + t, g.x + l * g.x_r + t);
+    } else {
+      const long long* b =
+          src == kSrcAcc    ? g.acc + l * g.acc_r
+          : src == kSrcBase ? g.base + l * g.base_r
+                            : g.opr + l * g.opr_r + (src - kSrcOperand) * ch.Cs * kL;
+      T::beta(b + t, g.y + l * g.x_r + t);
+    }
+  }
+}
+
+// Phase C: column j of every output's gamma sum, one thread per (lane,
+// column).
+template <class T>
+__device__ __forceinline__ void gammas(const Regions& g, const Chain& ch, int nl) {
+  const int* leaves = reinterpret_cast<const int*>(g.x);
+  for (int i = threadIdx.x; i < nl * kW; i += blockDim.x) {
+    const int l = i / kW, j = i - l * kW;
+    T::gamma(leaves + 2 * l * g.x_r + j, g.gsum + l * ch.Ca * kWPitch + j);
+  }
+}
+
+// fn<Table<kind>> args, kind uniform over the block.
+#define FQ_BY_KIND(kind, fn, args)           \
+  switch (kind) {                            \
+    case 0: fn<Table<0>> args; break;        \
+    case 1: fn<Table<1>> args; break;        \
+    case 2: fn<Table<2>> args; break;        \
+    case 3: fn<Table<3>> args; break;        \
+    default: fn<Table<4>> args; break;       \
+  }
+
+__global__ void __launch_bounds__(kChainThreads)
+fq_chain_kernel(Operand a, Operand b, Operand o, long long* __restrict__ out,
+                Lanes lanes, unsigned n, Chain ch, long long* __restrict__ stamps) {
   extern __shared__ __align__(16) long long smem[];
-  const int P = sh.P, R = sh.R, Ca = sh.Ca, Cb = sh.Cb;
-  const int CbS = Cb + sh.one_col;            // b's staged rows per lane
-  const int tile = sh.tile;
-  // every region a multiple of 16 bytes long: 14 and kWPitch are even
-  long long* xa = smem;                                  // [tile][Ca][14]
-  long long* xb = xa + tile * Ca * kL;                   // [tile][CbS][14]
-  long long* gsum = xb + tile * CbS * kL;                // [tile][R][kWPitch]
-  long long* offa = gsum + tile * R * kWPitch;           // [tile]
-  long long* offb = offa + tile;                         // [tile]
-  int* leaves = reinterpret_cast<int*>(offb + tile);     // [tile][P][28]
-  int* tab = leaves + tile * P * kW;                     // [table_len]
-  const int* a_start = tab;                              // alpha rows, P + 1
-  const int* b_start = tab + P + 1;                      // beta rows, P + 1
-  const int* g_start = tab + 2 * (P + 1);                // gamma rows, R + 1
-
-  const unsigned lane0 = blockIdx.x * static_cast<unsigned>(tile);
-  const int nl = static_cast<int>(min(static_cast<unsigned>(tile), n - lane0));
+  const Regions g = regions(smem, ch);
+  const unsigned lane0 = blockIdx.x * static_cast<unsigned>(ch.tile);
+  const int nl = static_cast<int>(min(static_cast<unsigned>(ch.tile), n - lane0));
   const int tid = threadIdx.x, nt = blockDim.x;
+  long long* offa = g.off;
+  long long* offb = offa + ch.tile;
+  long long* offo = offb + ch.tile;
 
-  for (int i = tid; i < sh.table_len; i += nt) tab[i] = table[i];
   for (int l = tid; l < nl; l += nt) {
     offa[l] = lane_offset(lanes, a, lane0 + l);
-    offb[l] = lane_offset(lanes, b, lane0 + l);
+    if (ch.Cb) offb[l] = lane_offset(lanes, b, lane0 + l);
+    if (ch.S) offo[l] = lane_offset(lanes, o, lane0 + l);
   }
   __syncthreads();
-  stage_rows<kL>(xa, kL, Ca, a, offa, nl, Ca);
-  stage_rows<kL>(xb, kL, CbS, b, offb, nl, Cb);
-  if (sh.one_col) {
-    for (int i = tid; i < nl * kL; i += nt) {
-      const int l = i / kL, k = i - l * kL;
-      xb[(l * CbS + Cb) * kL + k] = one[k];
-    }
+  stage_rows<kL>(g.acc, kL, ch.Ca + 1, a, offa, nl, 1, ch.Ca);
+  if (ch.Cb) stage_rows<kL>(g.base, kL, ch.Cb, b, offb, nl, 1, ch.Cb);
+  if (ch.S) stage_rows<kL>(g.opr, kL, ch.S * ch.Cs, o, offo, nl, ch.S, ch.Cs);
+  for (int i = tid; i < nl * kL; i += nt) {      // b's one_col row
+    const int l = i / kL, k = i - l * kL;
+    g.acc[l * g.acc_r + ch.Ca * kL + k] = kOneMont[k];
   }
   cp_async_wait_all();
-  __syncthreads();
+  long long* stamp = (stamps != nullptr && blockIdx.x == 0 && tid == 0) ? stamps : nullptr;
+  phase_end(stamp);
 
-  if (sh.norm_in) {        // three carry rounds on each staged input row
-    for (int i = tid; i < nl * (Ca + Cb); i += nt) {
-      long long* row;
-      if (i < nl * Ca) {
-        row = xa + i * kL;
-      } else {
-        const int j = i - nl * Ca, l = j / Cb;
-        row = xb + (l * CbS + (j - l * Cb)) * kL;
+  for (int s = 0; s < ch.n_steps; ++s) {
+    const int code = ch.step[s];
+    const int kind = code & ((1 << kKindBits) - 1), src = code >> kKindBits;
+    const KindInfo kd = kKinds[kind];
+    long long* st = stamp ? stamp + 1 + s * kPhases : nullptr;
+    if (kd.norm_in) {         // three carry rounds on the accumulator's rows
+      for (int i = tid; i < nl * ch.Ca; i += nt) {
+        const int l = i / ch.Ca, c = i - l * ch.Ca;
+        long long* row = g.acc + l * g.acc_r + c * kL;
+        long long x[kL];
+        load_row(row, x);
+        carry_rounds(x);
+        store_row(row, x);
       }
-      long long x[kL];
-      load_row(row, x);
-      carry_rounds(x);
-      store_row(row, x);
+      __syncthreads();
     }
-    __syncthreads();
-  }
+    FQ_BY_KIND(kind, presums, (g, ch, src, nl))
+    phase_end(st ? st + 0 : nullptr);
 
-  // phase 1: one thread per (lane, leaf)
-  for (int i = tid; i < nl * P; i += nt) {
-    const int l = i / P, k = i - l * P;
-    long long x[kL], y[kL];
-    presum(tab, a_start[k], a_start[k + 1], xa + l * Ca * kL, x);
-    presum(tab, b_start[k], b_start[k + 1], xb + l * CbS * kL, y);
-    int x32[kL], y32[kL];
-    narrow32(x, x32);
-    narrow32(y, y32);
-    long long c[kW];
-    schoolbook(x32, y32, c);
-    int w[kW];
-    wide_norm32(c, w);
-    int4* dst = reinterpret_cast<int4*>(leaves + i * kW);
+    // Phase B: one thread per (lane, leaf); the leaf's columns replace
+    // its own a row, which no other thread reads
+    for (int i = tid; i < nl * kd.P; i += nt) {
+      const int l = i / kd.P, k = i - l * kd.P;
+      long long* xr = g.x + l * g.x_r + k * kL;
+      long long x[kL], y[kL];
+      load_row(xr, x);
+      load_row(g.y + l * g.x_r + k * kL, y);
+      int x32[kL], y32[kL];
+      narrow32(x, x32);
+      narrow32(y, y32);
+      long long c[kW];
+      schoolbook(x32, y32, c);
+      int w[kW];
+      wide_norm32(c, w);
+      int4* dst = reinterpret_cast<int4*>(xr);
 #pragma unroll
-    for (int q = 0; q < kW / 4; ++q)
-      dst[q] = make_int4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
-  }
-  __syncthreads();
-
-  // phase 2: one thread per (lane, output, 4 columns) sums its gamma row
-  for (int i = tid; i < nl * R * kQuads; i += nt) {
-    const int lr = i / kQuads, quad = i - lr * kQuads;
-    const int l = lr / R, r = lr - l * R;
-    const int4* lv = reinterpret_cast<const int4*>(leaves + l * P * kW) + quad;
-    long long acc0 = 0, acc1 = 0, acc2 = 0, acc3 = 0;
-    for (int e = g_start[r]; e < g_start[r + 1]; ++e) {
-      const int ent = tab[e];
-      const int coef = ent >> 16;
-      const int4 v = lv[(ent & 0xffff) * kQuads];
-      acc0 = mad_wide_s32(coef, v.x, acc0);
-      acc1 = mad_wide_s32(coef, v.y, acc1);
-      acc2 = mad_wide_s32(coef, v.z, acc2);
-      acc3 = mad_wide_s32(coef, v.w, acc3);
+      for (int q = 0; q < kQuads; ++q)
+        dst[q] = make_int4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
     }
-    longlong2* g = reinterpret_cast<longlong2*>(gsum + lr * kWPitch + 4 * quad);
-    g[0] = make_longlong2(acc0, acc1);
-    g[1] = make_longlong2(acc2, acc3);
-  }
-  __syncthreads();
+    phase_end(st ? st + 1 : nullptr);
 
-  // phase 3: one thread per (lane, output) reduces; the output tile
-  // [tile][R][14] reuses the staged inputs' space, read by no one any more
-  long long* so = xa;
-  for (int i = tid; i < nl * R; i += nt) {
-    long long c[kW];
-    load_row(gsum + i * kWPitch, c);
-    long long res[kL];
-    redc(c, res);
-    store_row(so + i * kL, res);
+    FQ_BY_KIND(kind, gammas, (g, ch, nl))
+    phase_end(st ? st + 2 : nullptr);
+
+    // Phase D: one thread per (lane, output) reduces into the accumulator
+    for (int i = tid; i < nl * kd.R; i += nt) {
+      const int l = i / kd.R, r = i - l * kd.R;
+      long long c[kW];
+      load_row(g.gsum + (l * ch.Ca + r) * kWPitch, c);
+      long long res[kL];
+      redc(c, res);
+      store_row(g.acc + l * g.acc_r + r * kL, res);
+    }
+    phase_end(st ? st + 3 : nullptr);
   }
-  __syncthreads();
-  copy_out(out + static_cast<long long>(lane0) * R * kL, so, nl * R * kL);
+
+  // the accumulator's Ca rows of each lane, 16 bytes per thread
+  longlong2* dst = reinterpret_cast<longlong2*>(out + static_cast<long long>(lane0) * ch.Ca * kL);
+  constexpr int kHalf = kL / 2;
+  for (int i = tid; i < nl * ch.Ca * kHalf; i += nt) {
+    const int row = i / kHalf, piece = i - row * kHalf;
+    const int l = row / ch.Ca, c = row - l * ch.Ca;
+    dst[i] = reinterpret_cast<const longlong2*>(g.acc + l * g.acc_r + c * kL)[piece];
+  }
 }
 
 __global__ void fq_empty_kernel() {}
@@ -553,9 +663,9 @@ __global__ void fq_empty_kernel() {}
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxDevices = 64;
-constexpr int kBiSmemTarget = 96 * 1024;     // lanes per block: about this much
-constexpr int kBiSmemLimit = 200 * 1024;     // the opt-in ceiling asked for
-constexpr int kBiMaxTile = 64;
+constexpr int kChainSmemTarget = 96 * 1024;   // lanes per block: about this much
+constexpr int kChainSmemLimit = 200 * 1024;   // the opt-in ceiling asked for
+constexpr int kChainMaxTile = 64;
 
 struct DeviceInfo {
   int sms = 0;
@@ -564,7 +674,7 @@ struct DeviceInfo {
 
 DeviceInfo g_devices[kMaxDevices];
 
-// The device's SM count, with fq_bilinear_kernel's dynamic shared memory
+// The device's SM count, with fq_chain_kernel's dynamic shared memory
 // ceiling raised once. Returns a cudaError_t.
 int device_info(DeviceInfo** info) {
   int dev = 0;
@@ -575,9 +685,9 @@ int device_info(DeviceInfo** info) {
   if (!d.smem_opt_in) {
     err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(fq_bilinear_kernel,
+    err = cudaFuncSetAttribute(fq_chain_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kBiSmemLimit);
+                               kChainSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
     d.smem_opt_in = true;
   }
@@ -589,14 +699,41 @@ inline unsigned blocks_for(long long n, int tile) {
   return static_cast<unsigned>((n + tile - 1) / tile);
 }
 
+inline int round32(int x) { return (x + 31) & ~31; }
+
+// Checks the program against the operands' shapes and sets ch.P; false
+// where a step cannot run.
+bool check_program(Chain& ch, const int* program) {
+  ch.P = 0;
+  for (int s = 0; s < ch.n_steps; ++s) {
+    const int code = program[s];
+    const int kind = code & ((1 << kKindBits) - 1), src = code >> kKindBits;
+    if (code < 0 || kind >= kNumKinds) return false;
+    const KindInfo& k = kKindsHost[kind];
+    if (k.Ca != ch.Ca || k.R != ch.Ca) return false;
+    if (src == kSrcAcc) {
+      if (k.Cb != ch.Ca) return false;
+    } else if (k.one_col || k.norm_in) {
+      return false;
+    } else if (src == kSrcBase) {
+      if (k.Cb != ch.Cb) return false;
+    } else if (src - kSrcOperand >= ch.S || k.Cb != ch.Cs) {
+      return false;
+    }
+    ch.step[s] = code;
+    if (k.P > ch.P) ch.P = k.P;
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Every launcher returns the cudaError_t of its launch (0 on success).
-// n: lanes (< 2^31); layout: kLayoutLen int64s (see Operand / Lanes),
-// operand 0 then operand 1; out: n contiguous output rows, 16-byte
-// aligned.
+// n: lanes (< 2^31); layout: 26 int64s (see parse_lanes / parse_operand),
+// operands in the launcher's order; out: n contiguous output rows,
+// 16-byte aligned.
 
 // norm_full: NORM_FULL (17) more carry rounds after the closing ones, the
 // unique signed-top limbs that Field.is_zero and canon compare.
@@ -621,55 +758,56 @@ int fq_redc_launch(const void* cols, void* out, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// shape: P, R, Ca, Cb, one_col, norm_in, table_len (int32). table: the
-// packed tables on the device; one: Montgomery one, 14 limbs on the
-// device.
-int fq_bilinear_launch(const void* a, const void* b, const void* one,
-                       const void* table, void* out, long long n,
-                       const long long* layout, const int* shape,
-                       void* stream) {
+// A chain: acc [n, Ca, 14] (operand 0), base [n, Cb, 14] (operand 1, or
+// null with Cb = 0), operand [n, S, Cs, 14] (operand 2, or null with
+// S = 0); program: n_steps int32 codes (kind | source << 4); dims: Ca,
+// Cb, S, Cs; out: [n, Ca, 14]. stamps: null, or room for
+// 1 + 4 x n_steps int64s: block 0's clock64() at the start and after
+// each phase of each step.
+int fq_chain_launch(const void* acc, const void* base, const void* operand,
+                    void* out, long long n, const long long* layout,
+                    const int* program, int n_steps, const int* dims,
+                    void* stamps, void* stream) {
   if (n <= 0) return 0;
+  if (n_steps < 1 || n_steps > kMaxSteps) return static_cast<int>(cudaErrorInvalidValue);
   DeviceInfo* info = nullptr;
   const int err = device_info(&info);
   if (err != 0) return err;
-  Shape sh;
-  sh.P = shape[0];
-  sh.R = shape[1];
-  sh.Ca = shape[2];
-  sh.Cb = shape[3];
-  sh.one_col = shape[4];
-  sh.norm_in = shape[5];
-  sh.table_len = shape[6];
-  if (sh.P < 1 || sh.P > kBiThreads || sh.R < 1 || sh.R > sh.P || sh.Ca < 1 ||
-      sh.Cb < 0 || sh.Cb + sh.one_col < 1)
+  Chain ch;
+  ch.n_steps = n_steps;
+  ch.Ca = dims[0];
+  ch.Cb = dims[1];
+  ch.S = dims[2];
+  ch.Cs = dims[3];
+  if (ch.Ca < 1 || ch.Cb < 0 || ch.S < 0 || ch.Cs < 0 || (ch.Cb && !base) ||
+      (ch.S && (!operand || ch.Cs < 1)) || !check_program(ch, program))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int CbS = sh.Cb + sh.one_col;
-  if (sh.R > sh.Ca + CbS) return static_cast<int>(cudaErrorInvalidValue);
+  if (!ch.S) ch.Cs = 0;
   const long long per_lane =
-      8LL * ((sh.Ca + CbS) * kL + sh.R * kWPitch + 2) + 4LL * sh.P * kW;
-  const long long fixed = 4LL * sh.table_len;
-  // one leaf per thread, about kBiSmemTarget of shared memory, and for
+      8LL * ((ch.Ca + 1) * kL + ch.Cb * kL + ch.S * ch.Cs * kL + 2 * ch.P * kL +
+             ch.Ca * kWPitch + 3);
+  // one leaf per thread, about kChainSmemTarget of shared memory, and for
   // small launches at least one block per SM
-  long long tile = kBiThreads / sh.P;
-  tile = tile < (kBiSmemTarget - fixed) / per_lane ? tile
-                                                   : (kBiSmemTarget - fixed) / per_lane;
-  if (tile > kBiMaxTile) tile = kBiMaxTile;
+  long long tile = kChainThreads / ch.P;
+  if (kChainSmemTarget / per_lane < tile) tile = kChainSmemTarget / per_lane;
+  if (tile > kChainMaxTile) tile = kChainMaxTile;
   const long long spread = (n + info->sms - 1) / info->sms;
   if (spread < tile) tile = spread;
   if (tile < 1) tile = 1;
-  sh.tile = static_cast<int>(tile);
-  const long long smem = per_lane * tile + fixed;
-  if (smem > kBiSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  // a thread per leaf (phase 1) and per four gamma columns (phase 2)
-  const int items = sh.tile * (sh.P > sh.R * kQuads ? sh.P : sh.R * kQuads);
-  int threads = ((items + 31) / 32) * 32;
-  if (threads > kBiThreads) threads = kBiThreads;
-  fq_bilinear_kernel<<<blocks_for(n, sh.tile), threads, static_cast<size_t>(smem),
-                       static_cast<cudaStream_t>(stream)>>>(
-      parse_operand(layout, 0, a), parse_operand(layout, 1, b),
-      static_cast<const long long*>(one), static_cast<const int*>(table),
-      static_cast<long long*>(out), parse_lanes(layout),
-      static_cast<unsigned>(n), sh);
+  ch.tile = static_cast<int>(tile);
+  const long long smem = per_lane * tile;
+  if (smem > kChainSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  int threads = 2 * round32(ch.tile * kL);
+  const int most = ch.tile * (ch.P > kW ? ch.P : kW);
+  if (most > threads) threads = most;
+  threads = round32(threads);
+  if (threads > kChainThreads) threads = kChainThreads;
+  fq_chain_kernel<<<blocks_for(n, ch.tile), threads, static_cast<size_t>(smem),
+                    static_cast<cudaStream_t>(stream)>>>(
+      parse_operand(layout, 0, acc), parse_operand(layout, 1, base),
+      parse_operand(layout, 2, operand), static_cast<long long*>(out),
+      parse_lanes(layout), static_cast<unsigned>(n), ch,
+      static_cast<long long*>(stamps));
   return static_cast<int>(cudaGetLastError());
 }
 

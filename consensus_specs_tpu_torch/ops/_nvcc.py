@@ -1,9 +1,10 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 Each csrc/<name>.cu has a plain C interface. At first use it is compiled
-for sm_90a into _build/<name>-<hash of the source>.so inside the package
-(git-ignored), so a changed source builds anew and an unchanged one loads
-the library already there. build_all starts one nvcc per source, all at
+for sm_90a into _build/<name>-<hash>.so inside the package (git-ignored),
+the hash taken over the source and every header in csrc/ (the generated
+fq_tables.cuh among them), so a changed source or header builds anew and
+an unchanged one loads the library already there. build_all starts one nvcc per source, all at
 once. A failed build raises; nothing falls back to the plain path.
 """
 from __future__ import annotations
@@ -40,7 +41,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    sources = [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"{name}-{digest}.so"
 

@@ -142,51 +142,25 @@ def miller_loop_batch(g1_aff, g2_aff, tower: T.Tower = T.DEVICE):
 def miller_loop_grouped(g1_aff, g2_aff, tower: T.Tower = T.DEVICE):
     """Shared-squaring multi-pairing: g1 [G, P, 2, L], g2 [G, P, 2, 2, L]
     -> [G, 2, 3, 2, L] with f_g = prod_p f_{|z|,Q_gp}(P_gp): per bit one
-    Fq12 squaring per group and P sparse line multiplies."""
+    Fq12 squaring per group and P sparse line multiplies, the f-update of
+    each step one chain (Tower.fq12_sqr_mul_lines / fq12_mul_lines)."""
     tw = tower
     xp, yp = g1_aff[..., 0, :], g1_aff[..., 1, :]            # [G, P, L]
     xq, yq = g2_aff[..., 0, :, :], g2_aff[..., 1, :, :]      # [G, P, 2, L]
     G, P, dev = xp.shape[0], xp.shape[1], xp.device
-
-    def mul_lines(f, c_a, c_v, c_vw):
-        for p in range(P):
-            f = tw.fq12_mul_line(f, c_a[:, p], c_v[:, p], c_vw[:, p])
-        return f
-
     f, X, Y, Z = T.fq12_ones((G,), dev), xq, yq, T.fq2_ones((G, P), dev)
     for bit in _Z_TAIL_BITS:
         c_a, c_v, c_vw, X, Y, Z = _dbl_lines(tw, X, Y, Z, xp, yp)
-        f = mul_lines(tw.fq12_sqr(f), c_a, c_v, c_vw)
+        f = tw.fq12_sqr_mul_lines(f, c_a, c_v, c_vw)
         if bit:
             c_a, c_v, c_vw, X, Y, Z = _add_lines(tw, X, Y, Z, xq, yq, xp, yp)
-            f = mul_lines(f, c_a, c_v, c_vw)
+            f = tw.fq12_mul_lines(f, c_a, c_v, c_vw)
     return T.fq12_conj(f)
 
 
 # ---------------------------------------------------------------------------
 # Final exponentiation: f -> f^(3 (q^12 - 1) / r)
 # ---------------------------------------------------------------------------
-
-def _cyclo_sqr_n(tw: T.Tower, acc, k: int):
-    """k Granger-Scott squarings."""
-    for _ in range(k):
-        acc = tw.fq12_cyclo_sqr(acc)
-    return acc
-
-
-def _pow_abs(tw: T.Tower, f, bits_np: np.ndarray):
-    """f^e for a static exponent (MSB first), f cyclotomic: runs of
-    squarings with one multiply per set bit (|z| has Hamming weight 6)."""
-    positions = np.nonzero(bits_np)[0]
-    if positions.size < 1 or positions[0] != 0:
-        raise ValueError("exponent MSB must be set")
-    acc = f
-    prev = 0
-    for p in positions[1:]:
-        acc = tw.fq12_mul(_cyclo_sqr_n(tw, acc, int(p - prev)), f)
-        prev = int(p)
-    return _cyclo_sqr_n(tw, acc, int(bits_np.shape[0]) - 1 - prev)
-
 
 def final_exponentiation_3x(f, tower: T.Tower = T.DEVICE):
     """f^(3 (q^12-1)/r): the easy part by conjugation, inversion and
@@ -198,15 +172,15 @@ def final_exponentiation_3x(f, tower: T.Tower = T.DEVICE):
     f2 = tw.fq12_mul(tw.fq12_frobenius(f1, 2), f1)         # ^(q^2 + 1)
 
     def pow_zm1(x):                                        # x^(z-1)
-        return T.fq12_conj(_pow_abs(tw, x, _ZP1_BITS))
+        return T.fq12_conj(tw.fq12_pow_abs(x, _ZP1_BITS))
 
     a = pow_zm1(pow_zm1(f2))
-    b = tw.fq12_mul(T.fq12_conj(_pow_abs(tw, a, _Z_BITS)),
+    b = tw.fq12_mul(T.fq12_conj(tw.fq12_pow_abs(a, _Z_BITS)),
                     tw.fq12_frobenius(a, 1))
     c = tw.fq12_mul(
         tw.fq12_mul(
-            T.fq12_conj(_pow_abs(tw, T.fq12_conj(_pow_abs(tw, b, _Z_BITS)),
-                                 _Z_BITS)),
+            T.fq12_conj(tw.fq12_pow_abs(T.fq12_conj(tw.fq12_pow_abs(b, _Z_BITS)),
+                                        _Z_BITS)),
             tw.fq12_frobenius(b, 2)),
         T.fq12_conj(b))
     f2_cubed = tw.fq12_mul(tw.fq12_cyclo_sqr(f2), f2)

@@ -29,12 +29,17 @@ Tower products (ops/fq_tower.py) are one `fq_bilinear` each: pre-sum
 tables build the leaf operands, every leaf is a wide product with one
 wide normalization, a gamma table recombines the leaves' columns and one
 REDC per output coefficient reduces them (`Bilinear` holds the tables).
+A chain (`fq_bilinear_chain`) runs a program of such products on one
+accumulator, each step's b taken from the accumulator, a fixed base or
+a slice of an operand: the exponentiation by |z| and the Miller loop's
+f-update are one chain each.
 
-Routing: `fq_mul`, `fq_redc` and `fq_bilinear` launch the hand-written
-kernels (csrc/fq_mont.cu through ops/fq_cuda.py) for a CUDA tensor and
-run the plain versions below, `fq_mul_plain` / `fq_redc_plain` /
-`fq_bilinear_plain`, for a CPU tensor. Everything that multiplies above
-them goes through a `Field`:
+Routing: `fq_mul`, `fq_redc`, `fq_bilinear` and `fq_bilinear_chain`
+launch the hand-written kernels (csrc/fq_mont.cu through ops/fq_cuda.py)
+for a CUDA tensor and run the plain versions below, `fq_mul_plain` /
+`fq_redc_plain` / `fq_bilinear_plain` / `fq_bilinear_chain_plain`, for a
+CPU tensor. Everything that multiplies above them goes through a
+`Field`:
 `DEVICE` takes that routing, `PLAIN` runs the plain versions on any
 device (the check that holds the kernel route against the plain one on
 the card). The module-level names (`fq_inv`, `fq_canon`, ...) are
@@ -45,6 +50,7 @@ constants are built once per device and cached (`const`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -363,27 +369,20 @@ class Bilinear(tuple):
 
     Options: `norm_in` runs three carry rounds on every input coefficient
     first; `one_col` gives bv one more coefficient, Montgomery one, after
-    its Cb own (beta has Cb + 1 columns). `packed` is the CSR form the
-    kernel reads, int32: row starts of alpha (P + 1), beta (P + 1) and
-    gamma (R + 1) as absolute positions in the array, then the entries,
-    each (coefficient << 16) | column."""
+    its Cb own (beta has Cb + 1 columns). `kind` is the product's index
+    in the set the kernel has compiled in (csrc/fq_tables.cuh, generated
+    from ops/fq_tower.py::TABLES in that order), and names it in a
+    chain's program."""
 
-    def __new__(cls, alpha, beta, gamma, name: str, norm_in: bool = False,
-                one_col: bool = False):
+    def __new__(cls, alpha, beta, gamma, name: str, kind: int,
+                norm_in: bool = False, one_col: bool = False):
         self = super().__new__(cls, (IntMatrix(alpha), IntMatrix(beta),
                                      IntMatrix(gamma)))
-        self.name, self.norm_in, self.one_col = name, norm_in, one_col
+        self.name, self.kind = name, kind
+        self.norm_in, self.one_col = norm_in, one_col
         self.P, self.Ca = alpha.shape
         self.Cb = beta.shape[1] - int(one_col)
         self.R = gamma.shape[0]
-        starts, entries = [], []
-        base = 2 * (self.P + 1) + self.R + 1
-        for mat in (alpha, beta, gamma):
-            for row in mat:
-                starts.append(base + len(entries))
-                entries += [(int(row[c]) << 16) | int(c) for c in np.nonzero(row)[0]]
-            starts.append(base + len(entries))
-        self.packed = np.array(starts + entries, dtype=np.int32)
         return self
 
 
@@ -420,6 +419,76 @@ def fq_bilinear(av: torch.Tensor, bv: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Chains: a program of tower products on one accumulator
+# ---------------------------------------------------------------------------
+
+# A program is one int32 array, a code per step: the product's kind in
+# the low KIND_BITS bits, the source of its b above them. SRC_ACC: the
+# accumulator itself (a square); SRC_BASE: the chain's fixed base;
+# SRC_OPERAND + p: slice p of the operand ([..., S, Cs, L]).
+KIND_BITS = 4
+KIND_MASK = (1 << KIND_BITS) - 1
+SRC_ACC, SRC_BASE, SRC_OPERAND = 0, 1, 2
+
+
+def chain_program(steps) -> np.ndarray:
+    """[(Bilinear, source)] -> the program's int32 codes. Every product
+    maps the accumulator's coefficients onto themselves (R == Ca), and
+    one that normalizes its inputs or appends Montgomery one squares the
+    accumulator."""
+    codes = []
+    for tables, src in steps:
+        if tables.R != tables.Ca:
+            raise ValueError(f"{tables.name}: R {tables.R} != Ca {tables.Ca}")
+        if (tables.norm_in or tables.one_col) and src != SRC_ACC:
+            raise ValueError(f"{tables.name} squares the accumulator")
+        codes.append(tables.kind | src << KIND_BITS)
+    if not codes:
+        raise ValueError("a chain has at least one step")
+    return np.array(codes, dtype=np.int32)
+
+
+def chain_by_products(bilinear: Callable, acc: torch.Tensor,
+                      program: np.ndarray, tables: Sequence[Bilinear],
+                      base: Optional[torch.Tensor] = None,
+                      operand: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The chain one product at a time: for each code, acc =
+    bilinear(acc, b, tables[kind]), b the accumulator, the base or an
+    operand slice. tables: the products by kind."""
+    for code in program:
+        src = int(code) >> KIND_BITS
+        b = (acc if src == SRC_ACC else base if src == SRC_BASE
+             else operand[..., src - SRC_OPERAND, :, :])
+        acc = bilinear(acc, b, tables[int(code) & KIND_MASK])
+    return acc
+
+
+def fq_bilinear_chain_plain(acc: torch.Tensor, program: np.ndarray,
+                            tables: Sequence[Bilinear],
+                            base: Optional[torch.Tensor] = None,
+                            operand: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """acc [..., Ca, L] through the program's products -> [..., Ca, L],
+    each step fq_bilinear_plain; base [..., Cb, L] and operand
+    [..., S, Cs, L] broadcast with acc over the batch axes."""
+    return chain_by_products(fq_bilinear_plain, acc, program, tables, base, operand)
+
+
+def fq_bilinear_chain(acc: torch.Tensor, program: np.ndarray,
+                      tables: Sequence[Bilinear],
+                      base: Optional[torch.Tensor] = None,
+                      operand: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """fq_bilinear_chain_plain's function: the whole program in one launch
+    of the chain kernel for CUDA tensors, the plain version for CPU
+    ones."""
+    ts = [t for t in (acc, base, operand) if t is not None]
+    if any(t.is_cuda for t in ts):
+        from .fq_cuda import fq_bilinear_chain_cuda
+        return fq_bilinear_chain_cuda(acc, program, tables, base, operand)
+    _plain_device(*ts)
+    return fq_bilinear_chain_plain(acc, program, tables, base, operand)
+
+
+# ---------------------------------------------------------------------------
 # Exponent staging (host)
 # ---------------------------------------------------------------------------
 
@@ -452,16 +521,20 @@ def _exp_window_digits(bits_np: np.ndarray, w: int) -> np.ndarray:
 class Field:
     """Fq operations over one route: `mul` ([..., L] x [..., L] ->
     [..., L]), `mul_norm` (mul, then NORM_FULL carry rounds), `redc`
-    ([..., 2L] -> [..., L]) and `bilinear` (a tower product, (av, bv,
-    Bilinear) -> [..., R, L]). The boundary ops and the static-exponent
-    powers are the reference's, written once over the route."""
+    ([..., 2L] -> [..., L]), `bilinear` (a tower product, (av, bv,
+    Bilinear) -> [..., R, L]) and `bilinear_chain` (a program of them,
+    (acc, program, tables, base, operand) -> [..., Ca, L]; by default one
+    `bilinear` per step). The boundary ops and the static-exponent powers
+    are the reference's, written once over the route."""
 
     def __init__(self, mul: Callable, mul_norm: Callable, redc: Callable,
-                 bilinear: Callable):
+                 bilinear: Callable, bilinear_chain: Optional[Callable] = None):
         self.mul = mul
         self.mul_norm = mul_norm
         self.redc = redc
         self.bilinear = bilinear
+        self.bilinear_chain = bilinear_chain or functools.partial(
+            chain_by_products, bilinear)
 
     def sqr(self, a):
         return self.mul(a, a)
@@ -520,8 +593,9 @@ class Field:
         return self.pow_static(a, _SQRT_EXP_BITS)
 
 
-DEVICE = Field(fq_mul, fq_mul_norm, fq_redc, fq_bilinear)
-PLAIN = Field(fq_mul_plain, fq_mul_norm_plain, fq_redc_plain, fq_bilinear_plain)
+DEVICE = Field(fq_mul, fq_mul_norm, fq_redc, fq_bilinear, fq_bilinear_chain)
+PLAIN = Field(fq_mul_plain, fq_mul_norm_plain, fq_redc_plain, fq_bilinear_plain,
+              fq_bilinear_chain_plain)
 
 fq_sqr = DEVICE.sqr
 fq_is_zero = DEVICE.is_zero

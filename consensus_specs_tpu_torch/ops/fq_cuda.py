@@ -1,12 +1,14 @@
 """Wrappers of the hand-written Montgomery kernels (csrc/fq_mont.cu).
 
-`fq_mul_cuda`, `fq_redc_cuda` and `fq_bilinear_cuda` compute
-ops.fq.fq_mul_plain, fq_redc_plain and fq_bilinear_plain bit for bit;
-ops.fq.fq_mul / fq_redc / fq_bilinear route CUDA tensors here and CPU
-tensors to the plain versions. Operands may be broadcast views: each is
-passed with its own strides over the lane axes (0 where it is broadcast),
-never copied. Each entry point keeps its own launch counter, with a
-histogram of lanes per launch.
+`fq_mul_cuda`, `fq_redc_cuda`, `fq_bilinear_cuda` and
+`fq_bilinear_chain_cuda` compute ops.fq.fq_mul_plain, fq_redc_plain,
+fq_bilinear_plain and fq_bilinear_chain_plain bit for bit; ops.fq's
+routed entry points send CUDA tensors here and CPU tensors to the plain
+versions. A single tower product is a chain of one step of the same
+kernel. Operands may be broadcast views: each is passed with its own
+strides over the lane axes (0 where it is broadcast), never copied. Each
+entry point keeps its own launch counter, with a histogram of lanes per
+launch.
 """
 from __future__ import annotations
 
@@ -14,14 +16,21 @@ import collections
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from . import fq as F
+from . import fq_tower as T
 from ._nvcc import load_library
 
 L = 14
 MAX_DIMS = 4                      # lane axes a launch takes (after merging)
-_LAYOUT_LEN = 1 + MAX_DIMS + 2 * (MAX_DIMS + 2)
+MAX_OPERANDS = 3
+# ndim, sizes, per operand (strides, coefficient stride, vec16), then the
+# operands' slice strides
+_LAYOUT_LEN = 1 + MAX_DIMS + MAX_OPERANDS * (MAX_DIMS + 2) + MAX_OPERANDS
+MAX_STEPS = 128                   # csrc/fq_mont.cu kMaxSteps
+PHASES = 4                        # clock stamps per chain step
 
 # The work of one lane (see the source's header). fq_mul does 196
 # schoolbook products and 15 per REDC step over 14 steps, fq_redc the
@@ -40,6 +49,22 @@ def bilinear_work(P: int, R: int, Ca: int, Cb: int):
     return P * L * L + R * L * 15, (Ca + Cb + R) * L * 8
 
 
+def chain_work(program, tables, Cb: int = 0, S: int = 0, Cs: int = 0):
+    """(limb products, bytes) of one lane of a chain: every step's
+    products; the accumulator, the base (Cb coefficients) and the operand
+    (S x Cs) read once and the accumulator written once."""
+    steps = [tables[int(c) & F.KIND_MASK] for c in program]
+    products = sum(t.P * L * L + t.R * L * 15 for t in steps)
+    Ca = steps[0].Ca
+    return products, (2 * Ca + Cb + S * Cs) * L * 8
+
+
+def _bound(products, nbytes, lanes, imad_per_s, bytes_per_s):
+    ops_ms = products * lanes / imad_per_s * 1e3
+    bytes_ms = nbytes * lanes / bytes_per_s * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def bound_ms(name: str, lanes: int, imad_per_s: float, bytes_per_s: float,
              P: int = 0, R: int = 0, Ca: int = 0, Cb: int = 0):
     """(ms, "operations" | "bytes"): the least time for `lanes` lanes of
@@ -51,9 +76,14 @@ def bound_ms(name: str, lanes: int, imad_per_s: float, bytes_per_s: float,
         products, nbytes = bilinear_work(P, R, Ca, Cb)
     else:
         products, nbytes = PRODUCTS_PER_LANE[name], BYTES_PER_LANE[name]
-    ops_ms = products * lanes / imad_per_s * 1e3
-    bytes_ms = nbytes * lanes / bytes_per_s * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return _bound(products, nbytes, lanes, imad_per_s, bytes_per_s)
+
+
+def chain_bound_ms(program, tables, lanes: int, imad_per_s: float,
+                   bytes_per_s: float, Cb: int = 0, S: int = 0, Cs: int = 0):
+    """bound_ms of a chain (chain_work's products and bytes)."""
+    return _bound(*chain_work(program, tables, Cb, S, Cs), lanes, imad_per_s,
+                  bytes_per_s)
 
 
 class _Counter:
@@ -76,14 +106,16 @@ class _Counter:
 mul_counter = _Counter()
 redc_counter = _Counter()
 bilinear_counter = _Counter()
+chain_counter = _Counter()        # lanes keyed by (steps, lanes)
 
 _P = ctypes.c_void_p
 _LAYOUT = ctypes.POINTER(ctypes.c_longlong)
 _ARGTYPES = {
     "fq_mul": [_P, _P, _P, ctypes.c_longlong, _LAYOUT, ctypes.c_int, _P],
     "fq_redc": [_P, _P, ctypes.c_longlong, _LAYOUT, _P],
-    "fq_bilinear": [_P, _P, _P, _P, _P, ctypes.c_longlong, _LAYOUT,
-                    ctypes.POINTER(ctypes.c_int), _P],
+    "fq_chain": [_P, _P, _P, _P, ctypes.c_longlong, _LAYOUT,
+                 ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                 ctypes.POINTER(ctypes.c_int), _P, _P],
     "fq_empty": [_P],
 }
 _fns = {}
@@ -117,16 +149,18 @@ def _rows(t: torch.Tensor, rows: tuple, what: str) -> None:
 
 def _layout(batch: tuple, views) -> ctypes.Array:
     """The kernels' layout argument: the lane axes of `batch` (size-1
-    axes dropped, neighbours merged where every view allows) and each
-    view's strides over them, its coefficient stride and whether all its
-    rows start 16-byte aligned. views: one or two tensors of shape
-    batch + (C, L) or batch + (W,)."""
+    axes dropped, neighbours merged where every view allows), each view's
+    strides over them, its coefficient stride and whether all its rows
+    start 16-byte aligned, then each view's slice stride. views: up to
+    three tensors (None for an absent one) of shape batch + (W,),
+    batch + (C, L) or batch + (S, C, L)."""
     nb = len(batch)
+    present = [v for v in views if v is not None]
     dims = []
     for d in range(nb):
         if batch[d] == 1:
             continue
-        st = [v.stride(d) for v in views]
+        st = [v.stride(d) for v in present]
         if dims and all(p == s * batch[d] for p, s in zip(dims[-1][1], st)):
             dims[-1] = (dims[-1][0] * batch[d], st)
         else:
@@ -136,16 +170,21 @@ def _layout(batch: tuple, views) -> ctypes.Array:
                          f"(at most {MAX_DIMS})")
     pad = MAX_DIMS - len(dims)
     vals = [len(dims)] + [s for s, _ in dims] + [1] * pad
-    for k in range(2):
-        if k < len(views):
-            v = views[k]
-            st = [s[k] for _, s in dims] + [0] * pad
-            cst = v.stride(-2) if v.dim() > nb + 1 else 0
-            vec16 = v.data_ptr() % 16 == 0 and all(x % 2 == 0 for x in st + [cst])
-            vals += st + [cst, int(vec16)]
-        else:
+    slices = []
+    k = 0
+    for v in list(views) + [None] * (MAX_OPERANDS - len(views)):
+        if v is None:
             vals += [0] * (MAX_DIMS + 2)
-    return (ctypes.c_longlong * _LAYOUT_LEN)(*vals)
+            slices.append(0)
+            continue
+        st = [s[k] for _, s in dims] + [0] * pad
+        cst = v.stride(-2) if v.dim() > nb + 1 else 0
+        sst = v.stride(-3) if v.dim() > nb + 2 else 0
+        vec16 = v.data_ptr() % 16 == 0 and all(x % 2 == 0 for x in st + [cst, sst])
+        vals += st + [cst, int(vec16)]
+        slices.append(sst)
+        k += 1
+    return (ctypes.c_longlong * _LAYOUT_LEN)(*(vals + slices))
 
 
 def _lanes_of(batch: tuple) -> int:
@@ -226,49 +265,118 @@ def fq_redc_cuda(cols: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# Per (tables, device): Montgomery one's and the packed tables' device
-# addresses (ops.fq.const keeps both tensors alive), and the shape array.
-_TABLES = {}
+def _chain_plan(acc, codes, base, operand):
+    """(output shape, lanes, layout, dims, program) of a chain launch: the
+    program (int32 codes) and the operands' shapes checked against its
+    steps, the program as the launcher's array."""
+    if codes.ndim != 1 or not 1 <= codes.shape[0] <= MAX_STEPS:
+        raise ValueError(f"a chain takes 1 to {MAX_STEPS} steps, got {codes.shape}")
+    if int(codes.min()) < 0 or int((codes & F.KIND_MASK).max()) >= len(T.TABLES):
+        raise ValueError(f"program {codes.tolist()}: no compiled product of that kind")
+    steps = [(T.TABLES[int(c) & F.KIND_MASK], int(c) >> F.KIND_BITS) for c in codes]
+    Ca = steps[0][0].Ca
+    what = f"chain of {len(steps)} steps"
+    _rows(acc, (Ca, L), what)
+    Cb = S = Cs = 0
+    if base is not None:
+        Cb = base.shape[-2]
+        _rows(base, (Cb, L), what)
+    if operand is not None:
+        if operand.dim() < 3:
+            raise ValueError(f"{what}: operand {tuple(operand.shape)}")
+        S, Cs = operand.shape[-3], operand.shape[-2]
+        _rows(operand, (S, Cs, L), what)
+    for t, src in steps:
+        ok = t.Ca == t.R == Ca and (
+            (src == F.SRC_ACC and t.Cb == Ca)
+            or (not (t.norm_in or t.one_col) and (
+                (src == F.SRC_BASE and base is not None and t.Cb == Cb)
+                or (F.SRC_OPERAND <= src < F.SRC_OPERAND + S and t.Cb == Cs))))
+        if not ok:
+            raise ValueError(f"{what}: {t.name} with b from source {src}")
+    batches = [acc.shape[:-2]]
+    batches += [] if base is None else [base.shape[:-2]]
+    batches += [] if operand is None else [operand.shape[:-3]]
+    batch = tuple(torch.broadcast_shapes(*batches))
+    views = (acc.expand(batch + (Ca, L)),
+             None if base is None else base.expand(batch + (Cb, L)),
+             None if operand is None else operand.expand(batch + (S, Cs, L)))
+    return (batch + (Ca, L), _lanes_of(batch), _layout(batch, views),
+            (ctypes.c_int * 4)(Ca, Cb, S, Cs),
+            (ctypes.c_int * codes.shape[0])(*codes.tolist()))
 
 
-def _tables_on(tables: F.Bilinear, dev: torch.device):
-    key = (tables.name, dev.index)
-    hit = _TABLES.get(key)
-    if hit is None:
-        shape = (ctypes.c_int * 7)(tables.P, tables.R, tables.Ca, tables.Cb,
-                                   int(tables.one_col), int(tables.norm_in),
-                                   len(tables.packed))
-        hit = _TABLES[key] = (F.const(F._ONE_MONT, dev).data_ptr(),
-                              F.const(tables.packed, dev).data_ptr(), shape)
-    return hit
+def _key(t):
+    return None if t is None else (t.shape, t.stride(), t.data_ptr() & 15)
+
+
+def _chain(acc, program, tables, base, operand, stamps=None):
+    """One launch of the chain kernel -> (output, lanes). tables must be
+    the products the kernel has compiled in (ops/fq_tower.py::TABLES,
+    csrc/fq_tables.cuh)."""
+    if tables is not T.TABLES and (len(tables) != len(T.TABLES) or any(
+            a is not b for a, b in zip(tables, T.TABLES))):
+        raise ValueError("a chain runs the compiled products, fq_tower.TABLES")
+    ts = [t for t in (acc, base, operand) if t is not None]
+    acc, base, operand = (None if t is None else _check(t, "fq_chain")
+                          for t in (acc, base, operand))
+    if any(t.device != acc.device for t in ts):
+        raise ValueError(f"fq_chain: operands on {[str(t.device) for t in ts]}")
+    codes = np.ascontiguousarray(program, dtype=np.int32)
+    shape, n, layout, dims, prog = _plan(
+        ("chain", codes.tobytes(), codes.shape, _key(acc), _key(base), _key(operand)),
+        lambda: _chain_plan(acc, codes, base, operand))
+    out = torch.empty(shape, dtype=torch.int64, device=acc.device)
+    if n:
+        _call("fq_chain", acc.device, acc.data_ptr(),
+              0 if base is None else base.data_ptr(),
+              0 if operand is None else operand.data_ptr(), out.data_ptr(), n,
+              layout, prog, len(prog), dims,
+              0 if stamps is None else stamps.data_ptr())
+    return out, n
+
+
+def fq_bilinear_chain_cuda(acc: torch.Tensor, program, tables,
+                           base=None, operand=None) -> torch.Tensor:
+    """A program of tower products in one launch: acc [..., Ca, 14], base
+    [..., Cb, 14], operand [..., S, Cs, 14] int64 lazy limbs (batch axes
+    broadcast) on one CUDA device -> [..., Ca, 14],
+    fq_bilinear_chain_plain's limbs. program: ops.fq.chain_program codes;
+    tables: the compiled products by kind (ops/fq_tower.py::TABLES)."""
+    out, n = _chain(acc, program, tables, base, operand)
+    if n:
+        chain_counter.record((len(program), n))
+    return out
+
+
+def chain_phase_clocks(acc: torch.Tensor, program, tables, base=None,
+                       operand=None) -> np.ndarray:
+    """[steps, 4] SM clock cycles of phases A-D (pre-sums, leaves, gamma
+    sums, REDCs) of each step in block 0 of one chain launch (clock64()
+    after each phase's barrier). A measurement: the launch is not
+    counted."""
+    stamps = torch.zeros(1 + PHASES * len(program), dtype=torch.int64,
+                         device=acc.device)
+    _chain(acc, program, tables, base, operand, stamps)
+    s = stamps.cpu().numpy()
+    return np.diff(s).reshape(len(program), PHASES)
 
 
 def fq_bilinear_cuda(av: torch.Tensor, bv: torch.Tensor,
                      tables: F.Bilinear) -> torch.Tensor:
-    """One tower product in one launch: av [..., Ca, 14], bv [..., Cb, 14]
-    int64 lazy limbs (batch axes broadcast) on one CUDA device ->
-    [..., R, 14], fq_bilinear_plain's limbs. The tables live on the device
-    from their first use there."""
-    av, bv = _check(av, tables.name), _check(bv, tables.name)
-    if av.device != bv.device:
-        raise ValueError(f"{tables.name}: operands on {av.device} and {bv.device}")
-
-    def make():
-        _rows(av, (tables.Ca, L), tables.name)
-        _rows(bv, (tables.Cb, L), tables.name)
-        batch = tuple(torch.broadcast_shapes(av.shape[:-2], bv.shape[:-2]))
-        return batch + (tables.R, L), _lanes_of(batch), _layout(
-            batch, (av.expand(batch + (tables.Ca, L)),
-                    bv.expand(batch + (tables.Cb, L))))
-
-    shape, n, layout = _plan(
-        (tables.name, av.shape, av.stride(), av.data_ptr() & 15,
-         bv.shape, bv.stride(), bv.data_ptr() & 15), make)
-    out = torch.empty(shape, dtype=torch.int64, device=av.device)
+    """One tower product in one launch, a chain of one step: av
+    [..., Ca, 14], bv [..., Cb, 14] int64 lazy limbs (batch axes
+    broadcast) on one CUDA device -> [..., R, 14], fq_bilinear_plain's
+    limbs. b is the accumulator itself where bv is av (a square), else
+    the chain's base; a product with norm_in or one_col takes bv is av."""
+    if T.TABLES[tables.kind] is not tables:
+        raise ValueError(f"{tables.name}: not a compiled product (fq_tower.TABLES)")
+    if bv is not av and (tables.norm_in or tables.one_col):
+        raise ValueError(f"{tables.name} squares its operand: pass bv is av")
+    src = F.SRC_ACC if bv is av else F.SRC_BASE
+    program = np.array([tables.kind | src << F.KIND_BITS], dtype=np.int32)
+    out, n = _chain(av, program, T.TABLES, None if bv is av else bv, None)
     if n:
-        one, table, shape_arg = _tables_on(tables, av.device)
-        _call("fq_bilinear", av.device, av.data_ptr(), bv.data_ptr(), one,
-              table, out.data_ptr(), n, layout, shape_arg)
         bilinear_counter.record((tables.name, n))
     return out
 

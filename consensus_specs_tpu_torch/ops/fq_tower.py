@@ -13,8 +13,12 @@ line multiply and the cyclotomic squaring -- is one bilinear product
 (3, 54, 36, 39 and 30 leaves), every leaf is a double-width multiply with
 one wide carry round, the gamma table recombines the wide columns, and
 ONE REDC reduces each output coefficient (2 or 12). On the card that is
-one kernel launch. The tables come from running the tower's Karatsuba
-structure symbolically (`_SymTower`), as in the reference, and are held
+one kernel launch. The two loops that run nothing but such products,
+the exponentiation by a static exponent and the Miller loop's f-update,
+are one chain launch each (`fq12_pow_abs`, `fq12_sqr_mul_lines`,
+`fq12_mul_lines`; the programs `pow_abs_program` / `lines_program`).
+The tables come from running the tower's Karatsuba structure
+symbolically (`_SymTower`), as in the reference, and are held
 equal to its arrays (or, for Fq2 and the cyclotomic squaring, to its
 functions) by the tests.
 
@@ -283,19 +287,62 @@ def _check_budget(alpha, beta, gamma, name: str):
         raise ValueError(f"{name} tables exceed the fq laziness budget")
 
 
-def _bilinear_tables(derive, name, **options) -> F.Bilinear:
+def _bilinear_tables(derive, name, kind, **options) -> F.Bilinear:
     alpha, beta, gamma = derive()
     _check_budget(alpha, beta, gamma, name)
-    return F.Bilinear(alpha, beta, gamma, name, **options)
+    return F.Bilinear(alpha, beta, gamma, name, kind, **options)
 
 
-_FQ2_T = _bilinear_tables(_derive_fq2_tables, "fq2_mul")
-_MUL_T = _bilinear_tables(_derive_fq12_tables, "fq12_mul")
-_SQR_T = _bilinear_tables(_derive_fq12_sqr_tables, "fq12_sqr")
-_LINE_T = _bilinear_tables(_derive_fq12_line_tables, "fq12_mul_line")
-_CYCLO_T = _bilinear_tables(_derive_cyclo_sqr_tables, "fq12_cyclo_sqr",
+# The kernel compiles these five in, in this order (csrc/fq_tables.cuh,
+# written by ops/fq_tables_gen.py): TABLES[t.kind] is t.
+_FQ2_T = _bilinear_tables(_derive_fq2_tables, "fq2_mul", 0)
+_MUL_T = _bilinear_tables(_derive_fq12_tables, "fq12_mul", 1)
+_SQR_T = _bilinear_tables(_derive_fq12_sqr_tables, "fq12_sqr", 2)
+_LINE_T = _bilinear_tables(_derive_fq12_line_tables, "fq12_mul_line", 3)
+_CYCLO_T = _bilinear_tables(_derive_cyclo_sqr_tables, "fq12_cyclo_sqr", 4,
                             norm_in=True, one_col=True)
 TABLES = (_FQ2_T, _MUL_T, _SQR_T, _LINE_T, _CYCLO_T)
+
+
+# ---------------------------------------------------------------------------
+# Chain programs (ops.fq.chain_program): the reference's loops of tower
+# products, step for step
+# ---------------------------------------------------------------------------
+
+_PROGRAMS: Dict[tuple, np.ndarray] = {}
+
+
+def pow_abs_program(bits_np: np.ndarray) -> np.ndarray:
+    """f^e for a static exponent (MSB first), f cyclotomic, as the
+    reference's _pow_abs computes it: per set bit after the MSB, a run of
+    cyclotomic squarings and one multiply by f (the base); then the
+    squarings of the trailing zeros."""
+    key = ("pow", bytes(np.asarray(bits_np, dtype=np.uint8)))
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        positions = np.nonzero(bits_np)[0]
+        if positions.size < 1 or positions[0] != 0:
+            raise ValueError("exponent MSB must be set")
+        steps, prev = [], 0
+        for p in positions[1:]:
+            steps += [(_CYCLO_T, F.SRC_ACC)] * int(p - prev) + [(_MUL_T, F.SRC_BASE)]
+            prev = int(p)
+        steps += [(_CYCLO_T, F.SRC_ACC)] * (int(bits_np.shape[0]) - 1 - prev)
+        prog = _PROGRAMS[key] = F.chain_program(steps)
+    return prog
+
+
+def lines_program(n_lines: int, square: bool) -> np.ndarray:
+    """The Miller loop's f-update over n_lines sparse lines: (with
+    `square`, one Fq12 squaring first, the doubling step) then one line
+    multiply by slice p of the lines operand, p = 0 .. n_lines - 1."""
+    key = ("lines", n_lines, square)
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        steps = [(_SQR_T, F.SRC_ACC)] if square else []
+        steps += [(_LINE_T, F.SRC_OPERAND + p) for p in range(n_lines)]
+        prog = _PROGRAMS[key] = F.chain_program(steps)
+    return prog
 
 
 def _frob_tables():
@@ -489,6 +536,32 @@ class Tower:
         av = a.reshape(a.shape[:-4] + (12, F.L))
         return self._fq12_product(_CYCLO_T, av, av)
 
+    def _fq12_chain(self, f, program, base=None, operand=None):
+        """One chain on the Fq12 accumulator f [..., 2, 3, 2, L]."""
+        fv = f.reshape(f.shape[:-4] + (12, F.L))
+        bv = None if base is None else base.reshape(base.shape[:-4] + (12, F.L))
+        cv = self.F.bilinear_chain(fv, program, TABLES, bv, operand)
+        return cv.reshape(cv.shape[:-2] + (2, 3, 2, F.L))
+
+    def fq12_pow_abs(self, f, bits_np):
+        """f^e, e a static exponent (bit array, MSB first), f in the
+        cyclotomic subgroup: the reference's _pow_abs (runs of Granger-Scott
+        squarings, one multiply by f per set bit) as one chain."""
+        return self._fq12_chain(f, pow_abs_program(bits_np), base=f)
+
+    def fq12_sqr_mul_lines(self, f, c_a, c_v, c_vw):
+        """The Miller loop's doubling-step update, f^2 * l_0 * ... *
+        l_{P-1}, as one chain: c_* [..., P, 2, L], line p's coefficients
+        at [..., p, :, :]."""
+        return self._fq12_chain(f, lines_program(c_a.shape[-3], True),
+                                operand=torch.cat([c_a, c_v, c_vw], dim=-2))
+
+    def fq12_mul_lines(self, f, c_a, c_v, c_vw):
+        """The addition step's update, f * l_0 * ... * l_{P-1}, as one
+        chain."""
+        return self._fq12_chain(f, lines_program(c_a.shape[-3], False),
+                                operand=torch.cat([c_a, c_v, c_vw], dim=-2))
+
     def fq12_inv(self, a):
         a0, a1 = _h(a, 0), _h(a, 1)
         denom = self.fq6_mul(a0, a0) - fq6_mul_by_v(self.fq6_mul(a1, a1))
@@ -523,6 +596,9 @@ fq12_mul = DEVICE.fq12_mul
 fq12_sqr = DEVICE.fq12_sqr
 fq12_mul_line = DEVICE.fq12_mul_line
 fq12_cyclo_sqr = DEVICE.fq12_cyclo_sqr
+fq12_pow_abs = DEVICE.fq12_pow_abs
+fq12_sqr_mul_lines = DEVICE.fq12_sqr_mul_lines
+fq12_mul_lines = DEVICE.fq12_mul_lines
 fq12_inv = DEVICE.fq12_inv
 fq12_eq = DEVICE.fq12_eq
 fq12_frobenius = DEVICE.fq12_frobenius

@@ -5,6 +5,8 @@ reference's arrays.
 Inputs are lazy limb arrays from a seeded numpy generator (body limbs in
 [-16, 2^29], the normalized multiply output range); Fq12 cyclotomic
 elements come from the final exponentiation's easy part. Tolerance: zero."""
+import re
+
 import numpy as np
 import pytest
 
@@ -140,6 +142,7 @@ def test_fq12_inv_and_cyclotomic_squaring_match_jax():
 
 from consensus_specs_tpu.ops import fq as JF  # noqa: E402
 from consensus_specs_tpu_torch.ops import fq as TF  # noqa: E402
+from consensus_specs_tpu_torch.ops import fq_tables_gen  # noqa: E402
 
 import torch  # noqa: E402
 
@@ -253,24 +256,32 @@ def test_bilinear_plain_equals_unfused_composition_and_jax(name):
     assert torch.equal(tower, unfused)
 
 
+def _compiled_matrices(text, t):
+    """(alpha, beta, gamma) read back from Table<t.kind>'s straight-line
+    code in the generated header's text."""
+    body = text.split(f"struct Table<{t.kind}> {{")[1].split("\n};")[0]
+    shapes = {"x": (t.P, t.Ca), "y": (t.P, t.Cb + t.one_col), "g": (t.R, t.P)}
+    mats = {k: np.zeros(v, np.int64) for k, v in shapes.items()}
+    for dst, row, expr in re.findall(r"(\w)\[(\d+) \* k\w+\] = (.*);", body):
+        for sign, coef, _, col in re.findall(r"(-?)\s*(?:(\d+) \* )?([abv])(\d+)",
+                                             expr):
+            mats[dst][int(row), int(col)] += (-1 if sign else 1) * int(coef or 1)
+    return mats["x"], mats["y"], mats["g"]
+
+
 def test_new_tables_pass_the_budget_and_pack_to_their_matrices():
     """The Fq2 and cyclotomic tables pass _check_budget (so does every
     table), the cyclotomic one has 18 Karatsuba and 12 passthrough leaves
-    and 12 outputs, and each table's packed CSR form decodes to its three
-    matrices."""
-    for t in TT.TABLES:
+    and 12 outputs, and each table's compiled form (its Table<kind> in
+    the generated kernel header) decodes to its three matrices."""
+    text = fq_tables_gen.render()
+    for kind, t in enumerate(TT.TABLES):
         TT._check_budget(*(m.mat for m in t), t.name)
-        starts = t.packed[:2 * (t.P + 1) + t.R + 1]
-        mats = []
-        for k, (rows, cols) in enumerate(((t.P, t.Ca), (t.P, t.Cb + t.one_col),
-                                          (t.R, t.P))):
-            dense = np.zeros((rows, cols), np.int64)
-            first = sum((t.P + 1, t.P + 1)[:k])
-            for r in range(rows):
-                for e in t.packed[starts[first + r]:starts[first + r + 1]]:
-                    dense[r, int(e) & 0xffff] += int(e) >> 16
-            mats.append(dense)
+        assert t.kind == kind
+        mats = _compiled_matrices(text, t)
         assert all((d == m.mat).all() for d, m in zip(mats, t))
+        assert (f"P = {t.P}, R = {t.R}, Ca = {t.Ca}, Cb = {t.Cb};" in
+                text.split(f"struct Table<{kind}> {{")[1])
     cyc = TT._CYCLO_T
     assert (cyc.P, cyc.R, cyc.Ca, cyc.Cb) == (30, 12, 12, 12)
     assert cyc.norm_in and cyc.one_col
