@@ -67,7 +67,29 @@ ResidentCore, the spec's process_block), mainnet preset at full width:
     equal the resident root;
   * reference at V = 2,048: 12 blocks across an epoch boundary through
     ResidentCore and through the port's unpatched object model, per-slot
-    roots, full roots and serialized states equal.
+    roots, full roots and serialized states equal;
+  * resilience on the resume's state bytes (V = 1,000,000): a
+    CheckpointStore in a temporary directory saves a generation at the
+    resume and one after the boundary; a poison of the balance column at
+    the boundary (fault schedule "dispatch:*epoch*@1=poison:6") must read
+    False in the tripwire and raise FatalDispatchError with
+    consumed_inputs, and store.restore + a replay of the slots must give
+    every root of the unfaulted drive; the second save, truncated on
+    write ("ckpt.write@2=truncate:33"), must make restore fall back to
+    the first generation (corrupt_generations 1); a raise at the boundary
+    must be retried once with every later root unchanged; the boundary
+    slot runs with the tripwire on and off from the same bytes (same
+    root; the tripwire's own ms against the reference's 3% bound, which
+    is recorded, not enforced); health_snapshot before and after
+    resilience.reset();
+  * the beacon-node API at V = 131,072 (an object state one slot before
+    the end of its epoch, BLS on "torch"): duties of 16 validators equal
+    get_committee_assignment; produce_block with a host-signed randao
+    reveal, the block signed on the host; the block with its signature
+    swapped for the reveal rejected with ApiError 400 and the head
+    unchanged; publish_block of the signed block, its state root equal to
+    the same block through ResidentCore; an attestation produced and
+    queued; /metrics and /healthz carry the resilience counters.
 
 Then the attestation firehose (consensus_specs_tpu_torch.streaming) at the
 reference's steady-state shape, 128 groups x 3 pairs a batch, a verdict
@@ -116,6 +138,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -123,7 +146,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from consensus_specs_tpu_torch import convert, streaming, telemetry
+from consensus_specs_tpu_torch import convert, resilience, streaming, telemetry
+from consensus_specs_tpu_torch.api import ApiError, BeaconNodeAPI
+from consensus_specs_tpu_torch.api import beacon_node as api_mod
 from consensus_specs_tpu_torch.crypto import bls12_381 as bls_host
 from consensus_specs_tpu_torch.models import phase0
 from consensus_specs_tpu_torch.models.phase0 import epoch_soa, fork_choice
@@ -138,6 +163,7 @@ from consensus_specs_tpu_torch.networking.gossip import (GossipRouter,
                                                          TOPIC_BEACON_ATTESTATION)
 from consensus_specs_tpu_torch.utils.ssz import bulk as ssz_bulk
 from consensus_specs_tpu_torch.utils.ssz import impl as ssz_impl
+from consensus_specs_tpu_torch.resilience import faults, integrity
 from consensus_specs_tpu_torch.utils.ssz.columns import state_bytes_from_columns
 
 V_MAIN = 1_000_000
@@ -1193,12 +1219,282 @@ def drive_resume(spec, data: bytes, sync):
             raise AssertionError("the resumed core has another state root")
         out["written"] = written
         out["bytes"] = len(written)
+        out["final_root"], out["first"], out["end"] = root, first, int(state.slot)
     finally:
         for c in (core2, core):
             if c is not None:
                 c._uninstall()
     if spec_helpers._state_root_backend is not None:
         raise AssertionError("a resident core left its state-root hook installed")
+    return out
+
+
+def drive_slots(core, end: int, sync):
+    """process_slots one slot at a time up to `end`; -> ms per slot."""
+    state, ms = core.state, []
+    while state.slot < end:
+        t0 = time.perf_counter()
+        core.process_slots(state, state.slot + 1)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def slot_roots(core, first: int, end: int):
+    h = core.spec.SLOTS_PER_HISTORICAL_ROOT
+    return [bytes(core.state.latest_state_roots[s % h]) for s in range(first, end)]
+
+
+def drive_resilience(spec, data: bytes, want, sync):
+    """The resilience layer on the resume drive's state bytes (V = 1M):
+    a CheckpointStore in a temporary directory; a poison of the balance
+    column at the boundary tripwired into FatalDispatchError, then
+    restore and replay; a truncated newest generation and the fallback;
+    a raise at the boundary retried; the boundary with tripwires on and
+    off. `want` is the unfaulted drive (its per-slot roots, final root
+    and slot range). Every check raises on failure."""
+    first, end = want["first"], want["end"]
+    before = first + RESUME_BEFORE - 1          # the slot whose advance runs the epoch
+    counter = sha256_cuda.counter
+    out = {"health": []}
+    trip = {"ms": [], "ok": []}
+
+    def timed_check(o, _inner=integrity.epoch_output_check):
+        sync()
+        t0 = time.perf_counter()
+        ok = _inner(o)
+        trip["ms"].append((time.perf_counter() - t0) * 1e3)
+        trip["ok"].append(ok)
+        return ok
+
+    def fresh(payload):
+        core = ResidentCore.from_checkpoint(spec, payload)
+        core._state_root(core.state)             # the first root's memo, untimed
+        sync()
+        return core
+
+    base = {n: tele_count(f"resilience.{n}")
+            for n in ("retries", "faults_injected", "corrupt_outputs",
+                      "checkpoint.corrupt_generations")}
+    plain_check = integrity.epoch_output_check
+    integrity.epoch_output_check = timed_check
+    core = None
+    try:
+        with tempfile.TemporaryDirectory(prefix="ckpt-") as tmp:
+            store = resilience.CheckpointStore(tmp, keep=4)
+            faults.set_schedule("dispatch:*epoch*@1=poison:6;ckpt.write@2=truncate:33")
+            core = fresh(data)
+            t0 = time.perf_counter()
+            payload = core.checkpoint_bytes()
+            t1 = time.perf_counter()
+            store.save(payload)
+            out["save"] = [{"write_ms": (t1 - t0) * 1e3,
+                            "save_ms": (time.perf_counter() - t1) * 1e3,
+                            "frame_bytes": len(payload) + 28, "slot": first}]
+            del payload
+            drive_slots(core, before, sync)
+            pre = core.checkpoint_bytes()
+            # the poison: the tripwire reads False, the boundary is fatal
+            t0 = time.perf_counter()
+            try:
+                core.process_slots(core.state, before + 1)
+                raise AssertionError("the poisoned boundary was accepted")
+            except resilience.FatalDispatchError as e:
+                if not e.consumed_inputs or "CheckpointStore.restore" not in str(e):
+                    raise AssertionError(f"poison: {e!r}, consumed_inputs {e.consumed_inputs}")
+            out["fatal_ms"] = (time.perf_counter() - t0) * 1e3
+            core._uninstall()
+            if trip["ok"] != [False]:
+                raise AssertionError(f"poison: tripwire verdicts {trip['ok']}")
+            # restore the last good generation and replay to the same slot
+            n0 = counter.launches
+            t0 = time.perf_counter()
+            gen, core = store.restore(spec)
+            core._registry_balances_roots()
+            sync()
+            out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            if gen != 1:
+                raise AssertionError(f"restore loaded generation {gen}")
+            replay = drive_slots(core, before + 1, sync)
+            n_save = counter.launches
+            t0 = time.perf_counter()
+            payload = core.checkpoint_bytes()
+            t1 = time.perf_counter()
+            store.save(payload)                 # the 2nd write: truncated on disk
+            out["save"].append({"write_ms": (t1 - t0) * 1e3,
+                                "save_ms": (time.perf_counter() - t1) * 1e3,
+                                "frame_bytes": len(payload) + 28, "slot": before + 1})
+            del payload
+            n_save = counter.launches - n_save
+            replay += drive_slots(core, end, sync)
+            out["replay_ms"] = sum(replay)
+            out["replay_slots"] = len(replay)
+            out["recovery_launches"] = counter.launches - n0 - n_save
+            if slot_roots(core, first, end) != want["roots"]:
+                raise AssertionError("replay: per-slot roots != the unfaulted drive's")
+            if core._state_root(core.state) != want["final_root"]:
+                raise AssertionError("replay: final root != the unfaulted drive's")
+            core._uninstall()
+            out["health"].append(resilience.health_snapshot())
+            resilience.reset()
+            out["health"].append(resilience.health_snapshot())
+            # the newest generation is corrupt: restore falls back
+            if store.generations() != [1, 2]:
+                raise AssertionError(f"store holds {store.generations()}")
+            t0 = time.perf_counter()
+            gen, core = store.restore(spec)
+            out["fallback_ms"] = (time.perf_counter() - t0) * 1e3
+            if gen != 1 or core._state_root(core.state) != want["roots"][0]:
+                raise AssertionError(f"fallback restored generation {gen}")
+            core._uninstall()
+        # a raise at the boundary: retried before the program runs
+        faults.set_schedule("dispatch:*epoch*@1=raise")
+        core = fresh(pre)
+        drive_slots(core, end, sync)
+        faults.set_schedule(None)
+        if slot_roots(core, before, end) != want["roots"][before - first:]:
+            raise AssertionError("raise: per-slot roots != the unfaulted drive's")
+        if core._state_root(core.state) != want["final_root"]:
+            raise AssertionError("raise: final root != the unfaulted drive's")
+        core._uninstall()
+        # the boundary with tripwires on and off, the same state bytes
+        out["boundary_ms"], trip["ms"] = {}, []
+        roots = []
+        for on in (True, False):
+            integrity.set_tripwires(on)
+            core = fresh(pre)
+            out["boundary_ms"][on] = drive_slots(core, before + 1, sync)[0]
+            roots.append(core._state_root(core.state))
+            core._uninstall()
+        integrity.set_tripwires(None)
+        if roots != [want["roots"][before + 1 - first]] * 2:
+            raise AssertionError("the boundary's root differs with tripwires on / off")
+        out["tripwire_ms"] = trip["ms"][0]
+        core = None
+    finally:
+        integrity.epoch_output_check = plain_check
+        integrity.set_tripwires(None)
+        resilience.reset()
+        if core is not None:
+            core._uninstall()
+    out["counts"] = {n: tele_count(f"resilience.{n}") - v for n, v in base.items()}
+    if out["counts"] != {"retries": 1, "faults_injected": 3, "corrupt_outputs": 1,
+                         "checkpoint.corrupt_generations": 1}:
+        raise AssertionError(f"resilience counters moved by {out['counts']}")
+    out["tripwire_share"] = out["tripwire_ms"] / out["boundary_ms"][True]
+    return out
+
+
+def drive_api(spec, V: int, sync, dev):
+    """The beacon-node API over an object state of V validators one slot
+    before the last of its epoch, BLS on the "torch" backend: duties of 16
+    members of the epoch's first committee against
+    get_committee_assignment; produce_block with a randao reveal signed on
+    the host, the block signed on the host; the block with its signature
+    swapped for the randao reveal rejected with 400 and the head
+    unchanged; publish_block of the signed block, its state root equal to
+    the same block applied through ResidentCore; produce and publish an
+    attestation; /metrics and /healthz. Every validator has a pubkey of
+    its own (the API indexes them), the next slot's proposer a real key."""
+    from consensus_specs_tpu_torch.crypto import bls as spec_bls
+    spe = spec.SLOTS_PER_EPOCH
+    slot = (spec.PERSISTENT_COMMITTEE_PERIOD + 1) * spe + spe - 2
+    t0 = time.perf_counter()
+    state = beacon_state(spec, V, slot - 1, lambda i: i.to_bytes(48, "little"), dev)
+    # the proposer of slot + 1 reads the seed and the effective balances,
+    # which the slots before it do not change
+    state.slot = slot + 1
+    proposer = spec.get_beacon_proposer_index(state)
+    state.slot = slot - 1
+    key = key_of(proposer)
+    state.validator_registry[proposer].pubkey = bls_host.privtopub(key)
+    # a head the node has advanced to its slot: the latest header carries
+    # its state root, so produce_block's parent root is the chain's
+    spec.process_slots(state, slot)
+    epoch = spec.get_current_epoch(state)
+    first = spec.get_crosslink_committee(state, epoch, spec.get_epoch_start_shard(state, epoch))
+    idx = [int(i) for i in first[:16]]
+    want = [spec.get_committee_assignment(state, epoch, i) for i in idx]
+    out = {"build_s": time.perf_counter() - t0, "validators": V}
+    was_active = spec_bls.bls_active
+    spec_bls.bls_active = True
+    spec_bls.set_backend("torch")
+    copies = []
+
+    def timed_deepcopy(x, _inner=copy.deepcopy):
+        t = time.perf_counter()
+        res = _inner(x)
+        copies.append((time.perf_counter() - t) * 1e3)
+        return res
+    api_mod.deepcopy = timed_deepcopy
+    core = None
+    try:
+        api = BeaconNodeAPI(spec, state, device=dev)
+        keys = [bytes(state.validator_registry[i].pubkey) for i in idx]
+        t0 = time.perf_counter()
+        duties = api.get_validator_duties(keys)
+        out["duties_ms"] = (time.perf_counter() - t0) * 1e3
+        for i, d, (committee, shard, dslot) in zip(idx, duties, want):
+            if (d.validator_index, d.committee, d.attestation_shard, d.attestation_slot) != \
+                    (i, [int(c) for c in committee], int(shard), int(dslot)):
+                raise AssertionError(f"api: duty of validator {i} != get_committee_assignment")
+        reveal = bls_host.sign(spec.hash_tree_root(epoch), key,
+                               spec.get_domain(state, spec.DOMAIN_RANDAO, epoch))
+        copies.clear()
+        t0 = time.perf_counter()
+        block = api.produce_block(slot + 1, reveal)
+        out["produce_ms"] = (time.perf_counter() - t0) * 1e3
+        block.signature = bls_host.sign(spec.signing_root(block), key, spec.get_domain(
+            state, spec.DOMAIN_BEACON_PROPOSER))
+        bad = copy.deepcopy(block)
+        bad.signature = reveal
+        copies.clear()
+        t0 = time.perf_counter()
+        try:
+            api.publish_block(bad)
+            raise AssertionError("api: the block with a swapped signature was published")
+        except ApiError as e:
+            if e.status != 400:
+                raise AssertionError(f"api: the swapped signature gave {e.status}")
+        out["reject_ms"] = (time.perf_counter() - t0) * 1e3
+        if api.state is not state or api.published_blocks:
+            raise AssertionError("api: the rejected block moved the head")
+        zero_fq_counters()
+        n0 = sha256_cuda.counter.launches
+        copies.clear()
+        t0 = time.perf_counter()
+        api.publish_block(block)
+        sync()
+        out["publish_ms"] = (time.perf_counter() - t0) * 1e3
+        out["publish_deepcopy_ms"] = sum(copies)
+        out["publish_fq"] = fq_launches()
+        out["publish_sha256"] = sha256_cuda.counter.launches - n0
+        if int(api.state.slot) != slot + 1 or len(api.published_blocks) != 1:
+            raise AssertionError("api: the published block did not become the head")
+        # the same block through ResidentCore from the old head
+        core = ResidentCore(spec, state)
+        core.state_transition(state, copy.deepcopy(block))
+        if core._state_root(state) != bytes(block.state_root):
+            raise AssertionError("api: head root != the block applied through ResidentCore")
+        core._uninstall()
+        core = None
+        duty = next(d for d in duties if d.attestation_slot <= int(api.state.slot))
+        att = api.produce_attestation(duty.validator_pubkey, duty.attestation_slot,
+                                      duty.attestation_shard)
+        api.publish_attestation(att)
+        if len(api.published_attestations) != 1:
+            raise AssertionError("api: the attestation was not queued")
+        health = api.get_healthz()          # registers the always-on counters
+        metrics = api.get_metrics()
+        if "resilience_" not in metrics or not {"firehose", "checkpoint"} <= set(health):
+            raise AssertionError("api: /metrics or /healthz lacks the resilience view")
+        out["metrics_lines"] = sum(1 for ln in metrics.splitlines()
+                                   if "resilience_" in ln and not ln.startswith("#"))
+    finally:
+        api_mod.deepcopy = copy.deepcopy
+        spec_bls.bls_active = was_active
+        if core is not None:
+            core._uninstall()
     return out
 
 
@@ -1634,12 +1930,18 @@ def spec_path(dev, sync, v_resume=V_RESUME, v_blocks=V_BLOCKS,
         raise AssertionError("the plain drive launched the kernel")
     if plain["roots"] != out["resume"]["roots"] or plain["written"] != out["resume"]["written"]:
         raise AssertionError("resume drive: kernel roots/bytes != plain pair hash")
-    del data, plain, out["resume"]["written"]
+    del plain, out["resume"]["written"]
+    torch.cuda.empty_cache()
+    out["resilience"] = drive_resilience(spec, data, out["resume"], sync)
+    del data
     out["resume"]["roots"] = len(out["resume"]["roots"])
+    out["resume"]["final_root"] = out["resume"]["final_root"].hex()
+    torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
     out["blocks"] = drive_blocks(spec, v_blocks, N_SPEC_BLOCKS, sync, dev)
     out["blocks"]["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["api"] = drive_api(spec, v_blocks, sync, dev)
     out["reference"] = drive_reference(spec, v_reference, N_REFERENCE_BLOCKS, dev)
     out["reference"]["validators"] = v_reference
     return out
@@ -1668,6 +1970,43 @@ def report_spec_path(sp) -> dict:
         f" the same drive with the plain pair hash on the card ({sp['resume_plain_s']:.1f} s,"
         f" {sp['resume_plain_launches']} kernel launches); the resumed core writes the"
         f" same bytes and has the same root")
+    rs = sp["resilience"]
+    for k, sv in enumerate(rs["save"]):
+        log(f"phase resilience: CheckpointStore save {k + 1} (slot {sv['slot']}):"
+            f" checkpoint_bytes {sv['write_ms']:.1f} ms, frame + write + fsync + rename"
+            f" {sv['save_ms']:.1f} ms, {sv['frame_bytes']:,} frame bytes")
+    on, off = rs["boundary_ms"][True], rs["boundary_ms"][False]
+    log(f"phase resilience: boundary slot with the tripwire {on:.1f} ms, without"
+        f" {off:.1f} ms, the tripwire itself {rs['tripwire_ms']:.3f} ms (one host read)"
+        f" = {rs['tripwire_share'] * 100:.2f}% of the guarded boundary (the reference's"
+        f" bound: under 3%; {'met' if rs['tripwire_share'] < 0.03 else 'MISSED'}); the"
+        f" same root either way")
+    log(f"phase resilience: poison of the balance column (leaf 6) at the boundary:"
+        f" tripwire False, FatalDispatchError with consumed_inputs after"
+        f" {rs['fatal_ms']:.1f} ms | restore of generation 1 {rs['restore_ms']:.1f} ms"
+        f" (against the 3,000 ms resume limit), replay of {rs['replay_slots']} slots"
+        f" {rs['replay_ms']:.1f} ms, restore + replay {rs['restore_ms'] + rs['replay_ms']:.1f}"
+        f" ms, sha256_pairs launches {rs['recovery_launches']} (recovery) | every"
+        f" replayed root == the unfaulted drive's")
+    log(f"phase resilience: a raise at the boundary retried once before the program ran,"
+        f" every later root == the unfaulted drive's | generation 2 truncated by 33 bytes"
+        f" on write: restore fell back to generation 1 in {rs['fallback_ms']:.1f} ms,"
+        f" corrupt_generations 1 | counter deltas {rs['counts']}")
+    for label, snap in zip(("before", "after"), rs["health"]):
+        log(f"phase resilience health {label} resilience.reset(): {json.dumps(snap)}")
+    a = sp["api"]
+    log(f"phase api: BeaconNodeAPI V={a['validators']:,} mainnet (state built in"
+        f" {a['build_s']:.1f} s, untimed), BLS on the torch backend | duties of 16 pubkeys"
+        f" {a['duties_ms']:.1f} ms == get_committee_assignment | produce_block"
+        f" {a['produce_ms']:.1f} ms | swapped signature rejected with 400 in"
+        f" {a['reject_ms']:.1f} ms, head unchanged | publish_block {a['publish_ms']:.1f} ms"
+        f" (deepcopy {a['publish_deepcopy_ms']:.1f} + transition"
+        f" {a['publish_ms'] - a['publish_deepcopy_ms']:.1f}; the block's limit 2,000 ms),"
+        f" fq_mul {a['publish_fq']['fq_mul']} / fq_bilinear {a['publish_fq']['fq_bilinear']}"
+        f" / fq_bilinear_chain {a['publish_fq']['fq_bilinear_chain']} / sha256_pairs"
+        f" {a['publish_sha256']} launches | head root == the block through ResidentCore |"
+        f" attestation produced and queued | /metrics {a['metrics_lines']} resilience"
+        f" lines, /healthz with firehose and checkpoint")
     b = sp["blocks"]
     for row in b["blocks"]:
         log(f"phase spec block: {row['kind']}, {row['attestations']} attestations appended |"
@@ -2090,7 +2429,10 @@ def main() -> int:
         "launches": spec_launches["sha256_pairs"],
         "launches_by_path": {"resident_columns": main_launches,
                              "spec_resume": r["launches"],
-                             "spec_blocks": b["sha256_launches"]},
+                             "spec_blocks": b["sha256_launches"],
+                             # the API's publish roots its states with the
+                             # object model's host path: no pair-hash launch
+                             "recovery": sp["resilience"]["recovery_launches"]},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2109,7 +2451,8 @@ def main() -> int:
         "launches_by_path": {"bls_verify": bls["launches"][name],
                              "spec_blocks": spec_launches[name],
                              "firehose": fh["launches"][name],
-                             "gossip_verify": gossip_launches[name]},
+                             "gossip_verify": gossip_launches[name],
+                             "api": sp["api"]["publish_fq"][name]},
         "max_abs_err": fq_k[name]["max_abs_err"],
         "ms": fq_k[name]["ms"],
         "plain_ms": fq_k[name]["plain_ms"],
@@ -2129,7 +2472,8 @@ def main() -> int:
         "launches_by_path": {"bls_verify": bls["launches"]["fq_bilinear"],
                              "spec_blocks": spec_launches["fq_bilinear"],
                              "firehose": fh["launches"]["fq_bilinear"],
-                             "gossip_verify": gossip_launches["fq_bilinear"]},
+                             "gossip_verify": gossip_launches["fq_bilinear"],
+                             "api": sp["api"]["publish_fq"]["fq_bilinear"]},
         "max_abs_err": max(k["max_abs_err"] for k in fq_k["fq_bilinear"].values()),
         "ms": mul12["check_ms"],
         "plain_ms": mul12["plain_ms"],
@@ -2150,7 +2494,8 @@ def main() -> int:
         "launches_by_path": {"bls_verify": bls["launches"]["fq_bilinear_chain"],
                              "spec_blocks": spec_launches["fq_bilinear_chain"],
                              "firehose": fh["launches"]["fq_bilinear_chain"],
-                             "gossip_verify": gossip_launches["fq_bilinear_chain"]},
+                             "gossip_verify": gossip_launches["fq_bilinear_chain"],
+                             "api": sp["api"]["publish_fq"]["fq_bilinear_chain"]},
         "max_abs_err": fq_ch["max_abs_err"],
         "ms": pow_z["ms"],
         "plain_ms": pow_z["plain_ms"],

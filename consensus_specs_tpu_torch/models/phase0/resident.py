@@ -25,9 +25,12 @@ and balances incremental forests:
 spec-method overrides that answer registry reads from host mirrors, the
 per-slot full state root, blocks (registry-mutating ones through the
 object path with incremental re-entry), the epoch boundary distilled from
-the mirrors, and checkpoints. Single device; the reference's serving mesh,
-telemetry spans, watchdog checks and guarded dispatch ladder are not
-ported here.
+the mirrors, and checkpoints. The boundary's epoch program runs through
+the guarded dispatch (`ResidentCore._epoch_dispatch`: fault injection,
+the integrity tripwire, a deadline when one is set); the program updates
+the resident columns in place, so a failure after it was entered is
+fatal and names `CheckpointStore.restore` as the way back. Single
+device: the reference's serving mesh is not ported here.
 """
 from __future__ import annotations
 
@@ -45,7 +48,10 @@ from ...device import resolve
 from ...ops.intmath import udivmod_u64, ule, ult
 from ...ops.sha256 import PairFn, words_to_bytes
 from ...ops.shuffle import shuffle_permutation_on_device
-from ...resilience.errors import CheckpointCorrupt
+from ...resilience import dispatch as _rdispatch
+from ...resilience import integrity as _integrity
+from ...resilience.errors import (CheckpointCorrupt, DispatchError,
+                                  FatalDispatchError)
 from ...telemetry import watchdog as _watchdog
 from ...utils.ssz import bulk
 from ...utils.ssz import impl as ssz_impl
@@ -659,6 +665,43 @@ class ResidentCore:
         state.latest_block_roots[state.slot % spec.SLOTS_PER_HISTORICAL_ROOT] = \
             spec.signing_root(state.latest_block_header)
 
+    def _epoch_dispatch(self, scal, inp):
+        """The boundary's epoch program through the guarded dispatch,
+        under the reference's single-device key `(tkey, "epoch", V)`, with
+        `epoch_output_check` armed while tripwires are on.
+
+        The program updates the resident columns in place (the reference
+        donates them), so the site takes retries=0: a transient raised
+        before the call is still retried on the intact columns (the
+        guard's pre-dispatch allowance), but a failure after the program
+        was entered (a tripwired output, an unsalvaged deadline miss)
+        leaves columns that are neither the old nor a trusted new state,
+        and is fatal with `consumed_inputs` set: the way back is a
+        checkpoint (`resilience.CheckpointStore.restore`) and a replay of
+        the slots since. The ladder has no rung to walk (one rung, see
+        resilience/dispatch.py)."""
+        check = (_integrity.epoch_output_check
+                 if _integrity.tripwires_enabled() else None)
+        try:
+            return _rdispatch.guarded_dispatch(
+                (self._tkey, "epoch", self.res.v), epoch_transition_device,
+                self.cfg, self.res.cols, scal, inp, check=check, retries=0)
+        except FatalDispatchError:
+            raise
+        except DispatchError as exc:
+            if exc.consumed_inputs:
+                raise FatalDispatchError(
+                    f"epoch dispatch failed after the program updated the "
+                    f"resident columns in place ({exc}); restore via "
+                    f"resilience.CheckpointStore.restore",
+                    key=exc.key, attempts=exc.attempts) from exc
+            # retries spent before the program was entered: the columns
+            # are intact, but the ladder has no rung below "full"
+            raise FatalDispatchError(
+                f"epoch boundary dispatch failed with the degradation "
+                f"ladder exhausted: {exc}", key=exc.key,
+                attempts=exc.attempts, consumed_inputs=False) from exc
+
     def process_epoch_resident(self, state) -> None:
         """The boundary transition on resident columns, under telemetry
         spans: "resident.stage" (host distillation off the mirrors,
@@ -687,8 +730,8 @@ class ResidentCore:
             # the columns are updated in place: no second copy of the
             # registry; input and output fingerprints must match
             _watchdog.layout_check(f"{self._tkey}.epoch.cols", self.res.cols)
-            _, dev_scal, dev_report = epoch_transition_device(
-                self.cfg, self.res.cols, scal, inp)
+            dev_cols, dev_scal, dev_report = self._epoch_dispatch(scal, inp)
+            self.res.cols = dev_cols
             _watchdog.layout_check(f"{self._tkey}.epoch.cols", self.res.cols)
             sp_dev.fence(self.res.cols, dev_scal, dev_report)
 

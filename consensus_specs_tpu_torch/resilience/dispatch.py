@@ -1,21 +1,22 @@
-"""Deadline-budgeted guarded dispatch (port of the `classify` and
-`guarded_dispatch` half of consensus_specs_tpu/resilience/dispatch.py).
+"""Deadline-budgeted guarded dispatch with fault injection and the
+degradation ladder (port of consensus_specs_tpu/resilience/dispatch.py).
 
 `guarded_dispatch(key, fn, *args, deadline_ms=...)` wraps a device launch:
 
-  * **fast path** -- with no deadline and no integrity check it is
-    `telemetry.watchdog.dispatch` inside one try-frame: no synchronize,
-    so the launch stays asynchronous. The taxonomy and the retry still
-    apply when the call itself raises.
-  * **deadline** -- with a budget armed (`deadline_ms=` > 0), the guard
-    measures wall clock around the call plus a synchronize of the
-    current stream of every CUDA device holding a tensor of the output
-    (the stream the call launched on: call the guard under the stream
-    the work belongs to). A miss is retried warm before anything is
-    raised. On a zero-retry site a valid-but-late output is SALVAGED
-    instead of raised: discarding correct work would turn lateness into
-    unavailability; the miss is counted (`resilience.deadline_misses`,
-    `resilience.deadline_salvaged`).
+  * **fast path** -- with no fault schedule armed, no deadline and no
+    integrity check it is `telemetry.watchdog.dispatch` inside one
+    try-frame: no synchronize, so the launch stays asynchronous. The
+    taxonomy and the retry still apply when the call itself raises.
+  * **deadline** -- with a budget armed (`deadline_ms=` > 0, or the
+    process default `set_deadline_ms_default(ms)` when the argument is
+    None), the guard measures wall clock around the call plus a
+    synchronize of the current stream of every CUDA device holding a
+    tensor of the output (the stream the call launched on: call the
+    guard under the stream the work belongs to). A miss is retried warm
+    before anything is raised. On a zero-retry site a valid-but-late
+    output is SALVAGED instead of raised: discarding correct work would
+    turn lateness into unavailability; the miss is counted
+    (`resilience.deadline_misses`, `resilience.deadline_salvaged`).
   * **taxonomy + retry** -- failures classify into the typed errors of
     resilience/errors.py: `torch.cuda.OutOfMemoryError` (and the
     reference's transient status words) retry with exponential backoff;
@@ -24,15 +25,34 @@
     retried: the CUDA context is poisoned, and a retry on it would only
     hide the fault. Clock and sleeper are injectable, so the retry tests
     run on a fake clock.
+  * **fault injection** -- with a schedule armed (resilience/faults.py),
+    each attempt consults `faults.on_dispatch(key)`: `raise` / `fatal`
+    raise before the call, `hang` sleeps through the guard's `sleep`
+    inside the measured window, `poison` corrupts one leaf of the output
+    before the integrity check.
 
-The reference reads its default budget from an environment switch; here
-the budget is the `deadline_ms=` argument only (None or 0: unarmed).
+**Consumed inputs.** The guard records on every typed error whether the
+failing attempt entered `fn` (`consumed_inputs`). A site whose program
+updates its arguments in place -- the resident epoch boundary -- passes
+`retries=0`: a failure after the call has been entered must not call
+`fn` again on the updated buffers. A failure that provably came before
+the call leaves them intact, so it keeps the standard allowance
+`max(retries, RETRIES_DEFAULT)`; the allowance is per failure, never
+sticky: once an attempt has entered `fn`, the caller's `retries`
+applies again.
 
-Still to port with the rest of the resilience layer: the seeded fault
-injection (`faults.py`, the injected raise / hang / poison branches of
-the reference's guard), `DegradationLadder`, `run_with_recovery`,
-`integrity.py`, `checkpoint.py` and `health_snapshot`. Until then this
-guard has no fault-injection branch at all.
+**The degradation ladder has one rung.** The reference walks `full ->
+merkle_xla -> redc_leaf -> scalar_double_add -> single_device`: its
+rungs 1-3 each swap a kernel for its plain twin, which in the port
+would be the hidden fallback its rules forbid, and `single_device`
+re-places a serving mesh the port does not have yet (it comes back with
+the sharding work). So `DegradationLadder.RUNGS == ("full",)`:
+`degrade()` returns None at once, and `run_with_recovery` raises
+`FatalDispatchError` when the guard's retries are spent. Restoring from
+a checkpoint stays the caller's job, as in the reference
+(`resilience.CheckpointStore.restore`, then replay the slots); an
+in-loop restore-and-replay rung would need a block log the reference
+does not keep.
 """
 from __future__ import annotations
 
@@ -42,11 +62,14 @@ from typing import Callable, Optional
 from .. import telemetry
 from ..telemetry import core as _tcore
 from ..telemetry import watchdog as _watchdog
+from . import faults
 from .errors import (CorruptOutput, DeadlineExceeded, DispatchError,
                      FatalDispatchError, TransientDispatchError)
 
 RETRIES_DEFAULT = 2
 BACKOFF_MS_DEFAULT = 25.0
+
+_deadline_ms_default = 0.0
 
 # status words of infrastructure weather a runtime may raise (the
 # reference's classes); checked after the sticky CUDA errors below
@@ -60,6 +83,17 @@ _STICKY_CUDA_MARKERS = ("CUDA error", "cudaError", "illegal memory access",
 
 def _counter(name: str):
     return telemetry.counter(name, always=True)
+
+
+def set_deadline_ms_default(ms: Optional[float]) -> None:
+    """The budget a guard uses when its `deadline_ms` is None (0 or None:
+    unarmed, the default)."""
+    global _deadline_ms_default
+    _deadline_ms_default = float(ms or 0.0)
+
+
+def deadline_ms_default() -> float:
+    return _deadline_ms_default
 
 
 def classify(exc: Exception) -> str:
@@ -94,7 +128,11 @@ def guarded_dispatch(key, fn: Callable, *args,
     """Call `fn(*args)` through the retrace watchdog under `key`, with
     the guard rails above. Raises the typed DispatchError taxonomy after
     `retries` extra attempts; returns the (checked) output otherwise.
-    `check(out) -> bool` is an integrity tripwire."""
+    `check(out) -> bool` is an integrity tripwire (resilience/
+    integrity.py)."""
+    if deadline_ms is None:
+        deadline_ms = _deadline_ms_default
+    faulty = faults.active()
     armed = bool(deadline_ms)
     last_error: Optional[DispatchError] = None
     attempt = 0
@@ -105,9 +143,17 @@ def guarded_dispatch(key, fn: Callable, *args,
             with telemetry.span("resilience.backoff", key=str(key),
                                 attempt=attempt):
                 sleep(delay)
+        fault = faults.on_dispatch(key) if faulty else None
         t0 = clock() if armed else 0.0
+        dispatched = False      # has fn been entered (inputs consumed)?
         try:
+            if fault is not None and fault.action in ("raise", "fatal"):
+                faults.raise_injected(key, fault)
+            dispatched = True
             out = _watchdog.dispatch(key, fn, *args)
+            if fault is not None and fault.action == "hang":
+                # the injected wedge burns wall clock inside the window
+                sleep(float(fault.param or 100.0) / 1e3)
             if armed:
                 _synchronize_output(out)
         except DispatchError:
@@ -116,9 +162,14 @@ def guarded_dispatch(key, fn: Callable, *args,
             if classify(exc) == "transient":
                 _counter("resilience.transient_errors").inc()
                 last_error = TransientDispatchError(
-                    str(exc), key=key, attempts=attempt + 1)
+                    str(exc), key=key, attempts=attempt + 1,
+                    consumed_inputs=dispatched)
                 last_error.__cause__ = exc
-                if attempt >= retries:
+                # a failure before the call leaves the inputs intact:
+                # the standard allowance, whatever the caller pinned
+                allowance = retries if dispatched \
+                    else max(retries, RETRIES_DEFAULT)
+                if attempt >= allowance:
                     break
                 attempt += 1
                 continue
@@ -129,6 +180,8 @@ def guarded_dispatch(key, fn: Callable, *args,
         # the measured window closes here: the deadline covers the call
         # and its synchronize, never the tripwire below
         elapsed_ms = (clock() - t0) * 1e3 if armed else 0.0
+        if fault is not None and fault.action == "poison":
+            out = faults.poison_tree(out, fault.param)
         check_ok = True
         if check is not None:
             try:
@@ -176,3 +229,89 @@ def guarded_dispatch(key, fn: Callable, *args,
         return out
     assert last_error is not None
     raise last_error
+
+
+# ---------------------------------------------------------------------------
+# Degradation ladder
+# ---------------------------------------------------------------------------
+
+class DegradationLadder:
+    """The serving loop's conservatism level, reported on /healthz. One
+    rung in the port (see the module docstring): `degrade()` has nowhere
+    to go and returns None, so the caller escalates to fatal."""
+
+    RUNGS = ("full",)
+
+    def __init__(self):
+        self._rung = 0
+
+    @property
+    def rung(self) -> int:
+        return self._rung
+
+    @property
+    def rung_name(self) -> str:
+        return self.RUNGS[self._rung]
+
+    @property
+    def exhausted(self) -> bool:
+        return self._rung >= len(self.RUNGS) - 1
+
+    def degrade(self, reason: str = "") -> Optional[str]:
+        """Step one rung down; returns the new rung name, or None at the
+        bottom. Counted (`resilience.degradations[.<rung>]`) and gauged
+        (`resilience.rung`)."""
+        if self.exhausted:
+            return None
+        self._rung += 1
+        name = self.rung_name
+        _counter("resilience.degradations").inc()
+        _counter(f"resilience.degradations.{name}").inc()
+        telemetry.gauge("resilience.rung", always=True).set(self._rung)
+        return name
+
+    def reset(self) -> None:
+        """Back to full speed."""
+        self._rung = 0
+        telemetry.gauge("resilience.rung", always=True).set(0)
+
+
+_LADDER = DegradationLadder()
+
+
+def ladder() -> DegradationLadder:
+    """The process-global ladder (what /healthz reports)."""
+    return _LADDER
+
+
+def run_with_recovery(key, make: Callable[[], tuple], *,
+                      deadline_ms: Optional[float] = None,
+                      check: Optional[Callable] = None,
+                      ladder: Optional[DegradationLadder] = None,
+                      retries: int = RETRIES_DEFAULT,
+                      backoff_ms: float = BACKOFF_MS_DEFAULT,
+                      clock: Callable[[], float] = time.perf_counter,
+                      sleep: Callable[[float], None] = time.sleep):
+    """guarded_dispatch + the ladder: `make()` returns a fresh
+    `(fn, args)` pair per attempt (re-read after each degradation), and
+    every typed failure that survives its retries walks one rung before
+    the next attempt. Raises FatalDispatchError when the ladder is
+    exhausted -- with the port's one rung, as soon as the guard gives
+    up."""
+    lad = ladder if ladder is not None else _LADDER
+    while True:
+        fn, args = make()
+        try:
+            return guarded_dispatch(key, fn, *args,
+                                    deadline_ms=deadline_ms, check=check,
+                                    retries=retries, backoff_ms=backoff_ms,
+                                    clock=clock, sleep=sleep)
+        except FatalDispatchError:
+            raise
+        except DispatchError as exc:
+            rung = lad.degrade(reason=type(exc).__name__)
+            if rung is None:
+                raise FatalDispatchError(
+                    f"dispatch {key!r} failed at the bottom of the "
+                    f"degradation ladder: {exc}",
+                    key=key, attempts=exc.attempts) from exc

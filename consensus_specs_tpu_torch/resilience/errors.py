@@ -12,6 +12,10 @@ The dispatch taxonomy (resilience/dispatch.py):
   * `CorruptOutput`         -- an integrity tripwire rejected the output;
   * `FatalDispatchError`    -- not retryable (a bug, or a sticky CUDA
     error: the context is poisoned); wraps and chains the original.
+
+`CheckpointCorrupt` and `SimulatedCrash` belong to the checkpoint store
+(resilience/checkpoint.py); `InjectedFault` is what the fault harness
+(resilience/faults.py) raises for an injected dispatch failure.
 """
 from __future__ import annotations
 
@@ -61,11 +65,24 @@ class FatalDispatchError(DispatchError):
 
 
 class CheckpointCorrupt(ResilienceError):
-    """A checkpoint payload failed validation: state bytes that do not
-    parse as a serialized BeaconState (`ResidentCore.from_checkpoint`'s
-    up-front validation). Carries the `generation` when the caller knows
-    it (None for raw byte entries)."""
+    """A checkpoint payload failed validation: bad magic or version,
+    length mismatch, CRC failure (resilience/checkpoint.py's framing), or
+    state bytes that do not parse as a serialized BeaconState
+    (`ResidentCore.from_checkpoint`'s up-front validation). Carries the
+    `generation` when the store knows it (None for raw byte entries)."""
 
     def __init__(self, message: str = "", *, generation=None):
         super().__init__(message)
         self.generation = generation
+
+
+class SimulatedCrash(ResilienceError):
+    """Raised by the fault harness to model a process killed mid-write
+    (`ckpt.write=crash`). Not a CheckpointCorrupt: recovery code must
+    treat it like a real crash."""
+
+
+class InjectedFault(RuntimeError):
+    """The exception of a `dispatch=raise` / `dispatch=fatal` fault. A
+    RuntimeError, not a ResilienceError: an injected fault goes through
+    the same message classification as the failures it simulates."""

@@ -96,12 +96,16 @@ def _oracle_indexed(py, item):
     return py.verify_multiple(aggs, msgs, sig, domain)
 
 
-def test_indexed_block_matches_python_backend(backends, monkeypatch):
+INDEXED_VERDICTS = [True, False, False, True, True, False, False, False,
+                    False, False, True]
+
+
+@pytest.fixture(scope="module")
+def indexed_items():
     """A small block in the phase-0 shape (custody-bit-0 set, empty
     custody-bit-1 set): valid items, a wrong signature, wrong
     participants, an all-empty item, an infinity aggregate, malformed
     pubkey and signature encodings, wrong lengths, a length mismatch."""
-    py, tb = backends
     keys = list(range(11, 31))
     pub = {k: pgt.privtopub(k) for k in keys}
     msgs = [bytes([0x40 + i]) * 32 for i in range(8)]
@@ -115,13 +119,14 @@ def test_indexed_block_matches_python_backend(backends, monkeypatch):
 
     valid0 = att([11, 12, 13], 0)
     valid1 = att([14, 15, 16, 17], 1)
+
     def neg(k):
         return gt.compress_g1(gt.ec_neg(gt.decompress_g1(pub[k])))
 
     inf_agg = ([[pub[14], neg(14), pub[18], neg(18)], [pub[19], pub[20], pub[21]]],
                [msgs[2], msgs[3]], pgt.sign(msgs[3], 19 + 20 + 21, DOMAIN), DOMAIN)
     no_c = bytes([pub[22][0] & 0x7F]) + pub[22][1:]
-    items = [
+    return [
         valid0,
         att([22, 23, 24], 4, sig=valid0[2]),                 # wrong signature
         att([25, 26, 27], 5, signers=[25, 26, 28]),          # wrong participants
@@ -134,9 +139,20 @@ def test_indexed_block_matches_python_backend(backends, monkeypatch):
         ([[pub[11]], []], [msgs[0]], valid0[2], DOMAIN),     # length mismatch
         valid1,
     ]
-    want = [_oracle_indexed(py, it) for it in items]
-    assert want == [True, False, False, True, True, False, False, False,
-                    False, False, True]
+
+
+@pytest.mark.parametrize("route", ["oracle", "torch"])
+def test_indexed_block_matches_python_backend(route, indexed_items, backends,
+                                              monkeypatch):
+    """The oracle's verdicts and TorchBackend's are each INDEXED_VERDICTS,
+    so they equal one another (one route a case, side by side); the
+    torch route's staging decides the malformed and empty items and
+    sends exactly the five others to the pairing."""
+    py, tb = backends
+    items = indexed_items
+    if route == "oracle":
+        assert [_oracle_indexed(py, it) for it in items] == INDEXED_VERDICTS
+        return
     staged = []
     stage = tb.stage_indexed_batch
 
@@ -145,15 +161,16 @@ def test_indexed_block_matches_python_backend(backends, monkeypatch):
         return staged[-1]
 
     monkeypatch.setattr(tb, "stage_indexed_batch", recording)
-    assert tb.verify_indexed_batch(items) == want
+    assert tb.verify_indexed_batch(items) == INDEXED_VERDICTS
     [(results, groups)] = staged          # the staging the verify used
     assert [i for i, _ in groups] == [0, 1, 2, 4, 10]
     assert all(len(pairs) == 2 for _, pairs in groups)
     assert results[3] is True and results[5] is False
 
 
-def test_verify_and_verify_multiple_batch_match_python_backend(backends):
-    py, tb = backends
+@pytest.fixture(scope="module")
+def multiple_items():
+    py = gt.PythonBackend()
     items = []
     for i, (k0, k1) in enumerate([(3, 4), (5, 6), (9, 10)]):
         msgs = [bytes([i + 1]) * 32, bytes([i + 7]) * 32]
@@ -164,25 +181,40 @@ def test_verify_and_verify_multiple_batch_match_python_backend(backends):
         items.append(([gt.privtopub(k0), gt.privtopub(k1)], msgs, agg, DOMAIN))
     items.append((items[0][0], items[0][1], b"\x00" * 96, DOMAIN))   # garbage
     items.append((items[0][0], items[0][1][:1], items[0][2], DOMAIN))  # lengths
-    want = [py.verify_multiple(*it) for it in items]
-    assert want == [True, False, True, False, False]
-    assert tb.verify_multiple_batch(items) == want
-    msg = b"\x77" * 32
-    sig = py.sign(msg, 123, DOMAIN)
-    assert tb.verify(gt.privtopub(123), msg, sig, DOMAIN)
+    return items
 
 
-def test_aggregation_and_signing_bytes_match_python_backend(backends):
+@pytest.mark.parametrize("route", ["oracle", "torch"])
+def test_verify_and_verify_multiple_batch_match_python_backend(route, multiple_items,
+                                                               backends):
+    """verify_multiple over the batch: each route's verdicts are the fixed
+    ones, so the routes agree; the torch route also verifies one single
+    signature."""
+    py, tb = backends
+    if route == "oracle":
+        got = [py.verify_multiple(*it) for it in multiple_items]
+    else:
+        got = tb.verify_multiple_batch(multiple_items)
+        msg = b"\x77" * 32
+        assert tb.verify(gt.privtopub(123), msg, py.sign(msg, 123, DOMAIN), DOMAIN)
+    assert got == [True, False, True, False, False]
+
+
+@pytest.mark.parametrize("part", ["aggregation", "signing"])
+def test_aggregation_and_signing_bytes_match_python_backend(part, backends):
     py, tb = backends
     pubs = [gt.privtopub(k) for k in (1, 2, 3, 0xDEADBEEF)]
-    inf = gt.compress_g1(None)
-    assert tb.aggregate_pubkeys(pubs[:3] + [inf]) == py.aggregate_pubkeys(pubs[:3] + [inf])
-    assert tb.aggregate_pubkeys([]) == py.aggregate_pubkeys([])
-    with pytest.raises(AssertionError):
-        tb.aggregate_pubkeys(pubs[:2] + [bytes([pubs[2][0] & 0x7F]) + pubs[2][1:]])
+    if part == "aggregation":
+        inf = gt.compress_g1(None)
+        assert tb.aggregate_pubkeys(pubs[:3] + [inf]) == py.aggregate_pubkeys(pubs[:3] + [inf])
+        assert tb.aggregate_pubkeys([]) == py.aggregate_pubkeys([])
+        with pytest.raises(AssertionError):
+            tb.aggregate_pubkeys(pubs[:2] + [bytes([pubs[2][0] & 0x7F]) + pubs[2][1:]])
+        msg = b"\x33" * 32
+        sigs = [py.sign(msg, k, DOMAIN) for k in (1, 2, 3)]
+        assert tb.aggregate_signatures(sigs) == py.aggregate_signatures(sigs)
+        return
     msg = b"\x33" * 32
-    sigs = [py.sign(msg, k, DOMAIN) for k in (1, 2, 3)]
-    assert tb.aggregate_signatures(sigs) == py.aggregate_signatures(sigs)
     assert tb.sign(msg, 0xDEADBEEF, DOMAIN) == py.sign(msg, 0xDEADBEEF, DOMAIN)
     assert tb.privtopub(0xDEADBEEF) == pubs[3]
     assert tb.sign(msg, gt.r, DOMAIN) == gt.compress_g2(None)

@@ -55,7 +55,10 @@ def test_scan_sees_the_package():
             "streaming/queue.py", "streaming/pipeline.py",
             "streaming/verifier.py", "streaming/__init__.py",
             "networking/gossip.py", "models/phase0/validator.py",
-            "models/phase0/fork_choice.py"} <= names
+            "models/phase0/fork_choice.py", "resilience/faults.py",
+            "resilience/integrity.py", "resilience/checkpoint.py",
+            "resilience/__init__.py", "api/__init__.py",
+            "api/beacon_node.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 

@@ -113,10 +113,13 @@ def _oracle_indexed(py, item):
     return py.verify_multiple(aggs, msgs, sig, domain)
 
 
-def test_streamed_verdicts_match_oracle_and_verify_indexed_batch():
+VERDICTS = [True, True, False, False, True, False, True]
+
+
+@pytest.fixture(scope="module")
+def verdict_items():
     """Two groups of 3 pairs (both custody sets set) and two of 2 pairs,
-    valid and not, a malformed pubkey, an empty product and a duplicate:
-    two partial batches at the flush, G = 2 each."""
+    valid and not, a malformed pubkey, an empty product and a duplicate."""
     pub = {k: pgt.privtopub(k) for k in range(11, 19)}
     m = [bytes([0x50 + i]) * 32 for i in range(4)]
     # one member a set: one committee size, one G1 aggregation program
@@ -128,20 +131,32 @@ def test_streamed_verdicts_match_oracle_and_verify_indexed_batch():
     p2_bad = ([[pub[16]], []], [m[2], m[3]], pgt.sign(m[2], 17, DOMAIN), DOMAIN)
     malformed = ([[pub[18][:47]], []], [m[0], m[1]], p2_ok[2], DOMAIN)
     empty = ([[], []], [m[0], m[1]], pgt.compress_g2(None), DOMAIN)
-    items = [p3_ok, p2_ok, malformed, p3_bad, empty, p2_bad, p2_ok]
+    return [p3_ok, p2_ok, malformed, p3_bad, empty, p2_bad, p2_ok]
 
+
+@pytest.mark.parametrize("route", ["firehose", "verify_indexed_batch", "oracle"])
+def test_streamed_verdicts_match_oracle_and_verify_indexed_batch(route, verdict_items):
+    """The firehose's verdicts, the synchronous path's and the bignum
+    oracle's are each VERDICTS, so they equal one another; one route a
+    case, so the three run side by side. The firehose flushes two partial
+    batches, G = 2 each."""
+    items = verdict_items
     tb = BT.TorchBackend("cpu")
-    v = _verifier(PS, backend=tb, target_groups=4)
-    before = _counts(PT)
-    got = v.verdicts_for(items)
-    d = _delta(before, _counts(PT))
-    assert got == [True, True, False, False, True, False, True]
-    assert d["launches"] == 2 and d["partial_flushes"] == 2
-    assert d["duplicates"] == 1 and d["groups_launched"] == 4
-    assert list(v.pipeline.occupancies) == [2, 2]
-    assert got == tb.verify_indexed_batch(items)
-    py = gt.PythonBackend()
-    assert got == [_oracle_indexed(py, it) for it in items[:-1]] + [got[1]]
+    if route == "firehose":
+        v = _verifier(PS, backend=tb, target_groups=4)
+        before = _counts(PT)
+        got = v.verdicts_for(items)
+        d = _delta(before, _counts(PT))
+        assert d["launches"] == 2 and d["partial_flushes"] == 2
+        assert d["duplicates"] == 1 and d["groups_launched"] == 4
+        assert list(v.pipeline.occupancies) == [2, 2]
+    elif route == "verify_indexed_batch":
+        got = tb.verify_indexed_batch(items)
+    else:
+        py = gt.PythonBackend()
+        got = [_oracle_indexed(py, it) for it in items[:-1]]
+        got.append(got[1])                  # the duplicate of item 1
+    assert got == VERDICTS
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +224,26 @@ def test_queue_pipeline_bookkeeping_matches_reference(stand_in):
     assert pd["ring_wraps"] == 2 and pd["partial_flushes"] == 1
     assert dict(got[3])[("a", 3)] is False and dict(got[3])[("a", 1)] is True
     assert PT.gauge("firehose.queue_depth", always=True).value == 0
+
+
+def test_injected_raise_on_the_batch_key_is_retried(stand_in):
+    """The pipeline's launch goes through guarded_dispatch, so fault
+    injection reaches it with no code of its own: a raise on the first
+    batch is retried before the pairing runs, and the drive observes what
+    the unfaulted drive observed, in both packages."""
+    from consensus_specs_tpu.resilience import faults as JF
+    from consensus_specs_tpu_torch.resilience import faults as PF
+    clean = _drive_bookkeeping(PS)
+    seen = []
+    for S, T, faults in ((JS, JT, JF), (PS, PT, PF)):
+        retries0 = T.counter("resilience.retries", always=True).value
+        faults.set_schedule("dispatch:*firehose.batch*@1=raise")
+        try:
+            seen.append(_drive_bookkeeping(S))
+        finally:
+            faults.set_schedule(None)
+        assert T.counter("resilience.retries", always=True).value - retries0 == 1
+    assert seen[1] == seen[0] == clean
 
 
 def test_queue_fifo_and_bucket_order_match_reference():
