@@ -89,7 +89,39 @@ ResidentCore, the spec's process_block), mainnet preset at full width:
     swapped for the reveal rejected with ApiError 400 and the head
     unchanged; publish_block of the signed block, its state root equal to
     the same block through ResidentCore; an attestation produced and
-    queued; /metrics and /healthz carry the resilience counters.
+    queued; /metrics and /healthz carry the resilience counters. From
+    produce_block on, install_bulk_state_root puts the state roots of
+    produce and publish on the card (sha256_pairs launches), removed at the
+    phase's end.
+
+Then slice 8, mainnet preset, each path with the launch counts at 0 just
+before it and read just after:
+
+  * epoch bridge: process_epoch_soa (models/phase0/epoch_soa.py) on an
+    object state of 131,072 validators at the last slot of epoch 2 with
+    both epochs' attestations pending, BLS off, the bulk state root
+    installed: its distill / perm / device / writeback timings and the
+    state root; the root must equal the same call through the plain pair
+    hash (no kernel launch), and at 2,048 validators the bridge must equal
+    the unpatched object model's process_epoch byte for byte;
+  * chunk tree: bulk.build_chunk_tree over 2**20 random chunks on the
+    card, an update of 64 rows, an append that crosses 2**20; every root
+    equal to merkleize_chunk_array (hashlib) and to the plain pair hash's
+    handle; the merkle.forest.* counter deltas;
+  * phase 1: Phase1Spec at 131,072 validators (epoch 2,049, every
+    validator past its first custody period), BLS on "torch", the bulk
+    root installed: a block carrying a custody key reveal and an early
+    derived secret reveal (signed on the host), a reveal with another
+    validator's signature rejected, the epoch boundary through
+    process_epoch_soa's staged route, a block in the new epoch; the final
+    root equal to the same blocks replayed through the plain pair hash;
+    at 2,048 validators a boundary where @process_challenge_deadlines
+    slashes between the two device stages equals Phase1Spec.process_epoch;
+  * light client on phase 1's final state: build_validator_memory,
+    compute_committee == get_persistent_committee, prove_period_data /
+    verify_period_data against the bulk root (a forged seed rejected), a
+    BlockValidityProof verified through spec.bls on the card and the same
+    proof with another message's signature rejected.
 
 Then the attestation firehose (consensus_specs_tpu_torch.streaming) at the
 reference's steady-state shape, 128 groups x 3 pairs a batch, a verdict
@@ -150,8 +182,10 @@ from consensus_specs_tpu_torch import convert, resilience, streaming, telemetry
 from consensus_specs_tpu_torch.api import ApiError, BeaconNodeAPI
 from consensus_specs_tpu_torch.api import beacon_node as api_mod
 from consensus_specs_tpu_torch.crypto import bls12_381 as bls_host
-from consensus_specs_tpu_torch.models import phase0
+from consensus_specs_tpu_torch.light_client import sync_protocol as light_client
+from consensus_specs_tpu_torch.models import phase0, phase1
 from consensus_specs_tpu_torch.models.phase0 import epoch_soa, fork_choice
+from consensus_specs_tpu_torch.models.phase0 import helpers as spec_helpers
 from consensus_specs_tpu_torch.models.phase0.resident import (ResidentColumns,
                                                              ResidentCore)
 from consensus_specs_tpu_torch.ops import _nvcc, sha256, sha256_cuda
@@ -205,6 +239,13 @@ FIREHOSE_DEADLINE_MS = 2000.0
 V_FORK_CHOICE = 1_000_000
 FORK_CHOICE_BLOCKS = 96
 FORK_CHOICE_REPS = 20
+
+# slice 8: the epoch bridges, the chunk tree, phase 1 and the light client
+CHUNK_TREE_N = 1 << 20      # chunks of the tree handle
+CHUNK_TREE_DIRTY = 64       # rows of its update
+CHUNK_TREE_APPEND = 1_000   # rows of its append (crosses 2**20)
+LIGHT_CLIENT_SHARD = 3
+CHECK_ATT_SLOTS = 2         # attested slots an epoch in the object-model checks
 
 N_KEYS = 64                 # keypairs cycled over the committee members
 BLS_DOMAIN = 0x0100000000000000 + 1
@@ -1132,13 +1173,25 @@ def resume_state_bytes(spec, V: int, seed: int, dev) -> bytes:
     root = active_index_root(spec, np.nonzero(cols.activation_epoch == 0)[0], dev)
     for i in range(spec.LATEST_ACTIVE_INDEX_ROOTS_LENGTH):
         state.latest_active_index_roots[i] = root
+    add_pending_attestations(spec, state, np_cols)
+    return state_bytes_from_columns(state, np_cols, spec)
+
+
+def add_pending_attestations(spec, state, np_cols, att_slots=None) -> None:
+    """PendingAttestations of every committee of the previous epoch and of
+    the current epoch's slots before state.slot (of only the first
+    `att_slots` slots of each epoch, if given), laid out by
+    epoch_soa._epoch_layout over `np_cols`, every member participating,
+    included after the minimum delay."""
+    spe = spec.SLOTS_PER_EPOCH
     parent_root = spec.hash_tree_root(spec.Crosslink())
-    for epoch, store in ((1, state.previous_epoch_attestations),
-                         (2, state.current_epoch_attestations)):
+    current = spec.get_current_epoch(state)
+    for epoch, store in ((current - 1, state.previous_epoch_attestations),
+                         (current, state.current_epoch_attestations)):
         lay = epoch_soa._epoch_layout(spec, state, np_cols, epoch)
         for off in range(lay.count):
             slot = spec.get_epoch_start_slot(epoch) + off // (lay.count // spe)
-            if slot >= state.slot:
+            if slot >= state.slot or (att_slots is not None and slot % spe >= att_slots):
                 continue
             committee = lay.shuffled[lay.bounds[off]:lay.bounds[off + 1]]
             data = spec.AttestationData(
@@ -1155,7 +1208,6 @@ def resume_state_bytes(spec, V: int, seed: int, dev) -> bytes:
                 aggregation_bitfield=full_bitfield(len(committee)), data=data,
                 inclusion_delay=spec.MIN_ATTESTATION_INCLUSION_DELAY,
                 proposer_index=int(committee[0])))
-    return state_bytes_from_columns(state, np_cols, spec)
 
 
 def drive_resume(spec, data: bytes, sync):
@@ -1389,7 +1441,8 @@ def drive_api(spec, V: int, sync, dev):
     """The beacon-node API over an object state of V validators one slot
     before the last of its epoch, BLS on the "torch" backend: duties of 16
     members of the epoch's first committee against
-    get_committee_assignment; produce_block with a randao reveal signed on
+    get_committee_assignment; then, with install_bulk_state_root on the
+    card (removed at the end), produce_block with a randao reveal signed on
     the host, the block signed on the host; the block with its signature
     swapped for the randao reveal rejected with 400 and the head
     unchanged; publish_block of the signed block, its state root equal to
@@ -1440,6 +1493,9 @@ def drive_api(spec, V: int, sync, dev):
                 raise AssertionError(f"api: duty of validator {i} != get_committee_assignment")
         reveal = bls_host.sign(spec.hash_tree_root(epoch), key,
                                spec.get_domain(state, spec.DOMAIN_RANDAO, epoch))
+        # the state roots of produce and publish on the card, as the JAX
+        # package's entry points install them
+        spec_helpers.install_bulk_state_root(device=dev)
         copies.clear()
         t0 = time.perf_counter()
         block = api.produce_block(slot + 1, reveal)
@@ -1495,7 +1551,443 @@ def drive_api(spec, V: int, sync, dev):
         spec_bls.bls_active = was_active
         if core is not None:
             core._uninstall()
+        spec_helpers.set_state_root_backend(None)
     return out
+
+
+def zero_counts() -> None:
+    """Every hand kernel's launch count to 0 (a path's drive starts here)."""
+    sha256_cuda.counter.launches = 0
+    zero_fq_counters()
+
+
+def counts() -> dict:
+    """Launches by kernel since zero_counts()."""
+    return {"sha256_pairs": sha256_cuda.counter.launches, **fq_launches()}
+
+
+def attested_state(spec, V: int, slot: int, pubkey_of, dev, att_slots=None):
+    """beacon_state at `slot` with add_pending_attestations: the epoch
+    program's crosslink, justification and reward paths all run. The
+    object model's reward loop costs validators x attestations, so the
+    checks against it attest `att_slots` slots an epoch."""
+    state = beacon_state(spec, V, slot, pubkey_of, dev)
+    add_pending_attestations(spec, state, epoch_soa.columns_np_from_state(state), att_slots)
+    return state
+
+
+def process_slots_bridged(spec, state, slot: int) -> None:
+    """spec.process_slots with the epoch boundary through
+    epoch_soa.process_epoch_soa (the staged route for a phase-1 spec)."""
+    while state.slot < slot:
+        spec.process_slot(state)
+        if (state.slot + 1) % spec.SLOTS_PER_EPOCH == 0:
+            epoch_soa.process_epoch_soa(spec, state)
+        state.slot += 1
+
+
+def convert_spec(state, src, dst, name="BeaconState"):
+    """An object of `src` spec's container `name` as `dst`'s (SSZ bytes)."""
+    return ssz_impl.deserialize(ssz_impl.serialize(state, getattr(src, name)),
+                                getattr(dst, name))
+
+
+def drive_epoch_bridge(spec, V: int, v_check: int, sync, dev):
+    """process_epoch_soa on the object state chip_smoke.beacon_state builds
+    at V validators, the last slot of epoch 2, both epochs' attestations
+    pending, BLS off, the bulk state root installed on the card: the four
+    timings, then the state root. The same call on a copy through a spec
+    whose pair hash is the plain one (and the bulk root through it) must
+    give the same root and launch no kernel; at v_check validators the
+    bridge must equal the unpatched object model's process_epoch on a
+    deepcopy, byte for byte. Returns the numbers."""
+    from consensus_specs_tpu_torch.crypto import bls as spec_bls
+    slot = 3 * spec.SLOTS_PER_EPOCH - 1
+    keys = lambda i: i.to_bytes(48, "little")  # noqa: E731
+    t0 = time.perf_counter()
+    state = attested_state(spec, V, slot, keys, dev)
+    twin = copy.deepcopy(state)
+    out = {"validators": V, "build_s": time.perf_counter() - t0,
+           "pending": len(state.previous_epoch_attestations)
+           + len(state.current_epoch_attestations)}
+    was_active = spec_bls.bls_active
+    spec_bls.bls_active = False
+    try:
+        ssz_bulk.clear_memo()
+        spec_helpers.install_bulk_state_root(device=dev)
+        timings = {}
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        epoch_soa.process_epoch_soa(spec, state, timings)
+        sync()
+        t1 = time.perf_counter()
+        root = spec.hash_tree_root(state)
+        sync()
+        t2 = time.perf_counter()
+        out["launches"] = counts()["sha256_pairs"]
+        out["epoch_ms"] = (t1 - t0) * 1e3
+        out["timings_ms"] = {k: v * 1e3 for k, v in timings.items()}
+        out["root_ms"] = (t2 - t1) * 1e3
+        if set(timings) != {"distill", "perm", "device", "writeback"}:
+            raise AssertionError(f"epoch bridge: timings {sorted(timings)}")
+
+        plain_spec = phase0.Phase0Spec(load_preset("mainnet"), device=dev,
+                                       pair_fn=sha256.sha256_pairs)
+        ssz_bulk.clear_memo()
+        n0 = sha256_cuda.counter.launches
+        t0 = time.perf_counter()
+        epoch_soa.process_epoch_soa(plain_spec, twin)
+        plain_root = ssz_bulk.state_root_bulk(twin, dev, sha256.sha256_pairs)
+        sync()
+        out["plain_s"] = time.perf_counter() - t0
+        if sha256_cuda.counter.launches != n0:
+            raise AssertionError("epoch bridge: the plain pair hash launched the kernel")
+        if plain_root != root:
+            raise AssertionError("epoch bridge: state root != the plain pair hash's")
+        del twin
+
+        small = attested_state(spec, v_check, slot, keys, dev, CHECK_ATT_SLOTS)
+        ref = copy.deepcopy(small)
+        spec_helpers.set_state_root_backend(None)
+        t0 = time.perf_counter()
+        spec.process_epoch(ref)
+        epoch_soa.process_epoch_soa(spec, small)
+        out["check_s"] = time.perf_counter() - t0
+        if ssz_impl.serialize(small, spec.BeaconState) != ssz_impl.serialize(ref, spec.BeaconState):
+            raise AssertionError(f"epoch bridge: V={v_check} state != process_epoch's")
+        out["check_validators"] = v_check
+        out["justified"] = (int(state.previous_justified_epoch),
+                            int(state.current_justified_epoch))
+    finally:
+        spec_helpers.set_state_root_backend(None)
+        spec_bls.bls_active = was_active
+    return out
+
+
+def drive_chunk_tree(dev, rng, sync):
+    """bulk.build_chunk_tree over CHUNK_TREE_N random chunks on the card,
+    an update of CHUNK_TREE_DIRTY rows, an append of CHUNK_TREE_APPEND rows
+    that crosses 2**20: each root must equal merkleize_chunk_array (hashlib
+    on the host) and the same handle through the plain pair hash on the
+    card. Returns the ms, the kernel's launches and the merkle.forest.*
+    counter deltas of the kernel route."""
+    names = ("pair_lanes", "launches", "builds")
+
+    def forest():
+        return [telemetry.counter(f"merkle.forest.{k}").value for k in names]
+
+    chunks = rng.integers(0, 256, (CHUNK_TREE_N, 32), dtype=np.uint8)
+    idx = np.sort(rng.choice(CHUNK_TREE_N, CHUNK_TREE_DIRTY, replace=False))
+    rows = rng.integers(0, 256, (CHUNK_TREE_DIRTY, 32), dtype=np.uint8)
+    more = rng.integers(0, 256, (CHUNK_TREE_APPEND, 32), dtype=np.uint8)
+    out = {"chunks": CHUNK_TREE_N, "dirty": CHUNK_TREE_DIRTY, "append": CHUNK_TREE_APPEND}
+    was = telemetry.enabled()
+    telemetry.set_enabled(True)
+    try:
+        ssz_bulk.clear_memo()
+        f0 = forest()
+        zero_counts()
+        roots = []
+        sync()
+        t0 = time.perf_counter()
+        handle = ssz_bulk.build_chunk_tree(chunks, device=dev)
+        roots.append(handle.root())
+        t1 = time.perf_counter()
+        handle.update(idx, rows)
+        roots.append(handle.root())
+        t2 = time.perf_counter()
+        out["update_pairs_per_level"] = list(handle.tree.last_pairs_per_level)
+        handle.append(more)
+        roots.append(handle.root())
+        t3 = time.perf_counter()
+        out["launches"] = counts()["sha256_pairs"]
+        out["forest_deltas"] = dict(zip(names, (b - a for a, b in zip(f0, forest()))))
+        out["ms"] = {"build": (t1 - t0) * 1e3, "update": (t2 - t1) * 1e3,
+                     "append": (t3 - t2) * 1e3}
+    finally:
+        telemetry.set_enabled(was)
+    n0 = sha256_cuda.counter.launches
+    plain = ssz_bulk.build_chunk_tree(chunks, device=dev, pair_fn=sha256.sha256_pairs)
+    plain_roots = [plain.root()]
+    plain.update(idx, rows)
+    plain_roots.append(plain.root())
+    plain.append(more)
+    plain_roots.append(plain.root())
+    if sha256_cuda.counter.launches != n0:
+        raise AssertionError("chunk tree: the plain pair hash launched the kernel")
+    ssz_bulk.clear_memo()
+    t0 = time.perf_counter()
+    want = [ssz_bulk.merkleize_chunk_array(chunks)]
+    chunks[idx] = rows
+    want.append(ssz_bulk.merkleize_chunk_array(chunks))
+    want.append(ssz_bulk.merkleize_chunk_array(np.concatenate([chunks, more])))
+    out["hashlib_s"] = time.perf_counter() - t0
+    if roots != plain_roots or roots != want:
+        raise AssertionError("chunk tree: a root != merkleize_chunk_array / the plain route")
+    return out
+
+
+def phase1_drive(spec, state, sync, blocks=None):
+    """The phase-1 drive on `state` (three slots before the end of its
+    epoch): a block carrying one custody key reveal and one early derived
+    secret reveal, signed on the host; a custody key reveal with another
+    validator's signature, rejected by process_custody_key_reveal before
+    it writes; the epoch boundary through process_epoch_soa (the staged
+    route); the state root; a block in the new epoch. Builds and times the
+    blocks, or, given `blocks`, replays them untimed. Returns (rows, the
+    blocks): one row per step with its ms and launches by kernel."""
+    rows = []
+    build = blocks is None
+    blocks = [] if build else list(blocks)
+
+    def step(kind, fn):
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        rows.append({"kind": kind, "ms": (time.perf_counter() - t0) * 1e3, **counts()})
+
+    step("slot", lambda: spec.process_slots(state, int(state.slot) + 1))
+    if build:
+        r, r2, a, m = 1_000, 1_001, 2_000, 3_000      # keys of r, r2, a, m differ
+        period = state.validator_registry[r].next_custody_reveal_period
+        rev_epoch = spec.get_randao_epoch_for_custody_period(period, r)
+        reveal = bls_host.sign(spec.hash_tree_root(rev_epoch), key_of(r), spec.get_domain(
+            state, spec.DOMAIN_RANDAO, message_epoch=rev_epoch))
+        epoch = spec.get_current_epoch(state) + spec.RANDAO_PENALTY_EPOCHS
+        mask = hashlib.sha256(b"mask").digest()
+        domain = spec.get_domain(state, spec.DOMAIN_RANDAO, message_epoch=epoch)
+        secret = bls_host.compress_g2(bls_host.ec_add(
+            bls_host.decompress_g2(bls_host.sign(spec.hash_tree_root(epoch), key_of(a), domain)),
+            bls_host.decompress_g2(bls_host.sign(mask, key_of(m), domain))))
+        bad = spec.CustodyKeyReveal(revealer_index=r2, reveal=reveal)
+
+        def reject():
+            try:
+                spec.process_custody_key_reveal(state, bad)
+            except AssertionError:
+                return
+            raise AssertionError("phase1: a reveal with a swapped signature was accepted")
+        step("reveal with a swapped signature, rejected", reject)
+        if state.validator_registry[r2].next_custody_reveal_period != 0:
+            raise AssertionError("phase1: the rejected reveal wrote the state")
+        blocks.append(proposed_block(
+            spec, state,
+            custody_key_reveals=[spec.CustodyKeyReveal(revealer_index=r, reveal=reveal)],
+            early_derived_secret_reveals=[spec.EarlyDerivedSecretReveal(
+                revealed_index=a, epoch=epoch, reveal=secret, masker_index=m, mask=mask)]))
+    step("block with 2 reveals", lambda: spec.state_transition(state, blocks[0]))
+    boundary = (spec.get_current_epoch(state) + 1) * spec.SLOTS_PER_EPOCH
+    step("slots + boundary (process_epoch_soa, staged)",
+         lambda: process_slots_bridged(spec, state, boundary))
+    step("state root", lambda: spec.hash_tree_root(state))
+    if build:
+        blocks.append(proposed_block(spec, state))
+    step("block in the new epoch", lambda: spec.state_transition(state, blocks[1]))
+    return rows, blocks
+
+
+def drive_phase1(V: int, v_check: int, sync, dev):
+    """Phase1Spec on mainnet at V validators (keys cycled over N_KEYS
+    keypairs), an attested state three slots before the end of epoch
+    PERSISTENT_COMMITTEE_PERIOD + 1 (every validator past its first
+    custody period), BLS on "torch", the bulk state root installed:
+    phase1_drive. The same blocks replayed on a copy through a spec whose
+    pair hash is the plain one (BLS off: the signatures were checked) must
+    end on the same root and launch no kernel. At v_check validators, BLS
+    off, a boundary far enough out that @process_challenge_deadlines slashes
+    an overdue challenge's responder between the two device stages:
+    process_epoch_soa must equal Phase1Spec.process_epoch on a deepcopy.
+    Returns (the numbers, the spec, the final state) for the light
+    client."""
+    from consensus_specs_tpu_torch.crypto import bls as spec_bls
+    spec = phase1.get_spec("mainnet", device=dev)
+    spe = spec.SLOTS_PER_EPOCH
+    pubs = [bls_host.privtopub(k + 1) for k in range(N_KEYS)]
+    slot = (spec.PERSISTENT_COMMITTEE_PERIOD + 2) * spe - 3
+    t0 = time.perf_counter()
+    state = attested_state(spec, V, slot, lambda i: pubs[i % N_KEYS], dev)
+    start = ssz_impl.serialize(state, spec.BeaconState)
+    out = {"validators": V, "slot": slot, "build_s": time.perf_counter() - t0}
+    was_active = spec_bls.bls_active
+    try:
+        spec_bls.bls_active = True
+        spec_bls.set_backend("torch")
+        ssz_bulk.clear_memo()
+        spec_helpers.install_bulk_state_root(device=dev)
+        rows, blocks = phase1_drive(spec, state, sync)
+        root = spec.hash_tree_root(state)
+        out["rows"] = rows
+        out["slots"] = (slot, int(state.slot))
+
+        plain = phase1.Phase1Spec(load_preset("mainnet"), device=dev,
+                                  pair_fn=sha256.sha256_pairs)
+        spec_bls.bls_active = False
+        ssz_bulk.clear_memo()
+        spec_helpers.install_bulk_state_root(device=dev, pair_fn=sha256.sha256_pairs)
+        t0 = time.perf_counter()
+        twin = ssz_impl.deserialize(start, plain.BeaconState)
+        plain_rows, _ = phase1_drive(plain, twin, sync, [
+            convert_spec(b, spec, plain, "BeaconBlock") for b in blocks])
+        if plain.hash_tree_root(twin) != root:
+            raise AssertionError("phase1: final root != the plain pair hash's drive")
+        out["plain_s"] = time.perf_counter() - t0
+        if sum(row["sha256_pairs"] for row in plain_rows):
+            raise AssertionError("phase1: the plain pair hash launched the kernel")
+        del twin
+
+        spec_helpers.set_state_root_backend(None)
+        small = attested_state(spec, v_check, (spec.CUSTODY_RESPONSE_DEADLINE + 3) * spe - 1,
+                               lambda i: i.to_bytes(48, "little"), dev, CHECK_ATT_SLOTS)
+        responder = 5
+        small.custody_chunk_challenge_records.append(spec.CustodyChunkChallengeRecord(
+            challenge_index=0, challenger_index=1, responder_index=responder,
+            inclusion_epoch=0, data_root=b"\x01" * 32, depth=0, chunk_index=0))
+        small.custody_challenge_index = 1
+        ref = copy.deepcopy(small)
+        t0 = time.perf_counter()
+        spec.process_epoch(ref)
+        epoch_soa.process_epoch_soa(spec, small)
+        out["check_s"] = time.perf_counter() - t0
+        if ssz_impl.serialize(small, spec.BeaconState) != ssz_impl.serialize(ref, spec.BeaconState):
+            raise AssertionError(f"phase1: V={v_check} staged boundary != Phase1Spec.process_epoch")
+        if not small.validator_registry[responder].slashed:
+            raise AssertionError("phase1: the overdue challenge's responder was not slashed")
+        out["check_validators"] = v_check
+    finally:
+        spec_helpers.set_state_root_backend(None)
+        spec_bls.bls_active = was_active
+    return out, spec, state
+
+
+def drive_light_client(spec, state, sync):
+    """The light client on the phase-1 state after its drive, BLS on
+    "torch": build_validator_memory; compute_committee ==
+    get_persistent_committee for LIGHT_CLIENT_SHARD; prove_period_data and
+    verify_period_data against the state's bulk root (a forged seed
+    rejected); a BlockValidityProof of the shard committee's aggregate
+    signature (signed on the host) verified through spec.bls on the card,
+    and the same proof with the signature of another message rejected.
+    Returns the numbers and the proof verify's launches by kernel."""
+    from consensus_specs_tpu_torch.crypto import bls as spec_bls
+    slot, shard = int(state.slot), LIGHT_CLIENT_SHARD
+    out = {"validators": len(state.validator_registry), "slot": slot, "shard": shard}
+    header = spec.BeaconBlockHeader(slot=slot, parent_root=spec.signing_root(
+        state.latest_block_header), state_root=bytes(state.latest_state_roots[
+            (slot - 1) % spec.SLOTS_PER_HISTORICAL_ROOT]))
+    was_active = spec_bls.bls_active
+    try:
+        spec_bls.bls_active = True
+        spec_bls.set_backend("torch")
+        t0 = time.perf_counter()
+        memory = light_client.build_validator_memory(spec, state, slot, shard, header)
+        t1 = time.perf_counter()
+        committee = light_client.compute_committee(spec, header, memory)
+        t2 = time.perf_counter()
+        if committee != spec.get_persistent_committee(state, shard, slot) or not committee:
+            raise AssertionError("light client: compute_committee != get_persistent_committee")
+        out.update(memory_ms=(t1 - t0) * 1e3, committee_ms=(t2 - t1) * 1e3,
+                   committee=len(committee))
+        root = ssz_bulk.state_root_bulk(state, spec.device)
+        t0 = time.perf_counter()
+        pd, proof = light_client.prove_period_data(spec, state, slot, shard, later=True)
+        t1 = time.perf_counter()
+        ok = light_client.verify_period_data(spec, root, pd, proof, slot, shard, later=True)
+        t2 = time.perf_counter()
+        forged = copy.deepcopy(pd)
+        forged.seed = b"\x55" * 32
+        if not ok or light_client.verify_period_data(spec, root, forged, proof, slot, shard,
+                                                     later=True):
+            raise AssertionError("light client: period data verdicts wrong")
+        out.update(prove_ms=(t1 - t0) * 1e3, verify_period_ms=(t2 - t1) * 1e3,
+                   proof_nodes=len(proof.partial.proof) + len(proof.partial.values))
+        parent = spec.ShardBlock(
+            slot=slot, shard=shard, beacon_chain_root=spec.signing_root(header),
+            parent_root=spec.ZERO_HASH,
+            data=spec.ShardBlockBody(data=b"\x00" * spec.BYTES_PER_SHARD_BLOCK_BODY),
+            state_root=spec.ZERO_HASH)
+        domain = spec.bls_domain(spec.DOMAIN_SHARD_ATTESTER, bytes(memory.fork_version))
+        good = light_client.BlockValidityProof(
+            header=header, shard_bitfield=full_bitfield(len(committee)),
+            shard_aggregate_signature=sign_committee(committee, spec.signing_root(parent), domain),
+            shard_parent_block=parent)
+        bad = copy.copy(good)
+        bad.shard_aggregate_signature = sign_committee(committee, spec.signing_root(header), domain)
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        if not light_client.verify_block_validity_proof(spec, good, memory):
+            raise AssertionError("light client: the block validity proof was rejected")
+        sync()
+        out["proof_ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = counts()
+        t0 = time.perf_counter()
+        if light_client.verify_block_validity_proof(spec, bad, memory):
+            raise AssertionError("light client: a proof with a swapped signature was accepted")
+        out["reject_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        spec_bls.bls_active = was_active
+    return out
+
+
+def drive_slice8(rng, sync, dev, v=V_BLOCKS, v_check=V_REFERENCE):
+    """The paths of slice 8, each driven with the counts at 0 just before
+    it and read just after: the epoch bridge, the chunk tree, phase 1 and
+    the light client on phase 1's final state. Returns the numbers."""
+    spec = phase0.get_spec("mainnet", device=dev)
+    out = {"bridge": drive_epoch_bridge(spec, v, v_check, sync, dev)}
+    torch.cuda.empty_cache()
+    out["chunk_tree"] = drive_chunk_tree(dev, rng, sync)
+    torch.cuda.empty_cache()
+    out["phase1"], p1_spec, p1_state = drive_phase1(v, v_check, sync, dev)
+    out["phase1_launches"] = {k: sum(row[k] for row in out["phase1"]["rows"])
+                              for k in ("sha256_pairs",) + tuple(FQ_COUNTERS)}
+    out["light_client"] = drive_light_client(p1_spec, p1_state, sync)
+    return out
+
+
+def report_slice8(s8) -> None:
+    """Print slice 8's phase lines."""
+    br = s8["bridge"]
+    t = br["timings_ms"]
+    log(f"phase epoch bridge: process_epoch_soa V={br['validators']:,} mainnet, object"
+        f" state with {br['pending']:,} pending attestations (built in {br['build_s']:.1f} s,"
+        f" untimed), BLS off, bulk state root installed | {br['epoch_ms']:.1f} ms: distill"
+        f" {t['distill']:.1f} / perm {t['perm']:.1f} / device {t['device']:.1f} / writeback"
+        f" {t['writeback']:.1f} | state root {br['root_ms']:.1f} ms | sha256_pairs launches"
+        f" {br['launches']} | justified {br['justified']} | root == the plain pair hash's"
+        f" ({br['plain_s']:.1f} s, 0 kernel launches) | V={br['check_validators']:,}: =="
+        f" the object model's process_epoch byte for byte ({br['check_s']:.1f} s)")
+    ct = s8["chunk_tree"]
+    log(f"phase chunk tree: build_chunk_tree of {ct['chunks']:,} chunks {ct['ms']['build']:.1f}"
+        f" ms (with root) | update of {ct['dirty']} rows {ct['ms']['update']:.1f} ms, pairs"
+        f" per level {ct['update_pairs_per_level']} | append of {ct['append']:,} rows (crosses"
+        f" 2**20) {ct['ms']['append']:.1f} ms | sha256_pairs launches {ct['launches']} |"
+        f" merkle.forest deltas {ct['forest_deltas']} | the three roots =="
+        f" merkleize_chunk_array (hashlib, {ct['hashlib_s']:.1f} s) and the plain pair hash's")
+    ph = s8["phase1"]
+    for row in ph["rows"]:
+        log(f"phase phase1: {row['kind']}: {row['ms']:.1f} ms | sha256_pairs"
+            f" {row['sha256_pairs']} / fq_mul {row['fq_mul']} / fq_bilinear {row['fq_bilinear']}"
+            f" / fq_bilinear_chain {row['fq_bilinear_chain']} launches")
+    log(f"phase phase1: Phase1Spec V={ph['validators']:,} mainnet, slots {ph['slots'][0]}-"
+        f"{ph['slots'][1]} (state built in {ph['build_s']:.1f} s, untimed), BLS on the torch"
+        f" backend, bulk state root installed | launches {s8['phase1_launches']} | final root"
+        f" == the same blocks with the plain pair hash ({ph['plain_s']:.1f} s, 0 kernel"
+        f" launches) | V={ph['check_validators']:,} staged boundary with a hook slashing"
+        f" between the stages == Phase1Spec.process_epoch ({ph['check_s']:.1f} s)")
+    lc = s8["light_client"]
+    log(f"phase light client: V={lc['validators']:,}, slot {lc['slot']}, shard {lc['shard']} |"
+        f" build_validator_memory {lc['memory_ms']:.1f} ms | compute_committee"
+        f" {lc['committee_ms']:.1f} ms, {lc['committee']} members == get_persistent_committee"
+        f" | prove_period_data {lc['prove_ms']:.1f} ms ({lc['proof_nodes']} nodes),"
+        f" verify_period_data {lc['verify_period_ms']:.1f} ms, a forged seed rejected |"
+        f" BlockValidityProof verified through spec.bls {lc['proof_ms']:.1f} ms, fq_mul"
+        f" {lc['launches']['fq_mul']} / fq_bilinear {lc['launches']['fq_bilinear']} /"
+        f" fq_bilinear_chain {lc['launches']['fq_bilinear_chain']} launches; the swapped"
+        f" signature rejected in {lc['reject_ms']:.1f} ms")
 
 
 def beacon_state(spec, V: int, slot: int, pubkey_of, dev):
@@ -1570,14 +2062,18 @@ def sign_committee(committee, msg, domain) -> bytes:
     return bls_host.sign(msg, sum(key_of(int(i)) for i in committee) % bls_host.r, domain)
 
 
-def proposed_block(spec, state, attestations=(), exits=(), signed=True):
+def proposed_block(spec, state, attestations=(), exits=(), signed=True, **operations):
     """A block at state.slot (the state already advanced to it) carrying
-    the operations, with the proposer's randao reveal and signature."""
+    the operations (`operations`: further body lists by name, such as
+    phase 1's custody_key_reveals), with the proposer's randao reveal and
+    signature."""
     block = spec.BeaconBlock(slot=state.slot,
                              parent_root=spec.signing_root(state.latest_block_header))
     block.body.eth1_data.deposit_count = state.deposit_index
     block.body.attestations = list(attestations)
     block.body.voluntary_exits = list(exits)
+    for name, ops in operations.items():
+        setattr(block.body, name, list(ops))
     if signed:
         key = key_of(spec.get_beacon_proposer_index(state))
         epoch = spec.get_current_epoch(state)
@@ -1997,7 +2493,8 @@ def report_spec_path(sp) -> dict:
     a = sp["api"]
     log(f"phase api: BeaconNodeAPI V={a['validators']:,} mainnet (state built in"
         f" {a['build_s']:.1f} s, untimed), BLS on the torch backend | duties of 16 pubkeys"
-        f" {a['duties_ms']:.1f} ms == get_committee_assignment | produce_block"
+        f" {a['duties_ms']:.1f} ms == get_committee_assignment | bulk state root installed"
+        f" on the card from here | produce_block"
         f" {a['produce_ms']:.1f} ms | swapped signature rejected with 400 in"
         f" {a['reject_ms']:.1f} ms, head unchanged | publish_block {a['publish_ms']:.1f} ms"
         f" (deepcopy {a['publish_deepcopy_ms']:.1f} + transition"
@@ -2407,6 +2904,12 @@ def main() -> int:
     spec_launches = report_spec_path(sp)
     r, b = sp["resume"], sp["blocks"]
 
+    # -- 9b. slice 8: the epoch bridge, the chunk tree, phase 1, the light client
+    torch.cuda.empty_cache()
+    s8 = drive_slice8(rng, sync, dev)
+    report_slice8(s8)
+    result["slice8"] = s8
+
     # -- 10. fork choice at 1M validators ---------------------------------------
     fc = drive_fork_choice(dev, SEED + 4)
     log(f"phase fork choice: Store of {fc['blocks']} blocks ({fc['forks']} forks),"
@@ -2430,9 +2933,11 @@ def main() -> int:
         "launches_by_path": {"resident_columns": main_launches,
                              "spec_resume": r["launches"],
                              "spec_blocks": b["sha256_launches"],
-                             # the API's publish roots its states with the
-                             # object model's host path: no pair-hash launch
-                             "recovery": sp["resilience"]["recovery_launches"]},
+                             "recovery": sp["resilience"]["recovery_launches"],
+                             "epoch_bridge": s8["bridge"]["launches"],
+                             "chunk_tree": s8["chunk_tree"]["launches"],
+                             "phase1": s8["phase1_launches"]["sha256_pairs"],
+                             "api": sp["api"]["publish_sha256"]},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2452,7 +2957,9 @@ def main() -> int:
                              "spec_blocks": spec_launches[name],
                              "firehose": fh["launches"][name],
                              "gossip_verify": gossip_launches[name],
-                             "api": sp["api"]["publish_fq"][name]},
+                             "api": sp["api"]["publish_fq"][name],
+                             "phase1": s8["phase1_launches"][name],
+                             "light_client": s8["light_client"]["launches"][name]},
         "max_abs_err": fq_k[name]["max_abs_err"],
         "ms": fq_k[name]["ms"],
         "plain_ms": fq_k[name]["plain_ms"],
@@ -2473,7 +2980,9 @@ def main() -> int:
                              "spec_blocks": spec_launches["fq_bilinear"],
                              "firehose": fh["launches"]["fq_bilinear"],
                              "gossip_verify": gossip_launches["fq_bilinear"],
-                             "api": sp["api"]["publish_fq"]["fq_bilinear"]},
+                             "api": sp["api"]["publish_fq"]["fq_bilinear"],
+                             "phase1": s8["phase1_launches"]["fq_bilinear"],
+                             "light_client": s8["light_client"]["launches"]["fq_bilinear"]},
         "max_abs_err": max(k["max_abs_err"] for k in fq_k["fq_bilinear"].values()),
         "ms": mul12["check_ms"],
         "plain_ms": mul12["plain_ms"],
@@ -2495,7 +3004,9 @@ def main() -> int:
                              "spec_blocks": spec_launches["fq_bilinear_chain"],
                              "firehose": fh["launches"]["fq_bilinear_chain"],
                              "gossip_verify": gossip_launches["fq_bilinear_chain"],
-                             "api": sp["api"]["publish_fq"]["fq_bilinear_chain"]},
+                             "api": sp["api"]["publish_fq"]["fq_bilinear_chain"],
+                             "phase1": s8["phase1_launches"]["fq_bilinear_chain"],
+                             "light_client": s8["light_client"]["launches"]["fq_bilinear_chain"]},
         "max_abs_err": fq_ch["max_abs_err"],
         "ms": pow_z["ms"],
         "plain_ms": pow_z["plain_ms"],

@@ -1,6 +1,8 @@
 """The numeric epoch transition over structure-of-arrays columns
 (port of consensus_specs_tpu/models/phase0/epoch_soa.py: the device
-program and its host half).
+program, its host half, and the bridges process_epoch_soa /
+process_epoch_soa_staged that run an object state's process_epoch
+through them).
 
 The same masked elementwise program as the reference: justification and
 finalization, attestation and crosslink deltas, registry updates with the
@@ -26,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ... import telemetry
 from ...ops import intmath
 from ...ops.intmath import (udivmod_u64, ule, ult, umax, umax_reduce, umin,
                             u64_key)
@@ -892,3 +895,137 @@ def _apply_validator_columns(state, new_cols) -> None:
         v.withdrawable_epoch = wd
         v.effective_balance = eff
     state.balances = arrs["balance"]
+
+
+# ===========================================================================
+# Bridges: the object model's process_epoch through the device program
+# ===========================================================================
+
+def _upload_columns(spec, state, np_cols: dict = None):
+    """Fresh device columns and scalars of `state` on spec.device (never a
+    caller's tensors: the fused program writes its columns in place)."""
+    from ... import convert
+    np_cols = np_cols if np_cols is not None else columns_np_from_state(state)
+    cols, scal, _ = convert.columns_from_numpy(
+        ValidatorColumns(**np_cols), scalars_from_state(state), None,
+        spec.device)
+    return cols, scal
+
+
+def _write_back_scalars(state, np_scal) -> None:
+    state.latest_slashed_balances = [
+        int(x) for x in np_scal.latest_slashed_balances]
+    state.latest_start_shard = int(np_scal.latest_start_shard)
+
+
+def process_epoch_soa(spec, state, timings: dict = None):
+    """Drop-in replacement for spec.process_epoch through the device
+    program on spec.device.
+
+    The host does the byte-rooted bookkeeping (justified / finalized
+    roots, randao / index-root / historical rotations, attestation
+    rotation) in the reference's write order; the device does every
+    [V]-shaped loop. A spec with phase-1 insert hooks takes
+    process_epoch_soa_staged, which runs them at process_epoch's points.
+
+    Returns the post-transition device columns and scalars (still on the
+    device). The stages run under telemetry spans "epoch.distill",
+    "epoch.perm", "epoch.device" and "epoch.writeback", fenced at span
+    exit only; with `timings`, their seconds go to the keys "distill",
+    "perm", "device" and "writeback" (zeros with telemetry off; the staged
+    route leaves `timings` untouched)."""
+    from ... import convert
+    if spec._insert_after_registry_updates or spec._insert_after_final_updates:
+        return process_epoch_soa_staged(spec, state)
+
+    with telemetry.span("epoch.distill") as sp_cols:
+        cfg = EpochConfig.from_spec(spec)
+        np_cols = columns_np_from_state(state)
+        cols, scal = _upload_columns(spec, state, np_cols)
+        current_epoch = spec.get_current_epoch(state)
+        previous_epoch = spec.get_previous_epoch(state)
+
+    if timings is not None:
+        # the two layout permutations are device work (the shuffle), not
+        # host distillation: warm them into the spec's permutation cache
+        # under their own span so "epoch.distill" stays host-only
+        with telemetry.span("epoch.perm") as sp_perm:
+            for e in (previous_epoch, current_epoch):
+                spec.get_shuffle_permutation(
+                    _active_count_np(np_cols, e), spec.generate_seed(state, e))
+        timings["perm"] = sp_perm.duration
+
+    with telemetry.span("epoch.distill") as sp_inp:
+        # crosslink records update on the host (byte roots) before the
+        # input distillation, in process_epoch's order (:1251-1262)
+        ctx = build_epoch_context(spec, state, np_cols)
+        process_crosslinks_vectorized(spec, state, ctx)
+        _, _, inp = convert.columns_from_numpy(
+            None, None, build_epoch_inputs(spec, state, ctx), spec.device)
+        if timings is not None:
+            # the uploads land in "epoch.distill", not in the program's span
+            sp_inp.fence(cols, scal, inp)
+
+    with telemetry.span("epoch.device") as sp_dev:
+        dev_cols, dev_scal, dev_report = epoch_transition_device(
+            cfg, cols, scal, inp)
+        sp_dev.fence(dev_cols.balance)
+
+    with telemetry.span("epoch.writeback") as sp_wb:
+        new_cols, new_scal, report = convert.columns_to_numpy(
+            dev_cols, dev_scal, dev_report)
+        _apply_justification(spec, state, new_scal, report,
+                             previous_epoch, current_epoch)
+        _apply_validator_columns(state, new_cols)
+        _write_back_scalars(state, new_scal)
+        spec.final_updates_byte_rooted(state)
+
+    if timings is not None:
+        timings["distill"] = sp_cols.duration + sp_inp.duration
+        timings["device"] = sp_dev.duration
+        timings["writeback"] = sp_wb.duration
+    return dev_cols, dev_scal
+
+
+def process_epoch_soa_staged(spec, state):
+    """The device epoch for a spec WITH phase-1 insert hooks: stage A
+    (justification, rewards, registry updates) on the device, its results
+    written to the object state, the @process_reveal_deadlines /
+    @process_challenge_deadlines hooks on that state (they slash
+    validators and grow the slashed-balance table), then stage B
+    (slashings, numeric final updates) on columns distilled AGAIN from the
+    mutated state, then the byte-rooted final updates and the
+    @after_process_final_updates hooks: process_epoch's exact order
+    (1_custody-game.md:668-716). Returns stage B's device columns and
+    scalars."""
+    from ... import convert
+    cfg = EpochConfig.from_spec(spec)
+    np_cols = columns_np_from_state(state)
+    cols, scal = _upload_columns(spec, state, np_cols)
+    current_epoch = spec.get_current_epoch(state)
+    previous_epoch = spec.get_previous_epoch(state)
+
+    ctx = build_epoch_context(spec, state, np_cols)
+    process_crosslinks_vectorized(spec, state, ctx)
+    _, _, inp = convert.columns_from_numpy(
+        None, None, build_epoch_inputs(spec, state, ctx), spec.device)
+
+    mid_cols, mid_scal, report = convert.columns_to_numpy(
+        *_stage_a(cfg, cols, scal, inp))
+    _apply_justification(spec, state, mid_scal, report,
+                         previous_epoch, current_epoch)
+    _apply_validator_columns(state, mid_cols)
+
+    for hook in spec._insert_after_registry_updates:
+        hook(state)
+
+    cols2, scal2 = _upload_columns(spec, state)
+    dev_cols, dev_scal = _stage_b(cfg, cols2, scal2)
+    b_cols, b_scal, _ = convert.columns_to_numpy(dev_cols, dev_scal)
+    _apply_validator_columns(state, b_cols)
+    _write_back_scalars(state, b_scal)
+
+    spec.final_updates_byte_rooted(state)
+    for hook in spec._insert_after_final_updates:
+        hook(state)
+    return dev_cols, dev_scal

@@ -57,6 +57,27 @@ def set_state_root_backend(backend) -> None:
     _state_root_backend = backend
 
 
+def install_bulk_state_root(min_validators: int = 0, device="cuda",
+                            pair_fn=None) -> None:
+    """Route spec.hash_tree_root(state) through bulk.state_root_bulk on
+    `device` (the kernel pair hash on a CUDA device; `pair_fn` replaces
+    it, as the checks do). Below `min_validators` the backend declines and
+    the recursive oracle roots the state. The backend is the module's one
+    installed hook, shared by every spec object: undo it with
+    set_state_root_backend(None). Raises without a card unless `device`
+    says otherwise."""
+    from ...device import resolve
+    from ...utils.ssz import bulk
+    dev = resolve(device)
+
+    def backend(state):
+        if len(state.validator_registry) < min_validators:
+            return None
+        return bulk.state_root_bulk(state, dev, pair_fn)
+
+    set_state_root_backend(backend)
+
+
 def hash_tree_root(spec, obj: Any, typ: Any = None) -> bytes:
     if (_state_root_backend is not None and typ is None
             and obj.__class__ is getattr(spec, "BeaconState", None)):

@@ -64,7 +64,8 @@ from .epoch_soa import (EpochConfig, EpochInputs, EpochScalars,
                         build_epoch_inputs, columns_np_from_state,
                         epoch_transition_device,
                         process_crosslinks_vectorized, scalars_from_state,
-                        _apply_justification, _apply_validator_columns)
+                        _apply_justification, _apply_validator_columns,
+                        _write_back_scalars)
 
 
 class ResidentColumns:
@@ -746,9 +747,7 @@ class ResidentCore:
                 None, dev_scal, dev_report)
             _apply_justification(spec, state, new_scal, report,
                                  previous_epoch, current_epoch)
-            state.latest_slashed_balances = [
-                int(x) for x in new_scal.latest_slashed_balances]
-            state.latest_start_shard = int(new_scal.latest_start_shard)
+            _write_back_scalars(state, new_scal)
             # refresh ONLY the columns host logic reads; slashed never
             # changes in the epoch program, balances stay device-only
             for f in ("activation_epoch", "exit_epoch", "effective_balance"):

@@ -17,6 +17,11 @@ device, the plain twin on the CPU; `pair_fn` replaces it, as the checks
 do); smaller levels, and every level when `device` is None, stay on
 hashlib. A content-keyed memo turns unchanged subtrees into dict hits.
 
+Tree handles. build_chunk_tree(chunks, device, pair_fn) keeps a chunk
+matrix's Merkle levels resident on `device` (utils/ssz/incremental.py)
+and re-hashes only the root paths of updated or appended rows; its memo
+entries are evicted together with the forest's invalidation.
+
 Device half. Registry and balances roots from device-resident columns:
 pubkeys [V, 48] and withdrawal credentials [V, 32] uint8; epochs,
 effective balance and balances [V] int64 holding uint64 bit patterns;
@@ -106,6 +111,17 @@ def _memo_put(kind, key: bytes, value) -> None:
     _memo_bytes += len(key) + len(value) + 64
 
 
+def _memo_evict(kind, key: bytes) -> None:
+    """Drop one memo entry (mirror of _memo_put's accounting). The tree
+    handles call it when a forest invalidates a leaf range: the entries
+    they inserted for the superseded content come out at once instead of
+    lingering until the wholesale cap clear."""
+    global _memo_bytes
+    value = _memo.pop((kind, key), None)
+    if value is not None:
+        _memo_bytes = max(0, _memo_bytes - (len(key) + len(value) + 64))
+
+
 def clear_memo() -> None:
     """Forget every memoized subtree (a check that must hash everything
     again through another pair function starts from here)."""
@@ -180,6 +196,95 @@ def subtree_roots_batch(leaves: np.ndarray, device=None,
     if key is not None:
         _memo_put(("srb", P), key, np.ascontiguousarray(roots).tobytes())
     return roots
+
+
+# ---------------------------------------------------------------------------
+# Tree-handle API: build -> update(leaf_idx, rows) -> root
+#
+# merkleize_chunk_array answers one-shot roots; a caller that OWNS a chunk
+# matrix and changes a few rows at a time gets a persistent handle instead:
+# the incremental forest (utils/ssz/incremental.py) keeps every tree level
+# resident on the device and re-hashes only the dirty root paths,
+# O(dirty * log N) pair lanes a root instead of O(N).
+# ---------------------------------------------------------------------------
+
+class ChunkTreeHandle:
+    """Incremental root over an [N, 32] uint8 chunk matrix, its forest on
+    `device` (the kernel pair hash on a CUDA device unless `pair_fn`
+    replaces it).
+
+    Keeps a host mirror of the chunks (updates come from the host) so the
+    content-keyed memo stays coherent: `root()` inserts its result under
+    the current content key as merkleize_chunk_array does, and every
+    invalidation (update / append) EVICTS the entries this handle put
+    there. Forest invalidation and memo eviction move together, so a stale
+    root is never served for superseded content. A rejected update (the
+    forest validates before it writes) leaves mirror and forest as they
+    were."""
+
+    def __init__(self, chunks: np.ndarray, device="cuda",
+                 pair_fn: Optional[PairFn] = None):
+        from .incremental import tree_from_chunks
+        self._chunks = np.array(chunks, dtype=np.uint8)   # owned host mirror
+        if self._chunks.ndim != 2 or self._chunks.shape[1] != 32:
+            raise ValueError(f"expected [n, 32] chunks, got {self._chunks.shape}")
+        self.tree = tree_from_chunks(self._chunks, pair_fn, device)
+        self._memo_keys: list = []
+        self._memo_stale = True   # content not yet offered to the memo
+
+    @property
+    def n(self) -> int:
+        return self._chunks.shape[0]
+
+    def root(self) -> bytes:
+        root = self.tree.root()
+        n = self.n
+        # offer the root to the shared memo ONCE per content generation:
+        # the O(N) key build must not recur on every steady-state root
+        if (self._memo_stale and _MEMO_MIN_CHUNKS <= n
+                and n * 32 <= _MEMO_MAX_KEY):
+            key = self._chunks.tobytes()
+            if ("mca", key) not in _memo:
+                _memo_put("mca", key, root)
+                self._memo_keys.append(("mca", key))
+            self._memo_stale = False
+        return root
+
+    def _rows_words(self, rows: np.ndarray) -> torch.Tensor:
+        words = (bytes_to_words(rows) if rows.shape[0]
+                 else np.zeros((0, 8), np.uint32))
+        return words_tensor(words, self.tree.device)
+
+    def update(self, leaf_idx, rows: np.ndarray) -> None:
+        """Overwrite chunk rows; O(len(leaf_idx) * log N) re-hash."""
+        rows = np.asarray(rows, np.uint8).reshape(-1, 32)
+        self.invalidate_memo()
+        # the forest validates (unique, in range) BEFORE it writes: a
+        # rejected update must leave mirror and forest consistent, or the
+        # next root() would memoize the old root under the new content key
+        self.tree.update(leaf_idx, self._rows_words(rows))
+        self._chunks[np.asarray(leaf_idx, np.int64)] = rows
+
+    def append(self, rows: np.ndarray) -> None:
+        """Grow the chunk matrix (crossing padded powers of two included)."""
+        rows = np.asarray(rows, np.uint8).reshape(-1, 32)
+        self.invalidate_memo()
+        self.tree.append(self._rows_words(rows))
+        self._chunks = np.concatenate([self._chunks, rows])
+
+    def invalidate_memo(self) -> None:
+        """Evict every memo entry this handle inserted (its content is
+        about to be superseded)."""
+        for kind, key in self._memo_keys:
+            _memo_evict(kind, key)
+        self._memo_keys.clear()
+        self._memo_stale = True
+
+
+def build_chunk_tree(chunks: np.ndarray, device="cuda",
+                     pair_fn: Optional[PairFn] = None) -> ChunkTreeHandle:
+    """Tree-handle entry point (`build` of build -> update -> root)."""
+    return ChunkTreeHandle(chunks, device, pair_fn)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,13 @@ rewrites it in place; here the scatter is an in-place `index_copy_` on the
 resident level tensor. Dirty index sets still pad to the next power of
 two (repeating the last index: duplicate lanes hash and write identical
 rows), which keeps the pair-lane accounting identical to the reference's.
+
+Process-wide forest accounting goes to the telemetry registry as the
+reference's does: `merkle.forest.pair_lanes` (pair lanes hashed),
+`merkle.forest.launches` (pair-hash calls, one per level an operation
+touches) and `merkle.forest.builds` (full builds). The per-tree attributes
+(`last_pairs_per_level`, `total_pairs_hashed`, `builds`) stay the view of
+one tree.
 """
 from __future__ import annotations
 
@@ -27,8 +34,13 @@ import torch
 from ...device import resolve
 from ...ops.sha256 import (PairFn, bytes_to_words, pair_hash_words,
                            words_tensor, words_to_bytes, zerohash_rows)
+from ...telemetry import counter as _tele_counter
 from ..hash import ZERO_BYTES32
 from ..merkle import next_power_of_two, tree_depth
+
+_PAIR_LANES = _tele_counter("merkle.forest.pair_lanes")
+_PAIR_LAUNCHES = _tele_counter("merkle.forest.launches")
+_FOREST_BUILDS = _tele_counter("merkle.forest.builds")
 
 
 def _pad_pow2_indices(idx: np.ndarray) -> np.ndarray:
@@ -83,11 +95,14 @@ class IncrementalMerkleTree:
             self.last_pairs_per_level.append(0)
         self.last_pairs_per_level[depth] += lanes
         self.total_pairs_hashed += lanes
+        _PAIR_LANES.inc(lanes)
+        _PAIR_LAUNCHES.inc()
 
     # -- full build (the epoch-boundary degenerate case) --------------------
 
     def _build(self) -> None:
         self.builds += 1
+        _FOREST_BUILDS.inc()
         self.last_pairs_per_level = []
         level = self.levels[0]
         del self.levels[1:]
