@@ -123,6 +123,25 @@ before it and read just after:
     BlockValidityProof verified through spec.bls on the card and the same
     proof with another message's signature rejected.
 
+Slice 9, each path with the counts at 0 just before it and read just after:
+
+  * bls oracle (after the BLS phases): TorchBackend on the card against
+    the port's own bignum PythonBackend ("python") on the host: a single
+    verify, an aggregate verify of 4 keys (each side aggregating), a
+    swapped signature; verdicts equal, each side's ms;
+  * mesh (after phase resilience, on the resume drive's 1M state bytes):
+    ResidentCore.from_checkpoint(..., mesh=ServingMesh([cuda] * 4)) driven
+    over the same 8 slots across the 2 -> 3 boundary, every root equal to
+    the single-device drive's; the boundary's cross-shard steps fenced and
+    clocked; the drive again after a `mesh=lose:2` schedule re-planned
+    the mesh to 2 shards; a raise x3 at mesh.epoch walks the ladder to
+    single_device with the roots still equal; the grouped pairing of 8
+    groups x 2 pairs split over the 4 shards equal to the single-device
+    verdicts, one swapped group False in both. With more than one card
+    visible, the drive also runs over the distinct cards. Shards on one
+    card are separate tensors: the code a host with several cards runs,
+    less the peer-to-peer copies; no multi-GPU speed is claimed.
+
 Then the attestation firehose (consensus_specs_tpu_torch.streaming) at the
 reference's steady-state shape, 128 groups x 3 pairs a batch, a verdict
 ring of 1,024, the port's stage_example_groups(8) tiled as traffic: the
@@ -193,6 +212,7 @@ from consensus_specs_tpu_torch.ops import bls_torch, fq_cuda, fq_tower
 from consensus_specs_tpu_torch.ops import fq as fq_mod
 from consensus_specs_tpu_torch.ops import shuffle as shuffle_mod
 from consensus_specs_tpu_torch.utils.config import load_preset
+from consensus_specs_tpu_torch.parallel.sharding import ServingMesh
 from consensus_specs_tpu_torch.networking.gossip import (GossipRouter,
                                                          TOPIC_BEACON_ATTESTATION)
 from consensus_specs_tpu_torch.utils.ssz import bulk as ssz_bulk
@@ -246,6 +266,11 @@ CHUNK_TREE_DIRTY = 64       # rows of its update
 CHUNK_TREE_APPEND = 1_000   # rows of its append (crosses 2**20)
 LIGHT_CLIENT_SHARD = 3
 CHECK_ATT_SLOTS = 2         # attested slots an epoch in the object-model checks
+
+# slice 9: the serving mesh and the bignum oracle
+MESH_SHARDS = 4             # shards of the mesh on one card
+MESH_GROUPS = 8             # groups of the sharded grouped pairing (2 pairs each)
+MESH_BAD_GROUP = 5          # the group whose key is swapped
 
 N_KEYS = 64                 # keypairs cycled over the committee members
 BLS_DOMAIN = 0x0100000000000000 + 1
@@ -1437,6 +1462,217 @@ def drive_resilience(spec, data: bytes, want, sync):
     return out
 
 
+def drive_bls_oracle(dev):
+    """phase bls oracle: three verdicts of TorchBackend on the card against
+    the port's own bignum PythonBackend (crypto/bls12_381.py, "python") on
+    the host: a single verify, an aggregate verify of 4 keys (each
+    backend aggregating the keys and signatures itself), a swapped
+    signature. Returns ms per verdict on each side and the card's
+    launches; raises on any disagreement."""
+    tb, py = bls_torch.TorchBackend(dev), bls_host.PythonBackend()
+    msg = bytes(range(32))
+    keys = [11, 12, 13, 14]
+    pubs = [bls_host.privtopub(k) for k in keys]
+    sigs = [bls_host.sign(msg, k, BLS_DOMAIN) for k in keys]
+    cases = {"single": ((pubs[0], msg, sigs[0], BLS_DOMAIN), True),
+             "swapped": ((pubs[0], msg, sigs[1], BLS_DOMAIN), False)}
+    out = {"cases": {}}
+    zero_fq_counters()
+    agg_pub, agg_sig = tb.aggregate_pubkeys(pubs), tb.aggregate_signatures(sigs)
+    if (agg_pub, agg_sig) != (py.aggregate_pubkeys(pubs), py.aggregate_signatures(sigs)):
+        raise AssertionError("bls oracle: the card's aggregates != the bignum backend's")
+    cases["aggregate of 4"] = ((agg_pub, msg, agg_sig, BLS_DOMAIN), True)
+    for name, (args, want) in cases.items():
+        card, card_ms = fenced_ms(lambda: tb.verify(*args))
+        t0 = time.perf_counter()
+        host = py.verify(*args)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if not card is host is want:
+            raise AssertionError(f"bls oracle {name}: card {card}, bignum {host}, want {want}")
+        out["cases"][name] = {"verdict": want, "card_ms": card_ms, "host_ms": host_ms}
+    out["launches"] = fq_launches()
+    if not launched_path(out["launches"]):
+        raise AssertionError(f"bls oracle: the card's verifies launched {out['launches']}")
+    return out
+
+
+def mesh_drive(spec, data: bytes, mesh, sync):
+    """ResidentCore.from_checkpoint(spec, data, mesh=mesh), its forests,
+    then the resume drive's slots one at a time across the boundary.
+    -> (numbers, per-slot roots, final root); the boundary slot's
+    cross-shard steps fenced and clocked by the mesh's exchange."""
+    ssz_bulk.clear_memo()
+    spec.clear_caches()
+    out = {"slot_ms": []}
+    core = None
+    try:
+        n0 = sha256_cuda.counter.launches
+        t0 = time.perf_counter()
+        core = ResidentCore.from_checkpoint(spec, data, mesh=mesh)
+        core._registry_balances_roots()
+        sync()
+        out["enter_ms"] = (time.perf_counter() - t0) * 1e3
+        out["enter_launches"] = sha256_cuda.counter.launches - n0
+        state = core.state
+        first = int(state.slot)
+        for _ in range(RESUME_BEFORE + RESUME_AFTER):
+            boundary = (state.slot + 1) % spec.SLOTS_PER_EPOCH == 0
+            ex = core._mesh.exchange if core._mesh is not None else None
+            if boundary and ex is not None:
+                ex.fence, ex.seconds, ex.steps = True, 0.0, 0
+            n0 = sha256_cuda.counter.launches
+            t0 = time.perf_counter()
+            core.process_slots(state, state.slot + 1)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            if boundary:
+                out["boundary_ms"], out["boundary_launches"] = ms, sha256_cuda.counter.launches - n0
+                out["boundary_parts_ms"] = {k: v * 1e3 for k, v in core.timings.items()}
+                if ex is not None:
+                    out["cross_shard_ms"], out["cross_shard_steps"] = ex.seconds * 1e3, ex.steps
+                    ex.fence = False
+            else:
+                out["slot_ms"].append(ms)
+        roots = slot_roots(core, first, int(state.slot))
+        final = core._state_root(state)
+        out["single_device_at_end"] = core._mesh is None
+    finally:
+        if core is not None:
+            core._uninstall()
+    return out, roots, final
+
+
+def pairing_groups(n_distinct: int, n_groups: int):
+    """(g1 [n_groups, 2, 2, L], g2 [n_groups, 2, 2, 2, L]) numpy: groups of
+    one signature's check, e(-G1, sig) * e(pk, H(m)) == 1, n_distinct of
+    them signed on the host and tiled."""
+    g1 = np.zeros((n_distinct, 2, 2, fq_mod.L), np.int64)
+    g2 = np.zeros((n_distinct, 2, 2, 2, fq_mod.L), np.int64)
+    for g in range(n_distinct):
+        msg, k = bytes([g + 1]) * 32, 101 + g
+        pairs = [(bls_host.ec_neg(bls_host.G1_GEN),
+                  bls_host.decompress_g2(bls_host.sign(msg, k, BLS_DOMAIN))),
+                 (bls_host.decompress_g1(bls_host.privtopub(k)),
+                  bls_host.hash_to_g2(msg, BLS_DOMAIN))]
+        g1[g] = np.stack([bls_torch.g1_to_limbs(a) for a, _ in pairs])
+        g2[g] = np.stack([bls_torch.g2_to_limbs(b) for _, b in pairs])
+    reps = -(-n_groups // n_distinct)
+    return (np.tile(g1, (reps, 1, 1, 1))[:n_groups].copy(),
+            np.tile(g2, (reps, 1, 1, 1, 1))[:n_groups].copy())
+
+
+def drive_mesh(spec, data: bytes, want, sync, dev):
+    """phase mesh on the resume drive's 1M state bytes: the drive under
+    ServingMesh([dev] * MESH_SHARDS) against the single-device drive's
+    roots (`want`), counted from 0 (its sha256_pairs launches are the mesh
+    path's); the same drive after a `mesh=lose:2` schedule re-plans the
+    mesh; a fault at mesh.epoch walks the ladder to single_device; the
+    sharded grouped pairing (MESH_GROUPS x 2 pairs) against the
+    single-device pairing, one group swapped to fail. Raises on any
+    difference."""
+    out = {}
+    devices = [dev] * MESH_SHARDS
+    mesh4 = ServingMesh(devices)
+    zero_counts()
+    out["drive"], roots, final = mesh_drive(spec, data, mesh4, sync)
+    out["launches"] = counts()
+    if roots != want["roots"] or final != want["final_root"]:
+        raise AssertionError("mesh: the sharded drive's roots != the single-device drive's")
+    out["shards"], out["distinct"] = mesh4.size, mesh4.distinct_devices
+    out["copies"] = mesh4.exchange.copies
+
+    faults.set_schedule("mesh@1=lose:2")
+    try:
+        mesh2 = ServingMesh.available(devices=devices)
+    finally:
+        faults.set_schedule(None)
+    if mesh2 is None or mesh2.size != 2:
+        raise AssertionError(f"mesh=lose:2 over {len(devices)} shards gave {mesh2}")
+    out["lose2"], roots, final = mesh_drive(spec, data, mesh2, sync)
+    if roots != want["roots"] or final != want["final_root"]:
+        raise AssertionError("mesh: the drive after mesh=lose:2 differs")
+
+    deg0 = tele_count("resilience.degradations.single_device")
+    faults.set_schedule("dispatch:*mesh.epoch*@1-3=raise")
+    try:
+        out["ladder"], roots, final = mesh_drive(spec, data, ServingMesh(devices), sync)
+    finally:
+        faults.set_schedule(None)
+        rung = resilience.ladder().rung_name
+        resilience.reset()
+    out["ladder"]["degradations"] = tele_count("resilience.degradations.single_device") - deg0
+    if roots != want["roots"] or final != want["final_root"]:
+        raise AssertionError("mesh: the drive degraded to single_device differs")
+    if not out["ladder"]["single_device_at_end"] or rung != "single_device" \
+            or out["ladder"]["degradations"] != 1:
+        raise AssertionError(f"mesh: the ladder ended at {rung}, degradations "
+                             f"{out['ladder']['degradations']}")
+
+    # the attestation axis: the groups split over the shards
+    g1, g2 = pairing_groups(2, MESH_GROUPS)
+    g1[MESH_BAD_GROUP, 1] = g1[0, 1] if MESH_BAD_GROUP % 2 else g1[1, 1]  # another key
+    t1, t2 = torch.from_numpy(g1).to(dev), torch.from_numpy(g2).to(dev)
+    expect = [k != MESH_BAD_GROUP for k in range(MESH_GROUPS)]
+    zero_fq_counters()
+    single, out["pairing_single_ms"] = fenced_ms(lambda: bls_torch.grouped_pairing_check(t1, t2))
+    out["pairing_single_launches"] = fq_launches()
+    zero_fq_counters()
+    sharded, out["pairing_sharded_ms"] = fenced_ms(lambda: mesh4.grouped_pairing_check(t1, t2))
+    out["pairing_launches"] = fq_launches()
+    if single.tolist() != expect or sharded.tolist() != expect:
+        raise AssertionError(f"mesh pairing: single {single.tolist()}, sharded "
+                             f"{sharded.tolist()}, want {expect}")
+    if not launched_path(out["pairing_launches"]):
+        raise AssertionError(f"mesh pairing launched {out['pairing_launches']}")
+
+    # distinct cards, where the machine has more than one
+    out["cards"] = torch.cuda.device_count()
+    if out["cards"] > 1:
+        cards = ServingMesh.available()
+        out["cards_drive"], roots, final = mesh_drive(spec, data, cards, sync)
+        out["cards_mesh"] = [str(d) for d in cards.devices]
+        if roots != want["roots"] or final != want["final_root"]:
+            raise AssertionError("mesh over distinct cards: roots differ")
+    return out
+
+
+def report_mesh(m, single) -> None:
+    """Print phase mesh's lines; `single` is the resume drive's numbers."""
+    d, note = m["drive"], (f"{m['shards']} shards on {m['distinct']} distinct device(s)")
+    log(f"phase mesh: {note}, V={single['validators']:,} mainnet, from_checkpoint + sharded"
+        f" forests {d['enter_ms']:.1f} ms, {d['enter_launches']} sha256_pairs launches"
+        f" (single device {single['enter_launches']}) | per-slot root ms min / median / max"
+        f" {min(d['slot_ms']):.2f} / {float(np.median(d['slot_ms'])):.2f} / {max(d['slot_ms']):.2f}"
+        f" | boundary slot {d['boundary_ms']:.1f} ms (single device"
+        f" {single['boundary_ms']:.1f}; stage {d['boundary_parts_ms']['stage']:.1f} / device"
+        f" {d['boundary_parts_ms']['device']:.1f} / refresh {d['boundary_parts_ms']['refresh']:.1f}),"
+        f" {d['boundary_launches']} launches (single device {single['boundary_launches']}),"
+        f" cross-shard steps {d['cross_shard_steps']} taking {d['cross_shard_ms']:.1f} ms"
+        f" ({d['cross_shard_ms'] / d['boundary_ms']:.1%} of it, fenced) | the path's launches"
+        f" {m['launches']['sha256_pairs']} sha256_pairs | tensors the exchange moved between"
+        f" devices {m['copies']}")
+    log(f"phase mesh checks: {note}: every per-slot root and the final root == the"
+        f" single-device drive's; after mesh=lose:2 (2 shards on {m['distinct']} distinct"
+        f" device(s)): equal again, boundary {m['lose2']['boundary_ms']:.1f} ms; a raise x3 at"
+        f" mesh.epoch walked the ladder to single_device (degradations.single_device"
+        f" {m['ladder']['degradations']}), boundary {m['ladder']['boundary_ms']:.1f} ms, roots"
+        f" equal")
+    log(f"phase mesh pairing: {MESH_GROUPS} groups x 2 pairs, {note}: verdicts == the"
+        f" single-device pairing's, group {MESH_BAD_GROUP} False in both | sharded"
+        f" {m['pairing_sharded_ms']:.1f} ms (fq_mul / fq_bilinear / chains"
+        f" {m['pairing_launches']['fq_mul']} / {m['pairing_launches']['fq_bilinear']} /"
+        f" {m['pairing_launches']['fq_bilinear_chain']}), single device"
+        f" {m['pairing_single_ms']:.1f} ms ({m['pairing_single_launches']['fq_mul']} /"
+        f" {m['pairing_single_launches']['fq_bilinear']} /"
+        f" {m['pairing_single_launches']['fq_bilinear_chain']})")
+    if m["cards"] > 1:
+        log(f"phase mesh cards: the same drive over {m['cards_mesh']}: roots equal,"
+            f" boundary {m['cards_drive']['boundary_ms']:.1f} ms")
+    else:
+        log("phase mesh cards: one card visible: the mesh over distinct cards was not run"
+            " (4 shards on one card: not a multi-GPU measurement)")
+
+
 def drive_api(spec, V: int, sync, dev):
     """The beacon-node API over an object state of V validators one slot
     before the last of its epoch, BLS on the "torch" backend: duties of 16
@@ -2429,6 +2665,8 @@ def spec_path(dev, sync, v_resume=V_RESUME, v_blocks=V_BLOCKS,
     del plain, out["resume"]["written"]
     torch.cuda.empty_cache()
     out["resilience"] = drive_resilience(spec, data, out["resume"], sync)
+    torch.cuda.empty_cache()
+    out["mesh"] = drive_mesh(spec, data, out["resume"], sync, spec.device)
     del data
     out["resume"]["roots"] = len(out["resume"]["roots"])
     out["resume"]["final_root"] = out["resume"]["final_root"].hex()
@@ -2882,6 +3120,16 @@ def main() -> int:
            else f"{tr['device_ms']:.1f} ms, idle share {tr['idle_share']:.3f}"))
     result["bls"] = bls
 
+    # -- the port's own oracle: TorchBackend on the card vs the bignum backend --
+    oracle = drive_bls_oracle(dev)
+    log("phase bls oracle: TorchBackend on the card == the port's bignum PythonBackend"
+        " (\"python\") on the host, verdict, card ms / host ms: " + "; ".join(
+            f"{name} {c['verdict']} {c['card_ms']:.1f} / {c['host_ms']:.1f}"
+            for name, c in oracle["cases"].items())
+        + f" | the card's launches fq_mul {oracle['launches']['fq_mul']} / fq_bilinear"
+          f" {oracle['launches']['fq_bilinear']} / chains {oracle['launches']['fq_bilinear_chain']}")
+    result["bls_oracle"] = oracle
+
     # -- where a launch of the main path's size stands ---------------------------
     small = small_launch_times(bls["warm_lanes"], dev, rng, shape["pairs"])
     log("phase launch: at the verify's most frequent lane counts, ms per eager"
@@ -2903,6 +3151,7 @@ def main() -> int:
     result["spec_path"] = sp
     spec_launches = report_spec_path(sp)
     r, b = sp["resume"], sp["blocks"]
+    report_mesh(sp["mesh"], r)
 
     # -- 9b. slice 8: the epoch bridge, the chunk tree, phase 1, the light client
     torch.cuda.empty_cache()
@@ -2937,7 +3186,8 @@ def main() -> int:
                              "epoch_bridge": s8["bridge"]["launches"],
                              "chunk_tree": s8["chunk_tree"]["launches"],
                              "phase1": s8["phase1_launches"]["sha256_pairs"],
-                             "api": sp["api"]["publish_sha256"]},
+                             "api": sp["api"]["publish_sha256"],
+                             "mesh": sp["mesh"]["launches"]["sha256_pairs"]},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2959,7 +3209,9 @@ def main() -> int:
                              "gossip_verify": gossip_launches[name],
                              "api": sp["api"]["publish_fq"][name],
                              "phase1": s8["phase1_launches"][name],
-                             "light_client": s8["light_client"]["launches"][name]},
+                             "light_client": s8["light_client"]["launches"][name],
+                             "bls_oracle": oracle["launches"][name],
+                             "mesh_pairing": sp["mesh"]["pairing_launches"][name]},
         "max_abs_err": fq_k[name]["max_abs_err"],
         "ms": fq_k[name]["ms"],
         "plain_ms": fq_k[name]["plain_ms"],
@@ -2982,7 +3234,9 @@ def main() -> int:
                              "gossip_verify": gossip_launches["fq_bilinear"],
                              "api": sp["api"]["publish_fq"]["fq_bilinear"],
                              "phase1": s8["phase1_launches"]["fq_bilinear"],
-                             "light_client": s8["light_client"]["launches"]["fq_bilinear"]},
+                             "light_client": s8["light_client"]["launches"]["fq_bilinear"],
+                             "bls_oracle": oracle["launches"]["fq_bilinear"],
+                             "mesh_pairing": sp["mesh"]["pairing_launches"]["fq_bilinear"]},
         "max_abs_err": max(k["max_abs_err"] for k in fq_k["fq_bilinear"].values()),
         "ms": mul12["check_ms"],
         "plain_ms": mul12["plain_ms"],
@@ -3006,7 +3260,9 @@ def main() -> int:
                              "gossip_verify": gossip_launches["fq_bilinear_chain"],
                              "api": sp["api"]["publish_fq"]["fq_bilinear_chain"],
                              "phase1": s8["phase1_launches"]["fq_bilinear_chain"],
-                             "light_client": s8["light_client"]["launches"]["fq_bilinear_chain"]},
+                             "light_client": s8["light_client"]["launches"]["fq_bilinear_chain"],
+                             "bls_oracle": oracle["launches"]["fq_bilinear_chain"],
+                             "mesh_pairing": sp["mesh"]["pairing_launches"]["fq_bilinear_chain"]},
         "max_abs_err": fq_ch["max_abs_err"],
         "ms": pow_z["ms"],
         "plain_ms": pow_z["plain_ms"],

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .device import resolve
+from .parallel.exchange import Sharded
 from .models.phase0.epoch_soa import (EpochInputs, EpochReport, EpochScalars,
                                       ValidatorColumns)
 
@@ -32,8 +33,12 @@ def to_tensor(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)   # keeps 0-d
 
 
-def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor -> a numpy copy (int64 viewed back as uint64)."""
+def to_numpy(t) -> np.ndarray:
+    """A tensor -> a numpy copy (int64 viewed back as uint64). A Sharded
+    value (parallel/exchange.py) comes down shard by shard, in row
+    order."""
+    if isinstance(t, Sharded):
+        return np.concatenate([to_numpy(s) for s in t.shards])
     a = t.detach().to("cpu", copy=True).numpy()   # never a view of live state
     return a.view(np.uint64) if a.dtype == np.int64 else a
 

@@ -4,9 +4,12 @@ consensus_specs_tpu/crypto/bls.py).
 Five spec-facing functions behind a global on/off switch: when
 `bls_active` is False every verify returns True and sign returns a stub,
 the mode unit tests run in. The active path calls the selected backend.
-The built-in backend is "torch", ops/bls_torch.py::TorchBackend on
-"cuda" (it raises without a card); `register_backend` adds others, such
-as a TorchBackend on the CPU for the tests.
+The default backend is "torch", ops/bls_torch.py::TorchBackend on
+"cuda" (it raises without a card). "python" is the bignum oracle of
+crypto/bls12_381.py (PythonBackend, about a second a verify on the host):
+it runs only where a caller names it with `set_backend("python")`, never
+as a fallback. `register_backend` adds others, such as a TorchBackend on
+the CPU for the tests.
 """
 from __future__ import annotations
 
@@ -69,7 +72,12 @@ def _register_builtin_backends() -> None:
         from ..ops.bls_torch import TorchBackend
         return TorchBackend(device="cuda")
 
+    def python_factory() -> _Backend:
+        from . import bls12_381
+        return bls12_381.PythonBackend()
+
     register_backend("torch", torch_factory)
+    register_backend("python", python_factory)
 
 
 _register_builtin_backends()

@@ -32,6 +32,7 @@ from ... import telemetry
 from ...ops import intmath
 from ...ops.intmath import (udivmod_u64, ule, ult, umax, umax_reduce, umin,
                             u64_key)
+from ...parallel.exchange import ShardExchange
 from ...utils.config import load_preset
 from ...utils.ssz import bulk
 
@@ -124,16 +125,66 @@ def _udiv(x: torch.Tensor, d) -> torch.Tensor:
     return udivmod_u64(x, d)[0]
 
 
-def _total_balance(eff: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """get_total_balance over a mask: max(sum, 1) (sum mod 2**64)."""
-    return umax(torch.where(mask, eff, 0).sum(), 1)
+def _masked_sums(eff: torch.Tensor, masks) -> torch.Tensor:
+    """[len(masks)] sums of eff over each mask (mod 2**64): one shard's
+    partials of get_total_balance."""
+    return torch.stack([torch.where(m, eff, 0).sum() for m in masks])
 
 
-def _stage_a(cfg: EpochConfig, cols: ValidatorColumns, scal: EpochScalars,
-             inp: EpochInputs):
-    """The reference's _stage_a_traced: justification/finalization +
-    rewards/penalties + registry updates. Returns (cols', scal', report)
-    as new tensors; `cols` is only read."""
+# ---------------------------------------------------------------------------
+# The program, one shard's rows at a time
+#
+# _stage_a_rows / _stage_b_rows run on one shard's rows (all of them on a
+# single device) as generators: where a row's value depends on other
+# rows they yield a request to the cross-shard exchange
+# (parallel/exchange.py::ShardExchange) and resume with its answer:
+#   ("sum", partials)          balance sums and counts (mod 2**64)
+#   ("scatter_add", (i, v, n)) the proposer rewards, by global index
+#   ("umax", x)                the exit queue's latest exit epoch
+#   ("prefix", partials)       count at the base epoch; the ejection rank
+#   ("rank", keys)             the activation queue's stable sort
+# _run_shards drives every shard's generator in lockstep. A single device
+# is the one-shard case: the exchange's answers are then the plain
+# single-tensor reductions, so both placements run the same program.
+# Integer sums are exact in any order, so the sharded program is
+# bit-identical to the single-device one.
+# ---------------------------------------------------------------------------
+
+def _run_shards(program, shard_args, exchange):
+    """Run program(*args) for every shard's args in lockstep, answering
+    each round of requests through the exchange method of the request's
+    name; -> the per-shard results."""
+    gens = [program(*args) for args in shard_args]
+    reqs = [next(g) for g in gens]
+    while True:
+        op = reqs[0][0]
+        if any(r[0] != op for r in reqs):
+            raise AssertionError(f"shards diverged: {[r[0] for r in reqs]}")
+        answers = getattr(exchange, op)([r[1] for r in reqs])
+        outs, done = [], False
+        for g, ans in zip(gens, answers):
+            try:
+                outs.append(g.send(ans))
+            except StopIteration as stop:
+                done = True
+                outs.append(stop.value)
+        if done:
+            return outs
+        reqs = outs
+
+
+def _one_shard(program, *args):
+    cols = args[1]
+    return _run_shards(program, [args],
+                       ShardExchange([cols.balance.device]))[0]
+
+
+def _stage_a_rows(cfg: EpochConfig, cols: ValidatorColumns,
+                  scal: EpochScalars, inp: EpochInputs):
+    """The reference's _stage_a_traced on one shard's rows (a generator,
+    see above): justification/finalization + rewards/penalties + registry
+    updates. Returns (cols', scal', report) as new tensors; `cols` is only
+    read. att_proposer holds global validator indices."""
     V = cols.balance.shape[0]
     dev = cols.balance.device
     FAR = _u64(cfg.FAR_FUTURE_EPOCH)
@@ -146,14 +197,20 @@ def _stage_a(cfg: EpochConfig, cols: ValidatorColumns, scal: EpochScalars,
     active_curr = ule(cols.activation_epoch, current_epoch) & ult(current_epoch, cols.exit_epoch)
     active_prev = ule(cols.activation_epoch, previous_epoch) & ult(previous_epoch, cols.exit_epoch)
     eff = cols.effective_balance
-    total_balance = _total_balance(eff, active_curr)
-    active_count = active_curr.to(_I64).sum()
+    unslashed = ~cols.slashed
+    flags = (inp.prev_src & unslashed, inp.prev_tgt & unslashed,
+             inp.prev_head & unslashed)
+    sums = yield ("sum", torch.cat([
+        _masked_sums(eff, (active_curr,) + flags + (inp.curr_tgt & unslashed,)),
+        active_curr.to(_I64).sum()[None]]))
+    total_balance = umax(sums[0], 1)            # get_total_balance: max(sum, 1)
+    att_balances = [umax(sums[k], 1) for k in (1, 2, 3)]
+    prev_tgt_balance = att_balances[1]
+    curr_tgt_balance = umax(sums[4], 1)
+    active_count = sums[5]
 
     # -- Justification and finalization -------------------------------------
     justification_active = ult(G + 1, current_epoch)
-    unslashed = ~cols.slashed
-    prev_tgt_balance = _total_balance(eff, inp.prev_tgt & unslashed)
-    curr_tgt_balance = _total_balance(eff, inp.curr_tgt & unslashed)
 
     old_prev_just = scal.previous_justified_epoch
     old_curr_just = scal.current_justified_epoch
@@ -194,18 +251,17 @@ def _stage_a(cfg: EpochConfig, cols: ValidatorColumns, scal: EpochScalars,
     penalties = torch.zeros(V, dtype=_I64, device=dev)
 
     # Micro-incentives for matching source / target / head
-    for flag in (inp.prev_src, inp.prev_tgt, inp.prev_head):
-        in_set = flag & unslashed
-        att_balance = _total_balance(eff, in_set)
+    for in_set, att_balance in zip(flags, att_balances):
         match_reward = intmath.muldiv_u64(base_reward, att_balance, total_balance)
         rewards = rewards + torch.where(eligible & in_set, match_reward, 0)
         penalties = penalties + torch.where(eligible & ~in_set, base_reward, 0)
 
-    # Proposer + inclusion-delay micro-rewards for source attesters
-    src_set = inp.prev_src & unslashed
+    # Proposer + inclusion-delay micro-rewards for source attesters (the
+    # proposer's row may lie in another shard: the exchange adds it there)
+    src_set = flags[0]
     proposer_gain = torch.where(
         src_set, _udiv(base_reward, cfg.PROPOSER_REWARD_QUOTIENT), 0)
-    rewards = rewards.index_add(0, inp.att_proposer, proposer_gain)
+    rewards = rewards + (yield ("scatter_add", (inp.att_proposer, proposer_gain, V)))
     delay = umax(inp.incl_delay, 1)
     rewards = rewards + torch.where(
         src_set, _udiv(base_reward * cfg.MIN_ATTESTATION_INCLUSION_DELAY, delay), 0)
@@ -214,7 +270,7 @@ def _stage_a(cfg: EpochConfig, cols: ValidatorColumns, scal: EpochScalars,
     # min() mirrors the reference's saturating form)
     finality_delay = previous_epoch - umin(finalized, previous_epoch)
     inactivity = ult(cfg.MIN_EPOCHS_TO_INACTIVITY_PENALTY, finality_delay)
-    tgt_set = inp.prev_tgt & unslashed
+    tgt_set = flags[1]
     penalties = penalties + torch.where(
         inactivity & eligible, cfg.BASE_REWARDS_PER_EPOCH * base_reward, 0)
     penalties = penalties + torch.where(
@@ -244,30 +300,29 @@ def _stage_a(cfg: EpochConfig, cols: ValidatorColumns, scal: EpochScalars,
         (cols.activation_eligibility_epoch == FAR) & ule(cfg.MAX_EFFECTIVE_BALANCE, eff),
         current_epoch, cols.activation_eligibility_epoch)
 
-    # Ejections -> closed-form exit queue
+    # Ejections -> closed-form exit queue (every shard's rank offset by the
+    # ejections of the shards before it)
     ejected = active_curr & ule(eff, cfg.EJECTION_BALANCE) & (cols.exit_epoch == FAR)
     delayed_exit = current_epoch + 1 + cfg.ACTIVATION_EXIT_DELAY
     has_exit = cols.exit_epoch != FAR
-    base_epoch = umax(umax_reduce(torch.where(has_exit, cols.exit_epoch, 0)),
-                      delayed_exit)
-    count_at_base = (cols.exit_epoch == base_epoch).to(_I64).sum()
-    c0 = torch.minimum(count_at_base, churn)
+    latest_exit = yield ("umax", umax_reduce(torch.where(has_exit, cols.exit_epoch, 0)))
+    base_epoch = umax(latest_exit, delayed_exit)
     ej = ejected.to(_I64)
-    rank = torch.cumsum(ej, 0) - ej
+    total, before = yield ("prefix", torch.stack(
+        [(cols.exit_epoch == base_epoch).to(_I64).sum(), ej.sum()]))
+    c0 = torch.minimum(total[0], churn)
+    rank = torch.cumsum(ej, 0) - ej + before[1]
     assigned = base_epoch + (c0 + rank) // churn
     exit_epoch = torch.where(ejected, assigned, cols.exit_epoch)
     withdrawable = torch.where(
         ejected, assigned + cfg.MIN_VALIDATOR_WITHDRAWABILITY_DELAY,
         cols.withdrawable_epoch)
 
-    # Activation queue: stable sort by eligibility epoch (unsigned order),
-    # dequeue churn-many
+    # Activation queue: stable sort by eligibility epoch (unsigned order)
+    # over every shard's rows, dequeue churn-many
     delayed_fin = finalized + 1 + cfg.ACTIVATION_EXIT_DELAY
     queued = (elig != FAR) & ule(delayed_fin, cols.activation_epoch)
-    sort_key = u64_key(torch.where(queued, elig, FAR))
-    order = torch.argsort(sort_key, stable=True)
-    pos = torch.empty(V, dtype=_I64, device=dev)
-    pos[order] = torch.arange(V, dtype=_I64, device=dev)
+    pos = yield ("rank", u64_key(torch.where(queued, elig, FAR)))
     dequeued = queued & (pos < churn)
     activation = torch.where(
         dequeued & (cols.activation_epoch == FAR),
@@ -297,16 +352,18 @@ def _stage_a(cfg: EpochConfig, cols: ValidatorColumns, scal: EpochScalars,
     return mid_cols, mid_scal, report
 
 
-def _stage_b(cfg: EpochConfig, cols: ValidatorColumns, scal: EpochScalars):
-    """The reference's _stage_b_traced: slashings + the numeric final
-    updates. Returns (cols', scal') with new effective balance and balance
-    tensors; `cols` is only read."""
+def _stage_b_rows(cfg: EpochConfig, cols: ValidatorColumns, scal: EpochScalars):
+    """The reference's _stage_b_traced on one shard's rows (a generator):
+    slashings + the numeric final updates. Returns (cols', scal') with new
+    effective balance and balance tensors; `cols` is only read."""
     eff = cols.effective_balance
     balance = cols.balance
     current_epoch = _udiv(scal.slot, cfg.SLOTS_PER_EPOCH)
     active_curr = ule(cols.activation_epoch, current_epoch) & ult(current_epoch, cols.exit_epoch)
-    total_balance = _total_balance(eff, active_curr)
-    active_count = active_curr.to(_I64).sum()
+    sums = yield ("sum", torch.cat([_masked_sums(eff, (active_curr,)),
+                                    active_curr.to(_I64).sum()[None]]))
+    total_balance = umax(sums[0], 1)
+    active_count = sums[1]
 
     # -- Slashings ----------------------------------------------------------
     L = cfg.LATEST_SLASHED_EXIT_LENGTH
@@ -352,6 +409,34 @@ def _stage_b(cfg: EpochConfig, cols: ValidatorColumns, scal: EpochScalars):
     return new_cols, new_scal
 
 
+def _epoch_rows(cfg: EpochConfig, cols: ValidatorColumns, scal: EpochScalars,
+                inp: EpochInputs):
+    """Both stages on one shard's rows: -> (cols', scal', report)."""
+    mid_cols, mid_scal, report = yield from _stage_a_rows(cfg, cols, scal, inp)
+    new_cols, new_scal = yield from _stage_b_rows(cfg, mid_cols, mid_scal)
+    return new_cols, new_scal, report
+
+
+def _stage_a(cfg: EpochConfig, cols: ValidatorColumns, scal: EpochScalars,
+             inp: EpochInputs):
+    """Stage A on one device: -> (cols', scal', report); `cols` is only
+    read."""
+    return _one_shard(_stage_a_rows, cfg, cols, scal, inp)
+
+
+def _stage_b(cfg: EpochConfig, cols: ValidatorColumns, scal: EpochScalars):
+    """Stage B on one device: -> (cols', scal'); `cols` is only read."""
+    return _one_shard(_stage_b_rows, cfg, cols, scal)
+
+
+def _write_in_place(cols: ValidatorColumns, new_cols: ValidatorColumns) -> None:
+    for f in ValidatorColumns._fields:
+        dst = getattr(cols, f)
+        src = getattr(new_cols, f)
+        if src is not dst:
+            dst.copy_(src)
+
+
 def epoch_transition_device(cfg: EpochConfig, cols: ValidatorColumns,
                             scal: EpochScalars, inp: EpochInputs):
     """The whole numeric epoch transition on the columns' device.
@@ -360,14 +445,25 @@ def epoch_transition_device(cfg: EpochConfig, cols: ValidatorColumns,
     jitted program for the same reason: no second copy of the registry),
     and returned; the scalars and report are new tensors. Returns
     (cols, scal', report)."""
-    mid_cols, mid_scal, report = _stage_a(cfg, cols, scal, inp)
-    new_cols, new_scal = _stage_b(cfg, mid_cols, mid_scal)
-    for f in ValidatorColumns._fields:
-        dst = getattr(cols, f)
-        src = getattr(new_cols, f)
-        if src is not dst:
-            dst.copy_(src)
+    new_cols, new_scal, report = _one_shard(_epoch_rows, cfg, cols, scal, inp)
+    _write_in_place(cols, new_cols)
     return cols, new_scal, report
+
+
+def epoch_transition_shards(cfg: EpochConfig, shard_cols, shard_scal,
+                            shard_inp, exchange):
+    """The same program over row shards (lists of per-shard
+    ValidatorColumns / EpochScalars / EpochInputs, shard i on
+    exchange.devices[i]; the scalars and the two crosslink tables
+    replicated on every shard's device), every cross-shard step through
+    `exchange`. Each shard's columns are updated in place. -> (the shard
+    columns, per-shard scalars', per-shard reports)."""
+    outs = _run_shards(_epoch_rows, [(cfg, c, s, i) for c, s, i in
+                                     zip(shard_cols, shard_scal, shard_inp)],
+                       exchange)
+    for cols, (new_cols, _, _) in zip(shard_cols, outs):
+        _write_in_place(cols, new_cols)
+    return shard_cols, [o[1] for o in outs], [o[2] for o in outs]
 
 
 def synthetic_epoch_state(cfg: EpochConfig, V: int, rng,
@@ -424,6 +520,86 @@ def synthetic_epoch_state(cfg: EpochConfig, V: int, rng,
         shard_comm_balance=comm_bal,
     )
     return cols, scal, inp
+
+# ---------------------------------------------------------------------------
+# Inert validator padding (the sharded serving layout)
+#
+# A serving mesh shards `[V]` columns into equal row blocks, so V is padded
+# to a multiple of the mesh size. The padding rows are INERT: a
+# never-eligible, never-active, zero-balance validator every mask in the
+# program excludes --
+#   * active/eligible masks are False (activation == exit == FAR_FUTURE),
+#   * uint64 balance sums gain exact zeros (order-independent),
+#   * the activation-queue stable sort keys padding at FAR_FUTURE behind
+#     every real row (padding indices are the largest), so queued positions
+#     are unchanged,
+#   * the exit-queue base/count scans see exit_epoch == FAR (excluded), and
+#   * the proposer scatter-add receives a zero gain at index 0.
+# The `[V]` prefix of the padded program's outputs is therefore
+# bit-identical to the unpadded program (held in tests/test_torch_multichip.py,
+# a non-divisible V included).
+# ---------------------------------------------------------------------------
+
+def inert_column_tail(field: str, k: int, far: int) -> np.ndarray:
+    """[k] inert-validator rows for one ValidatorColumns field (numpy
+    uint64 / bool)."""
+    if field in ("activation_eligibility_epoch", "activation_epoch",
+                 "exit_epoch", "withdrawable_epoch"):
+        return np.full(k, far, dtype=np.uint64)
+    if field == "slashed":
+        return np.zeros(k, dtype=bool)
+    return np.zeros(k, dtype=np.uint64)   # effective_balance, balance
+
+
+def _tail_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    if arr.dtype == np.uint64:
+        arr = arr.view(np.int64)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(
+        device=like.device, dtype=like.dtype)
+
+
+def pad_validator_columns(cols: ValidatorColumns, vp: int,
+                          far: int) -> ValidatorColumns:
+    """Pad [V] column tensors to [vp] rows with inert validators (see
+    above); new tensors, `cols` untouched (returned as is when V == vp)."""
+    V = int(cols.balance.shape[0])
+    k = vp - V
+    if k < 0:
+        raise ValueError(f"cannot pad {V} rows down to {vp}")
+    if k == 0:
+        return cols
+    return ValidatorColumns(**{
+        f: torch.cat([getattr(cols, f),
+                      _tail_tensor(inert_column_tail(f, k, far), getattr(cols, f))])
+        for f in ValidatorColumns._fields})
+
+
+def pad_epoch_inputs(inp: EpochInputs, vp: int) -> EpochInputs:
+    """Pad the [V] participation facts to [vp] rows with the neutral
+    values build_epoch_inputs uses for non-participants (flags False,
+    inclusion delay 1, proposer 0, no crosslink committee); the two
+    replicated per-shard tables pass through."""
+    V = int(inp.prev_src.shape[0])
+    k = vp - V
+    if k < 0:
+        raise ValueError(f"cannot pad {V} rows down to {vp}")
+    if k == 0:
+        return inp
+
+    def ext(x, value):
+        return torch.cat([x, torch.full((k,), value, dtype=x.dtype,
+                                        device=x.device)])
+    return inp._replace(
+        prev_src=ext(inp.prev_src, False),
+        prev_tgt=ext(inp.prev_tgt, False),
+        prev_head=ext(inp.prev_head, False),
+        curr_tgt=ext(inp.curr_tgt, False),
+        incl_delay=ext(inp.incl_delay, 1),
+        att_proposer=ext(inp.att_proposer, 0),
+        v_shard=ext(inp.v_shard, -1),
+        in_winning=ext(inp.in_winning, False),
+    )
+
 
 # ===========================================================================
 # Host half: object-model state <-> numpy columns, input distillation

@@ -29,8 +29,19 @@ the mirrors, and checkpoints. The boundary's epoch program runs through
 the guarded dispatch (`ResidentCore._epoch_dispatch`: fault injection,
 the integrity tripwire, a deadline when one is set); the program updates
 the resident columns in place, so a failure after it was entered is
-fatal and names `CheckpointStore.restore` as the way back. Single
-device: the reference's serving mesh is not ported here.
+fatal and names `CheckpointStore.restore` as the way back.
+
+`ResidentCore(spec, state, mesh=ServingMesh(...))` (parallel/sharding.py)
+serves the same loop across a validator-axis mesh: `MeshResidentColumns`
+holds the columns padded to a mesh multiple with inert rows and sharded,
+the identity matrices sharded, and sharded forests (per-shard subtree
+levels on their shard, the cap replicated); deposits scatter into the
+inert padding and re-place only when the padded capacity grows. A
+failure of the sharded boundary before the program was entered walks the
+degradation ladder to its `single_device` rung
+(`ResidentCore.degrade_to_single_device`), and the boundary runs again
+on one device. Roots and bytes are bit-identical to the single-device
+core's.
 """
 from __future__ import annotations
 
@@ -43,7 +54,7 @@ import torch
 
 from ... import convert
 from ... import telemetry
-from ...convert import columns_from_numpy, to_tensor
+from ...convert import columns_from_numpy, to_numpy, to_tensor
 from ...device import resolve
 from ...ops.intmath import udivmod_u64, ule, ult
 from ...ops.sha256 import PairFn, words_to_bytes
@@ -57,15 +68,16 @@ from ...utils.ssz import bulk
 from ...utils.ssz import impl as ssz_impl
 from ...utils.ssz.bulk import (balances_chunk_words_device, mix_in_length,
                                registry_leaf_words_device)
-from ...utils.ssz.incremental import IncrementalMerkleTree
+from ...utils.ssz.incremental import (IncrementalMerkleTree,
+                                      ShardedIncrementalMerkleTree)
 from . import helpers as helpers_mod
 from .epoch_soa import (EpochConfig, EpochInputs, EpochScalars,
                         ValidatorColumns, build_epoch_context,
                         build_epoch_inputs, columns_np_from_state,
-                        epoch_transition_device,
-                        process_crosslinks_vectorized, scalars_from_state,
-                        _apply_justification, _apply_validator_columns,
-                        _write_back_scalars)
+                        epoch_transition_device, inert_column_tail,
+                        pad_epoch_inputs, process_crosslinks_vectorized,
+                        scalars_from_state, _apply_justification,
+                        _apply_validator_columns, _write_back_scalars)
 
 
 class ResidentColumns:
@@ -126,9 +138,8 @@ class ResidentColumns:
             raise ValueError("duplicate validator indices")
         if idx.min() < 0 or idx.max() >= self.v:
             raise IndexError(f"validator index out of range (V={self.v})")
-        self.cols.balance.index_copy_(
-            0, torch.from_numpy(idx).to(self.device),
-            torch.from_numpy(vals.view(np.int64)).to(self.device))
+        self._put(self.cols.balance, idx,
+                  torch.from_numpy(vals.view(np.int64)).to(self.device))
         chunks = np.unique(idx // 4)
         self.balances_forest.update(chunks, self._balance_chunk_words(chunks))
 
@@ -137,19 +148,39 @@ class ResidentColumns:
         values each, zero past the list end), from the device column."""
         pos = chunks[:, None] * 4 + np.arange(4)[None, :]
         valid = torch.from_numpy(pos < self.v).to(self.device)
-        gathered = torch.where(valid, self.cols.balance[
-            torch.from_numpy(np.minimum(pos, self.v - 1)).to(self.device)], 0)
+        gathered = torch.where(valid, self._take(
+            self.cols.balance, np.minimum(pos, self.v - 1).reshape(-1)
+        ).reshape(pos.shape), 0)
         return balances_chunk_words_device(gathered.reshape(-1))
 
     def _registry_leaf_words(self, idx: np.ndarray) -> torch.Tensor:
         """[k, 8] registry leaves (Validator roots) of validators `idx`."""
-        i = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
+        idx = np.asarray(idx, np.int64)
         c = self.cols
         return registry_leaf_words_device(
-            self.pubkeys[i], self.withdrawal_credentials[i],
-            c.activation_eligibility_epoch[i], c.activation_epoch[i],
-            c.exit_epoch[i], c.withdrawable_epoch[i], c.slashed[i],
-            c.effective_balance[i], self._pair_fn)
+            self._take(self.pubkeys, idx),
+            self._take(self.withdrawal_credentials, idx),
+            *(self._take(getattr(c, f), idx) for f in self._LEAF_FIELDS),
+            self._pair_fn)
+
+    # -- row access: one device here, the mesh's shards in MeshResidentColumns
+
+    def _take(self, col, idx: np.ndarray) -> torch.Tensor:
+        return col[torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)]
+
+    def _put(self, col, idx: np.ndarray, values: torch.Tensor) -> None:
+        col.index_copy_(0, torch.from_numpy(np.asarray(idx, np.int64)).to(self.device),
+                        values)
+
+    def _grow(self, col, rows: torch.Tensor, old_n: int, field: Optional[str]):
+        """`col` with `rows` appended after logical row old_n (`field`
+        names the ValidatorColumns field, None for an identity matrix)."""
+        return torch.cat([col, rows.to(self.device)])
+
+    def numpy_cols(self) -> Dict[str, np.ndarray]:
+        """One download of the logical [V] columns (uint64 restored)."""
+        return {f: to_numpy(getattr(self.cols, f))[:self.v]
+                for f in ValidatorColumns._fields}
 
     # registry-leaf fields: everything the Validator container Merkleizes
     # except the separate balances list (pubkey/wc never change in place)
@@ -174,18 +205,17 @@ class ResidentColumns:
             col = getattr(self.cols, f)
             idx = np.asarray(dirty[f], np.int64)
             if idx.size:
-                col.index_copy_(0, torch.from_numpy(idx).to(dev),
-                                to_tensor(np_cols[f][idx], dev))
+                self._put(col, idx, to_tensor(np_cols[f][idx], dev))
             if new_n > old_n:
-                col = torch.cat([col, to_tensor(np_cols[f][old_n:], dev)])
+                col = self._grow(col, to_tensor(np_cols[f][old_n:], dev), old_n, f)
             cols[f] = col
         self.cols = ValidatorColumns(**cols)
         if new_n > old_n:
-            self.pubkeys = torch.cat([self.pubkeys, torch.from_numpy(
-                np.ascontiguousarray(pubkeys_new, np.uint8)).to(dev)])
-            self.withdrawal_credentials = torch.cat([
+            self.pubkeys = self._grow(self.pubkeys, torch.from_numpy(
+                np.ascontiguousarray(pubkeys_new, np.uint8)), old_n, None)
+            self.withdrawal_credentials = self._grow(
                 self.withdrawal_credentials, torch.from_numpy(
-                    np.ascontiguousarray(wc_new, np.uint8)).to(dev)])
+                    np.ascontiguousarray(wc_new, np.uint8)), old_n, None)
         self.v = new_n
         if self.registry_forest is None:
             return
@@ -236,6 +266,95 @@ class ResidentColumns:
                 if n else torch.zeros(0, dtype=torch.int32, device=self.device))
         self.enter()
         return new_scal, report, perm
+
+
+def _host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host tensor over numpy rows (uint64 as its int64 bit pattern)."""
+    arr = np.ascontiguousarray(arr)
+    return torch.from_numpy(arr.view(np.int64) if arr.dtype == np.uint64 else arr)
+
+
+class MeshResidentColumns(ResidentColumns):
+    """ResidentColumns under a ServingMesh (parallel/sharding.py): the
+    columns padded to mesh.pad_rows(V) with inert rows
+    (epoch_soa.inert_column_tail) and row-sharded, the pubkey and
+    withdrawal-credential matrices sharded with zero padding rows, the
+    forests ShardedIncrementalMerkleTree built from the mesh's leaf
+    builders. `v` stays the logical count; rows are read and written
+    through the mesh's exchange, in their owning shard. The epoch
+    boundary runs through ResidentCore (ServingMesh.epoch_transition)."""
+
+    def __init__(self, cfg: EpochConfig, cols, pubkeys: np.ndarray,
+                 withdrawal_credentials: np.ndarray, shuffle_round_count: int,
+                 *, mesh, pair_fn: Optional[PairFn] = None):
+        self.mesh = mesh
+        self.device = mesh.home
+        self.cfg = cfg
+        self.v = int(np.asarray(cols.balance).shape[0])
+        if self.v == 0:
+            raise ValueError("ResidentColumns needs at least one validator")
+        if pubkeys.shape != (self.v, 48) or \
+                withdrawal_credentials.shape != (self.v, 32):
+            raise ValueError("pubkeys must be [V, 48] and withdrawal "
+                             "credentials [V, 32]")
+        k = mesh.pad_rows(self.v) - self.v
+        far = cfg.FAR_FUTURE_EPOCH
+        self.cols = ValidatorColumns(**{
+            f: mesh.shard(_host_tensor(np.concatenate(
+                [np.asarray(getattr(cols, f)), inert_column_tail(f, k, far)])))
+            for f in ValidatorColumns._fields})
+        self.pubkeys, self.withdrawal_credentials = (
+            mesh.shard(_host_tensor(np.concatenate(
+                [np.asarray(m, np.uint8), np.zeros((k, m.shape[1]), np.uint8)])))
+            for m in (pubkeys, withdrawal_credentials))
+        self.shuffle_round_count = int(shuffle_round_count)
+        self._pair_fn = pair_fn
+        self.registry_forest: Optional[ShardedIncrementalMerkleTree] = None
+        self.balances_forest: Optional[ShardedIncrementalMerkleTree] = None
+        self.active_indices = None
+
+    def enter(self) -> None:
+        """Build both sharded forests from the resident shards."""
+        c, m, pf = self.cols, self.mesh, self._pair_fn
+        self.registry_forest = ShardedIncrementalMerkleTree(
+            m.registry_forest_leaves(
+                self.pubkeys, self.withdrawal_credentials,
+                c.activation_eligibility_epoch, c.activation_epoch,
+                c.exit_epoch, c.withdrawable_epoch, c.slashed,
+                c.effective_balance, v_count=self.v, pair_fn=pf),
+            m, pair_fn=pf, logical_n=self.v)
+        self.balances_forest = ShardedIncrementalMerkleTree(
+            m.balances_forest_chunks(c.balance, self.v), m, pair_fn=pf,
+            logical_n=max(1, -(-self.v // 4)))
+
+    def epoch_boundary(self, scal, inp, seed):
+        raise NotImplementedError(
+            "the sharded boundary runs through ResidentCore "
+            "(ServingMesh.epoch_transition)")
+
+    def _take(self, col, idx: np.ndarray) -> torch.Tensor:
+        return self.mesh.exchange.take(col, idx)
+
+    def _put(self, col, idx: np.ndarray, values: torch.Tensor) -> None:
+        self.mesh.exchange.put(col, idx, values)
+
+    def _grow(self, col, rows: torch.Tensor, old_n: int, field: Optional[str]):
+        """The reference's _grow_sharded: the new rows go into the inert
+        padding slots; when the padded capacity must reach the next mesh
+        multiple, inert rows extend it and every shard is laid out again
+        (the only step that re-places, once per mesh multiple of growth,
+        not per deposit)."""
+        ex = self.mesh.exchange
+        new_n = old_n + int(rows.shape[0])
+        vp_new = self.mesh.pad_rows(new_n)
+        if vp_new > col.rows:
+            k = vp_new - col.rows
+            tail = (_host_tensor(inert_column_tail(field, k, self.cfg.FAR_FUTURE_EPOCH))
+                    if field is not None else
+                    torch.zeros((k,) + tuple(col.shape[1:]), dtype=col.dtype))
+            col = ex.repartition(list(col.shards) + [tail], vp_new)
+        ex.put(col, np.arange(old_n, new_n), rows)
+        return col
 
 
 # ===========================================================================
@@ -299,17 +418,22 @@ class ResidentCore:
     "refresh"} seconds, read from the telemetry spans of those parts
     (host clock, each part's device work waited for at its end). The
     registry holds at least one validator
-    (ResidentColumns)."""
+    (ResidentColumns).
 
-    def __init__(self, spec, state):
+    `mesh` (a parallel.sharding.ServingMesh, default None: one device)
+    serves the columns, identities and forests sharded over the mesh
+    (MeshResidentColumns) with the same roots and bytes."""
+
+    def __init__(self, spec, state, mesh=None):
         if spec._insert_after_registry_updates or spec._insert_after_final_updates:
             raise NotImplementedError(
                 "resident mode covers the phase-0 fused epoch program")
-        self._init_common(spec, light=False)
+        self._init_common(spec, light=False, mesh=mesh)
         self._enter(state)
 
-    def _init_common(self, spec, light: bool) -> None:
+    def _init_common(self, spec, light: bool, mesh=None) -> None:
         self.spec = spec
+        self._mesh = mesh
         self.device = spec.device
         self.cfg = EpochConfig.from_spec(spec)
         self.timings: Dict[str, float] = {}
@@ -328,12 +452,13 @@ class ResidentCore:
     # -- residency lifecycle ------------------------------------------------
 
     @classmethod
-    def from_checkpoint(cls, spec, state_bytes: bytes) -> "ResidentCore":
+    def from_checkpoint(cls, spec, state_bytes: bytes, mesh=None) -> "ResidentCore":
         """Resume a serialized BeaconState straight into residency without
         materializing the registry: the big fields parse as strided-view
         columns (utils/ssz/columns.py), everything else deserializes into
         a LIGHT state whose validator_registry/balances stay empty; the
-        device columns are the authority.
+        device columns are the authority. The bytes are logical, so any
+        `mesh` (or none) restores them, whatever mesh wrote them.
 
         A light core drives slots and epoch boundaries; blocks and exit()
         need the object registry and are the standard entry's job.
@@ -370,7 +495,7 @@ class ResidentCore:
                 f"checkpoint bytes do not parse as a serialized "
                 f"BeaconState: {type(exc).__name__}: {exc}") from exc
         core = cls.__new__(cls)
-        core._init_common(spec, light=True)
+        core._init_common(spec, light=True, mesh=mesh)
         core._enter(state, np_cols=np_cols)
         return core
 
@@ -392,10 +517,16 @@ class ResidentCore:
         # for the checkpoint WRITE path alongside the device uploads
         self._pk_np = np.asarray(np_cols["pubkey"])
         self._wc_np = np.asarray(np_cols["withdrawal_credentials"])
-        self.res = ResidentColumns(
-            self.cfg, ValidatorColumns(**{f: np_cols[f] for f in _ALL_FIELDS}),
-            self._pk_np, self._wc_np, int(self.spec.SHUFFLE_ROUND_COUNT),
-            device=self.device, pair_fn=self.spec.pair_fn)
+        cols = ValidatorColumns(**{f: np_cols[f] for f in _ALL_FIELDS})
+        rounds = int(self.spec.SHUFFLE_ROUND_COUNT)
+        if self._mesh is not None:
+            self.res = MeshResidentColumns(
+                self.cfg, cols, self._pk_np, self._wc_np, rounds,
+                mesh=self._mesh, pair_fn=self.spec.pair_fn)
+        else:
+            self.res = ResidentColumns(
+                self.cfg, cols, self._pk_np, self._wc_np, rounds,
+                device=self.device, pair_fn=self.spec.pair_fn)
         # the forests are built on the first root request
         self._big_roots: Optional[tuple] = None
         self._active_idx_memo.clear()
@@ -421,11 +552,17 @@ class ResidentCore:
             self._uninstall()
         return self.state
 
+    @property
+    def cols(self) -> ValidatorColumns:
+        """The resident device columns (Sharded under a mesh, padded)."""
+        return self.res.cols
+
     def _materialize_np_cols(self) -> Dict[str, np.ndarray]:
         """One download of the device columns as a host dict of numpy
-        arrays (uint64 restored from the bit patterns)."""
-        cols = convert.columns_to_numpy(self.res.cols)[0]
-        return {f: getattr(cols, f) for f in _ALL_FIELDS}
+        arrays (uint64 restored from the bit patterns), cut to the logical
+        validator count: a mesh's inert padding rows never reach the host's
+        consumers."""
+        return self.res.numpy_cols()
 
     def checkpoint_bytes(self) -> bytes:
         """Serialize the resident state WITHOUT materializing the registry:
@@ -666,42 +803,78 @@ class ResidentCore:
         state.latest_block_roots[state.slot % spec.SLOTS_PER_HISTORICAL_ROOT] = \
             spec.signing_root(state.latest_block_header)
 
+    def degrade_to_single_device(self) -> None:
+        """The degradation ladder's bottom rung (resilience/dispatch.py):
+        abandon the serving mesh and re-enter on the spec's device, one
+        download of the logical columns and an unsharded upload, the
+        forests rebuilt at the next root request. Deliberate and reported
+        (span "resident.degrade_single_device"), so the core's watchdog
+        layout keys are forgotten rather than tripped. Idempotent on one
+        device."""
+        if self._mesh is None:
+            return
+        with telemetry.span("resident.degrade_single_device"):
+            np_cols = self._materialize_np_cols()
+            self._mesh = None
+            self.res = ResidentColumns(
+                self.cfg, ValidatorColumns(**np_cols), self._pk_np, self._wc_np,
+                int(self.spec.SHUFFLE_ROUND_COUNT), device=self.device,
+                pair_fn=self.spec.pair_fn)
+            self._big_roots = None
+            for key in (f"{self._tkey}.epoch.cols", f"{self._tkey}.forest.reg.l0",
+                        f"{self._tkey}.forest.bal.l0"):
+                _watchdog.forget(key)
+
     def _epoch_dispatch(self, scal, inp):
-        """The boundary's epoch program through the guarded dispatch,
-        under the reference's single-device key `(tkey, "epoch", V)`, with
-        `epoch_output_check` armed while tripwires are on.
+        """The boundary's epoch program through the guarded dispatch, with
+        `epoch_output_check` armed while tripwires are on: on one device
+        under the reference's key `(tkey, "epoch", V)`, on a mesh through
+        ServingMesh.epoch_transition (`("mesh.epoch", size, Vp, cfg)`,
+        the [V] facts padded to Vp with neutral rows per attempt).
 
         The program updates the resident columns in place (the reference
-        donates them), so the site takes retries=0: a transient raised
+        donates them), so both sites take retries=0: a transient raised
         before the call is still retried on the intact columns (the
         guard's pre-dispatch allowance), but a failure after the program
         was entered (a tripwired output, an unsalvaged deadline miss)
         leaves columns that are neither the old nor a trusted new state,
         and is fatal with `consumed_inputs` set: the way back is a
         checkpoint (`resilience.CheckpointStore.restore`) and a replay of
-        the slots since. The ladder has no rung to walk (one rung, see
-        resilience/dispatch.py)."""
+        the slots since. A failure that left the columns intact walks the
+        degradation ladder: its `single_device` rung runs
+        degrade_to_single_device (a no-op on one device) and the boundary
+        is dispatched again; at the bottom it is fatal."""
         check = (_integrity.epoch_output_check
                  if _integrity.tripwires_enabled() else None)
-        try:
-            return _rdispatch.guarded_dispatch(
-                (self._tkey, "epoch", self.res.v), epoch_transition_device,
-                self.cfg, self.res.cols, scal, inp, check=check, retries=0)
-        except FatalDispatchError:
-            raise
-        except DispatchError as exc:
-            if exc.consumed_inputs:
-                raise FatalDispatchError(
-                    f"epoch dispatch failed after the program updated the "
-                    f"resident columns in place ({exc}); restore via "
-                    f"resilience.CheckpointStore.restore",
-                    key=exc.key, attempts=exc.attempts) from exc
-            # retries spent before the program was entered: the columns
-            # are intact, but the ladder has no rung below "full"
-            raise FatalDispatchError(
-                f"epoch boundary dispatch failed with the degradation "
-                f"ladder exhausted: {exc}", key=exc.key,
-                attempts=exc.attempts, consumed_inputs=False) from exc
+        ladder = _rdispatch.ladder()
+        while True:
+            try:
+                if self._mesh is not None:
+                    inp_p = pad_epoch_inputs(inp, self.res.cols.balance.rows)
+                    return self._mesh.epoch_transition(
+                        self.cfg, self.res.cols, scal, inp_p, check=check)
+                return _rdispatch.guarded_dispatch(
+                    (self._tkey, "epoch", self.res.v), epoch_transition_device,
+                    self.cfg, self.res.cols, scal, inp, check=check, retries=0)
+            except FatalDispatchError:
+                raise
+            except DispatchError as exc:
+                if exc.consumed_inputs:
+                    raise FatalDispatchError(
+                        f"epoch dispatch failed after the program updated the "
+                        f"resident columns in place ({exc}); restore via "
+                        f"resilience.CheckpointStore.restore",
+                        key=exc.key, attempts=exc.attempts) from exc
+                ladder.register_single_device(self.degrade_to_single_device)
+                try:
+                    rung = ladder.degrade(reason=type(exc).__name__)
+                finally:
+                    ladder.unregister_single_device(self.degrade_to_single_device)
+                if rung is None:
+                    raise FatalDispatchError(
+                        f"epoch boundary dispatch failed with the degradation "
+                        f"ladder exhausted: {exc}", key=exc.key,
+                        attempts=exc.attempts, consumed_inputs=False) from exc
 
     def process_epoch_resident(self, state) -> None:
         """The boundary transition on resident columns, under telemetry
@@ -751,7 +924,7 @@ class ResidentCore:
             # refresh ONLY the columns host logic reads; slashed never
             # changes in the epoch program, balances stay device-only
             for f in ("activation_epoch", "exit_epoch", "effective_balance"):
-                self.mirrors[f] = convert.to_numpy(getattr(self.res.cols, f))
+                self.mirrors[f] = to_numpy(getattr(self.res.cols, f))[:self.res.v]
             spec.final_updates_byte_rooted(state)   # reads the overrides
             # prune attestation-root memo entries the rotation dropped
             live = {id(a) for a in state.previous_epoch_attestations}

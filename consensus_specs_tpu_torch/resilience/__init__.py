@@ -7,7 +7,8 @@ serving loop's failure modes, one module each.
   * dispatch.py   -- `guarded_dispatch` wraps the resident epoch boundary
                      and the firehose's launches: wall-clock deadline,
                      typed error taxonomy, bounded retry with backoff; the
-                     degradation ladder (one rung in the port, see there).
+                     degradation ladder (full, then single_device: see
+                     there).
   * integrity.py  -- the epoch output's tripwire against the reference's
                      declared value hulls, one bool read a boundary.
   * checkpoint.py -- CRC-framed, atomic-rename, generational checkpoints
@@ -38,8 +39,7 @@ __all__ = [
     "last_good_generation", "reset", "run_with_recovery", "snapshot",
 ]
 
-# the reference's list; degradations.single_device stays 0 until the
-# sharding work brings that rung back
+# the reference's list
 _HEALTH_COUNTERS = (
     "resilience.retries", "resilience.deadline_misses",
     "resilience.transient_errors", "resilience.fatal_errors",

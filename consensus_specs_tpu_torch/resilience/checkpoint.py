@@ -242,13 +242,15 @@ class CheckpointStore:
         raise last_exc or CheckpointCorrupt(
             f"no checkpoint generations in {self.root!r}")
 
-    def restore(self, spec, generation: Optional[int] = None):
-        """-> (generation, ResidentCore) resumed on `spec`'s device from
-        the newest intact generation (or `generation`). The caller
-        replays the slots since the checkpoint."""
+    def restore(self, spec, mesh=None, generation: Optional[int] = None):
+        """-> (generation, ResidentCore) resumed from the newest intact
+        generation (or `generation`): on `spec`'s device, or sharded over
+        `mesh` (a parallel.sharding.ServingMesh), which may differ from
+        the mesh the checkpoint was written under: the payload is logical
+        bytes. The caller replays the slots since the checkpoint."""
         from ..models.phase0.resident import ResidentCore
         gen, payload = self.load(generation)
-        return gen, ResidentCore.from_checkpoint(spec, payload)
+        return gen, ResidentCore.from_checkpoint(spec, payload, mesh=mesh)
 
 
 def last_good_generation() -> Optional[int]:

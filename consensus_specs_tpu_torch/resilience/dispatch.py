@@ -41,17 +41,22 @@ the call leaves them intact, so it keeps the standard allowance
 sticky: once an attempt has entered `fn`, the caller's `retries`
 applies again.
 
-**The degradation ladder has one rung.** The reference walks `full ->
+**The degradation ladder has two rungs.** The reference walks `full ->
 merkle_xla -> redc_leaf -> scalar_double_add -> single_device`: its
 rungs 1-3 each swap a kernel for its plain twin, which in the port
-would be the hidden fallback its rules forbid, and `single_device`
-re-places a serving mesh the port does not have yet (it comes back with
-the sharding work). So `DegradationLadder.RUNGS == ("full",)`:
-`degrade()` returns None at once, and `run_with_recovery` raises
-`FatalDispatchError` when the guard's retries are spent. Restoring from
-a checkpoint stays the caller's job, as in the reference
-(`resilience.CheckpointStore.restore`, then replay the slots); an
-in-loop restore-and-replay rung would need a block log the reference
+would be the hidden fallback its rules forbid, so they are left out.
+`DegradationLadder.RUNGS == ("full", "single_device")`: the bottom rung
+calls back whatever registered with `register_single_device` (a
+ResidentCore serving on a mesh registers its
+`degrade_to_single_device` around each step, and re-dispatches its
+boundary on one device), and `degrade()` returns None once there, so the
+caller escalates to `FatalDispatchError`. `reset()` returns the rung
+gauge to 0, never a core to its mesh: a core that went single-device
+re-shards only through a restore, and the cumulative
+`resilience.degradations.single_device` counter keeps that visible on
+/healthz. Restoring from a checkpoint stays the caller's job, as in the
+reference (`resilience.CheckpointStore.restore`, then replay the slots);
+an in-loop restore-and-replay rung would need a block log the reference
 does not keep.
 """
 from __future__ import annotations
@@ -236,14 +241,26 @@ def guarded_dispatch(key, fn: Callable, *args,
 # ---------------------------------------------------------------------------
 
 class DegradationLadder:
-    """The serving loop's conservatism level, reported on /healthz. One
-    rung in the port (see the module docstring): `degrade()` has nowhere
-    to go and returns None, so the caller escalates to fatal."""
+    """The serving loop's conservatism level, reported on /healthz: full
+    speed, then single device (see the module docstring); below that
+    `degrade()` returns None and the caller escalates to fatal."""
 
-    RUNGS = ("full",)
+    RUNGS = ("full", "single_device")
 
     def __init__(self):
         self._rung = 0
+        self._single_device_cbs = []
+
+    def register_single_device(self, cb: Callable[[], None]) -> None:
+        """Hook the bottom rung: ResidentCore registers its
+        `degrade_to_single_device` here so the ladder can re-place the
+        serving loop without importing it."""
+        if cb not in self._single_device_cbs:
+            self._single_device_cbs.append(cb)
+
+    def unregister_single_device(self, cb: Callable[[], None]) -> None:
+        if cb in self._single_device_cbs:
+            self._single_device_cbs.remove(cb)
 
     @property
     def rung(self) -> int:
@@ -265,13 +282,18 @@ class DegradationLadder:
             return None
         self._rung += 1
         name = self.rung_name
+        with telemetry.span("resilience.degrade", rung=name, reason=reason or None):
+            if name == "single_device":
+                for cb in list(self._single_device_cbs):
+                    cb()
         _counter("resilience.degradations").inc()
         _counter(f"resilience.degradations.{name}").inc()
         telemetry.gauge("resilience.rung", always=True).set(self._rung)
         return name
 
     def reset(self) -> None:
-        """Back to full speed."""
+        """Back to full speed (the gauge; a core that re-placed itself on
+        one device stays there until a restore)."""
         self._rung = 0
         telemetry.gauge("resilience.rung", always=True).set(0)
 
@@ -296,8 +318,7 @@ def run_with_recovery(key, make: Callable[[], tuple], *,
     `(fn, args)` pair per attempt (re-read after each degradation), and
     every typed failure that survives its retries walks one rung before
     the next attempt. Raises FatalDispatchError when the ladder is
-    exhausted -- with the port's one rung, as soon as the guard gives
-    up."""
+    exhausted."""
     lad = ladder if ladder is not None else _LADDER
     while True:
         fn, args = make()

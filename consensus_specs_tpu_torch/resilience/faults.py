@@ -9,7 +9,9 @@ seams the serving loop already has:
     before every guarded launch (the watchdog's keys);
   * **checkpoint I/O** -- resilience/checkpoint.py routes every framed
     write through `on_checkpoint_write` and every read through
-    `on_checkpoint_read`.
+    `on_checkpoint_read`;
+  * **mesh construction** -- parallel/sharding.py routes the visible
+    device list through `filter_devices` (simulated device loss).
 
 Schedule grammar (`;`-separated entries), the reference's:
 
@@ -23,8 +25,7 @@ range. Sites:
     dispatch[:<glob>]   fnmatch glob over str(key); default `*`
     ckpt.write          the framed checkpoint bytes about to be written
     ckpt.read           the framed checkpoint bytes just read
-    mesh                the device list of a mesh (parsed; the port has
-                        no mesh yet, so no site queries it)
+    mesh                the device list a serving mesh is planned from
 
 Actions by site:
 
@@ -328,7 +329,24 @@ def on_checkpoint_read(data: bytes) -> bytes:
     return _mutate_bytes(data, fault, sched.rng())
 
 
+def filter_devices(devices):
+    """Simulated device loss at mesh-construction time: a `mesh=lose:<k>`
+    fault drops the last k devices, clamped to keep at least one (total
+    loss is a process kill, which the checkpoint store's restore covers).
+    The caller re-plans its mesh from what is left: ServingMesh.available
+    rounds down to a power of two."""
+    sched = _schedule
+    if sched is None:
+        return devices
+    fault = sched.query("mesh")
+    if fault is None:
+        return devices
+    _count(fault.action)
+    k = int(fault.param or 1)
+    return list(devices)[:max(1, len(devices) - k)]
+
+
 __all__ = ["Fault", "active", "set_schedule", "parse_schedule",
            "on_dispatch", "raise_injected", "poison_tree", "tree_leaves",
-           "on_checkpoint_write", "on_checkpoint_read",
+           "on_checkpoint_write", "on_checkpoint_read", "filter_devices",
            "InjectedFault", "SimulatedCrash"]

@@ -93,8 +93,10 @@ def _in_hulls(tree, items, ok):
     import torch
     for f, (_, hi) in items:
         leaf = getattr(tree, f)
-        if leaf.dtype != torch.bool:
-            ok = ok & ule(leaf, hi).all()
+        # a serving mesh's column is one tensor a shard (parallel/exchange.py)
+        for part in getattr(leaf, "shards", (leaf,)):
+            if part.dtype != torch.bool:
+                ok = ok & ule(part, hi).all().to(ok.device)
     return ok
 
 
@@ -103,11 +105,13 @@ def epoch_output_check(out) -> bool:
     every ValidatorColumns leaf and every EpochScalars leaf with a finite
     declared hull lies inside it. True when the output is clean.
 
-    One chain of reductions on the columns' device and one bool read:
-    the only host synchronization of the check."""
+    One chain of reductions on the columns' device (a sharded column's
+    shards each reduced on theirs) and one bool read: the only host
+    synchronization of the check."""
     import torch
     cols, scal = out[0], (out[1] if len(out) > 1 else None)
-    ok = torch.ones((), dtype=torch.bool, device=cols.balance.device)
+    home = getattr(cols.balance, "shards", (cols.balance,))[0].device
+    ok = torch.ones((), dtype=torch.bool, device=home)
     ok = _in_hulls(cols, _finite_items(_EPOCH_HULLS), ok)
     if scal is not None:
         ok = _in_hulls(scal, _finite_items(_EPOCH_SCALAR_HULLS), ok)

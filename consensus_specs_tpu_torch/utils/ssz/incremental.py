@@ -1,5 +1,5 @@
 """Persistent, device-resident incremental Merkle forest
-(port of consensus_specs_tpu/utils/ssz/incremental.py, single device).
+(port of consensus_specs_tpu/utils/ssz/incremental.py).
 
 Every level of a tree stays resident as an [n_level, 8] int32 word tensor
 and an update re-hashes only the root paths of the changed leaves: one
@@ -20,9 +20,13 @@ rows), which keeps the pair-lane accounting identical to the reference's.
 Process-wide forest accounting goes to the telemetry registry as the
 reference's does: `merkle.forest.pair_lanes` (pair lanes hashed),
 `merkle.forest.launches` (pair-hash calls, one per level an operation
-touches) and `merkle.forest.builds` (full builds). The per-tree attributes
-(`last_pairs_per_level`, `total_pairs_hashed`, `builds`) stay the view of
-one tree.
+touches; one per shard on a sharded level) and `merkle.forest.builds`
+(full builds). The per-tree attributes (`last_pairs_per_level`,
+`total_pairs_hashed`, `builds`) stay the view of one tree.
+
+`ShardedIncrementalMerkleTree` is the forest under a serving mesh
+(parallel/sharding.py): per-shard subtree levels on their shard, the cap
+replicated.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from ...device import resolve
+from ...parallel.exchange import Replicated, Sharded
 from ...ops.sha256 import (PairFn, bytes_to_words, pair_hash_words,
                            words_tensor, words_to_bytes, zerohash_rows)
 from ...telemetry import counter as _tele_counter
@@ -90,13 +95,13 @@ class IncrementalMerkleTree:
     def device(self) -> torch.device:
         return self.levels[0].device
 
-    def _count(self, depth: int, lanes: int) -> None:
+    def _count(self, depth: int, lanes: int, launches: int = 1) -> None:
         while len(self.last_pairs_per_level) <= depth:
             self.last_pairs_per_level.append(0)
         self.last_pairs_per_level[depth] += lanes
         self.total_pairs_hashed += lanes
         _PAIR_LANES.inc(lanes)
-        _PAIR_LAUNCHES.inc()
+        _PAIR_LAUNCHES.inc(launches)
 
     # -- full build (the epoch-boundary degenerate case) --------------------
 
@@ -203,6 +208,162 @@ class IncrementalMerkleTree:
         if self.n == 0:
             return ZERO_BYTES32
         return words_to_bytes(self.root_words()).tobytes()
+
+
+class ShardedIncrementalMerkleTree(IncrementalMerkleTree):
+    """The forest under a validator-axis ServingMesh: per-shard subtree
+    levels stay on their shard (`Sharded`), a small replicated cap
+    (`Replicated`) joins the shard roots, and update/append scatter only
+    into the owning shard.
+
+    Layout contract against the single-device tree: every level
+    MATERIALIZES its pow2 padding (zerohash rows) instead of keeping it
+    virtual, so capacity is always next_power_of_two(logical n), a
+    multiple of the mesh size once it reaches it (both are powers of
+    two). A level is sharded while its row count divides the mesh and
+    replicated above. Padding rows equal the virtual zerohash rows they
+    replace, so every stored node and the root are bit-identical to the
+    single-device tree, at the same pair lanes per level.
+
+    leaf_words: [rows, 8] int32 words (a tensor, or the mesh's placed
+    level 0); with `logical_n`, rows must already be
+    next_power_of_two(logical_n) (the mesh's leaf builders give that),
+    otherwise they are zero-padded here. pair_fn None: the pair hash on
+    each shard's device (the CUDA kernel on a card).
+    """
+
+    def __init__(self, leaf_words, placement, pair_fn: Optional[PairFn] = None,
+                 logical_n: int = None):
+        self._placement = placement
+        self._exchange = placement.exchange
+        self._pair_fn = pair_fn or pair_hash_words
+        self._build_pair_fn = pair_fn
+        rows = leaf_words.rows if isinstance(leaf_words, (Sharded, Replicated)) \
+            else int(leaf_words.shape[0])
+        if logical_n is None:
+            logical_n = rows
+            cap = next_power_of_two(max(rows, 1))
+            if cap > rows:
+                full = placement.gather(leaf_words)
+                leaf_words = torch.cat([full, torch.zeros(
+                    (cap - rows, 8), dtype=torch.int32, device=full.device)])
+        elif rows != next_power_of_two(max(logical_n, 1)):
+            raise ValueError(f"{rows} leaf rows for a logical count of {logical_n}")
+        self._n = int(logical_n)
+        self.last_pairs_per_level = []
+        self.total_pairs_hashed = 0
+        self.builds = 0
+        self.levels = [placement.place(leaf_words)]
+        self._build()
+
+    @property
+    def n(self) -> int:
+        return self._n
+
+    @property
+    def device(self) -> torch.device:
+        return self._placement.home
+
+    def _build(self) -> None:
+        self.builds += 1
+        _FOREST_BUILDS.inc()
+        self.last_pairs_per_level = []
+        self.levels, lanes, launches = self._placement.forest_build(
+            self.levels[0], self._build_pair_fn)
+        for d, (k, m) in enumerate(zip(lanes, launches)):
+            self._count(d, k, m)
+
+    def _rows_of(self, level, idx: np.ndarray) -> torch.Tensor:
+        """Rows `idx` of a level on the home device."""
+        if isinstance(level, Replicated):
+            return level.copies[0][torch.from_numpy(idx).to(level.copies[0].device)]
+        return self._exchange.take(level, idx)
+
+    def update(self, leaf_idx, rows_words) -> None:
+        """Overwrite leaves (rows on any device) and re-hash only their
+        root paths, each row written into its owning shard."""
+        idx = np.asarray(leaf_idx, dtype=np.int64).reshape(-1)
+        rows = rows_words.reshape(-1, 8)
+        if idx.shape[0] != rows.shape[0]:
+            raise ValueError(f"{idx.shape[0]} indices for {rows.shape[0]} rows")
+        self.last_pairs_per_level = []
+        if idx.shape[0] == 0:
+            return
+        dirty = np.unique(idx)
+        if dirty.shape[0] != idx.shape[0]:
+            raise ValueError("duplicate leaf indices")
+        if dirty[0] < 0 or dirty[-1] >= self.n:
+            raise IndexError(f"leaf index out of range (n={self.n}); "
+                             f"grow via append()")
+        self._exchange.put(self.levels[0], idx, rows)
+        self._rehash_paths(dirty)
+
+    def append(self, rows_words) -> None:
+        """Append leaves: written into the materialized padding while it
+        lasts; crossing the padded power of two grows every level with
+        zerohash rows (they cover only virtual zero leaves), places each
+        level again on the mesh (the one step that moves rows between
+        shards) and deepens the cap."""
+        rows = rows_words.reshape(-1, 8)
+        k = int(rows.shape[0])
+        self.last_pairs_per_level = []
+        if k == 0:
+            return
+        old_n, new_n = self._n, self._n + k
+        mesh = self._placement
+        if new_n > self.levels[0].rows:
+            new_cap = next_power_of_two(new_n)
+            home = mesh.home
+            for d, level in enumerate(self.levels):
+                n_d = new_cap >> d
+                full = mesh.gather(level)
+                self.levels[d] = mesh.place(torch.cat(
+                    [full, zerohash_rows(d, n_d - full.shape[0], home)]))
+            for d in range(len(self.levels), tree_depth(new_cap) + 1):
+                self.levels.append(mesh.place(
+                    zerohash_rows(d, new_cap >> d, home).contiguous()))
+        self._n = new_n
+        idx = np.arange(old_n, new_n, dtype=np.int64)
+        self._exchange.put(self.levels[0], idx, rows)
+        self._rehash_paths(idx)
+
+    def _rehash_paths(self, dirty: np.ndarray) -> None:
+        """Re-hash the ancestor rows of `dirty` leaves: per level, the
+        same pow2-padded lane set as the single-device tree, each shard
+        hashing the lanes of its own rows (one launch a shard that has
+        any); the cap's lanes are hashed on home and written into every
+        copy."""
+        for d in range(self.depth):
+            parents = np.unique(dirty >> 1)
+            lanes = _pad_pow2_indices(parents)
+            level, nxt = self.levels[d], self.levels[d + 1]
+            launches = 0
+            if isinstance(nxt, Sharded):
+                offs = nxt.offsets()
+                owner = np.searchsorted(offs, lanes, side="right") - 1
+                for s in np.unique(owner):
+                    local = lanes[owner == s] - offs[s]
+                    child = level.shards[s]
+                    dev = child.device
+                    pairs = torch.cat([
+                        child[torch.from_numpy(local * 2).to(dev)],
+                        child[torch.from_numpy(local * 2 + 1).to(dev)]], dim=1)
+                    nxt.shards[s].index_copy_(0, torch.from_numpy(local).to(dev),
+                                              self._pair_fn(pairs))
+                    launches += 1
+            else:
+                pairs = torch.cat([self._rows_of(level, lanes * 2),
+                                   self._rows_of(level, lanes * 2 + 1)], dim=1)
+                self._exchange.put(nxt, lanes, self._pair_fn(pairs))
+                launches = 1
+            self._count(d, int(lanes.shape[0]), launches)
+            dirty = parents
+
+    def root_words(self) -> torch.Tensor:
+        """[8] root words on the home device (zero chunk when empty)."""
+        if self.n == 0:
+            return torch.zeros(8, dtype=torch.int32, device=self.device)
+        return self._placement.gather(self.levels[-1])[0]
 
 
 def tree_from_chunks(chunks: np.ndarray, pair_fn: Optional[PairFn] = None,

@@ -4,8 +4,8 @@ each through both APIs over the same state (built with the JAX
 package's factories, minimal preset, carried across as SSZ bytes), BLS
 off as there. Duties, produced blocks (their roots), produced
 attestations, published state roots and every error status must be the
-same. The one deliberate difference: the port's degradation ladder has
-the single rung "full", so a degrade request leaves /healthz at "ok"."""
+same. The one deliberate difference: the port's degradation ladder is
+full, then single_device (no kernel-swapping rungs)."""
 import pytest
 import torch
 
@@ -185,16 +185,19 @@ def test_syncing_node_returns_503(P, head_bytes):
 
 
 def test_healthz_reflects_degradation(apis):
-    """The reference steps to rung 1; the port has no rung below "full"."""
+    """Both step to rung 1: the reference's first kernel-swapping rung,
+    the port's single_device (it has no kernel-swapping rungs)."""
     j, p = apis
     jsnap, psnap = j.get_healthz(), p.get_healthz()
     assert set(psnap) == set(jsnap) and set(psnap["counters"]) == set(jsnap["counters"])
-    assert psnap["rung"] == {"index": 0, "name": "full", "of": ["full"]}
-    assert PR.ladder().degrade("test") is None
+    assert psnap["rung"] == {"index": 0, "name": "full", "of": ["full", "single_device"]}
+    assert PR.ladder().degrade("test") == "single_device"
     JR.ladder().degrade("test")
     try:
         assert j.get_healthz()["status"] == "degraded"
-        assert p.get_healthz()["status"] == "ok" and p.get_healthz()["rung"]["index"] == 0
+        assert p.get_healthz()["status"] == "degraded"
+        assert p.get_healthz()["rung"] == {"index": 1, "name": "single_device",
+                                           "of": ["full", "single_device"]}
     finally:
         JR.ladder().reset()
         PR.ladder().reset()

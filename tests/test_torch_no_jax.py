@@ -63,7 +63,8 @@ def test_scan_sees_the_package():
             "models/phase1/custody.py", "models/phase1/shard.py",
             "models/phase1/spec.py", "light_client/__init__.py",
             "light_client/multiproof.py",
-            "light_client/sync_protocol.py"} <= names
+            "light_client/sync_protocol.py", "parallel/__init__.py",
+            "parallel/sharding.py", "parallel/exchange.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 

@@ -13,8 +13,10 @@ snapshot) held against the JAX package's on the same inputs, on the CPU:
   * the tripwire's hulls are the reference's declarations, and
     epoch_output_check / finite_check give the reference's verdicts on
     clean and corrupt outputs (uint64 values of 2^63 and more included);
-  * the ladder has the one rung "full": run_with_recovery fails exactly
-    as the reference's does at the bottom of its ladder;
+  * the ladder is full, then single_device (the reference's rungs
+    without those that swap a kernel for its plain twin):
+    run_with_recovery fails exactly as the reference's does at the
+    bottom of its ladder;
   * health_snapshot has the reference's shape and counters.
 No test sleeps: the clock and the sleeper are injected."""
 import random
@@ -418,15 +420,21 @@ def _exhausting(counter):
 
 
 def test_ladder_has_one_rung_and_recovery_fails_like_the_reference_at_its_bottom():
+    """The port's ladder is the reference's without its kernel-swapping
+    rungs: full, then single_device; at the bottom of both, recovery
+    fails the same way."""
     lad = PD.DegradationLadder()
-    assert PD.DegradationLadder.RUNGS == ("full",)
-    assert lad.rung_name == "full" and lad.exhausted
-    assert lad.degrade("weather") is None and lad.rung == 0
+    assert PD.DegradationLadder.RUNGS == ("full", "single_device")
+    assert PD.DegradationLadder.RUNGS[-1] == JD.DegradationLadder.RUNGS[-1]
+    assert lad.rung_name == "full" and not lad.exhausted
+    assert lad.degrade("weather") == "single_device" and lad.rung == 1
+    assert lad.exhausted and lad.degrade("weather") is None and lad.rung == 1
     jlad = JD.DegradationLadder()
     try:
         while jlad.degrade("to the bottom") is not None:
             pass
         JT.reset()
+        PT.reset()
         out = []
         for D, L in ((JD, jlad), (PD, lad)):
             calls = []
@@ -439,6 +447,7 @@ def test_ladder_has_one_rung_and_recovery_fails_like_the_reference_at_its_bottom
         jlad.reset()
     assert out[0] == out[1] == (2, ("r", 2), 2, "TransientDispatchError")
     assert _counts(PT) == _counts(JT)
+    lad.reset()
     assert PT.gauge("resilience.rung", always=True).value == 0
 
 
@@ -461,7 +470,7 @@ def test_health_snapshot_matches_reference():
         assert not faults.active()
     want, got = snaps
     assert want["rung"].pop("of") == list(JD.DegradationLadder.RUNGS)
-    assert got["rung"].pop("of") == ["full"]
+    assert got["rung"].pop("of") == ["full", "single_device"]
     assert got == want
     assert got["counters"]["retries"] == 1 and got["counters"]["corrupt_outputs"] == 1
     assert got["faults_active"] is True and got["checkpoint"]["last_good_generation"] == 3
