@@ -168,6 +168,20 @@ Then fork choice at V = 1,000,000: a Store over a forked DAG of 96
 blocks, seeded latest messages; lmd_ghost (get_head's vote sum and head
 walk) on the card must equal the CPU path.
 
+Last, slice 10, the conformance vectors (consensus_specs_tpu_torch.
+generators), "phase vectors": every family of suites.all_creators()
+emitted at the mainnet preset through run_generator with --device cuda
+--accel and BLS on the "torch" backend, in VECTORS_WORKERS worker
+processes, each file reloaded as YAML with the suite header; the 10
+signature-bearing corpus rows of tests/test_bls_corpus_jax.py at minimal,
+"torch" on the card equal to the bignum "python" dict for dict; every
+vector of the BLS family re-derived on the card (TorchBackend and
+hash_to_g2_batch); every table family at minimal with BLS off, the card
+route equal to the host route (--device cpu, no bulk root) byte for
+byte. The fq_mont kernels carry the phase; its states (512 validators)
+have no Merkle level big enough for the bulk root's device route, so it
+launches no sha256_pairs.
+
 Kernel times: at 1,048,576 lanes beside each kernel's bound, and at the
 lane count the verify launches most, beside an empty kernel's launch on
 the same stream (per eager call, host included, and per launch replayed
@@ -184,7 +198,9 @@ import argparse
 import collections
 import copy
 import hashlib
+import importlib
 import json
+import multiprocessing
 import re
 import shutil
 import subprocess
@@ -192,10 +208,12 @@ import sys
 import tempfile
 import time
 import traceback
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import yaml
 
 from consensus_specs_tpu_torch import convert, resilience, streaming, telemetry
 from consensus_specs_tpu_torch.api import ApiError, BeaconNodeAPI
@@ -2862,6 +2880,252 @@ def drive_fork_choice(dev, seed: int):
             "head_slot": store.slots[store.block_index[got]]}
 
 
+# ---------------------------------------------------------------------------
+# Slice 10: the conformance vectors emitted from the card
+# ---------------------------------------------------------------------------
+
+# the signature-bearing corpus rows of tests/test_bls_corpus_jax.py
+VECTORS_CORPUS_ROWS = (
+    ("attestation", "test_success"),
+    ("attestation", "test_invalid_attestation_signature"),
+    ("block_header", "test_success_block_header"),
+    ("block_header", "test_invalid_sig_block_header"),
+    ("proposer_slashing", "test_success"),
+    ("proposer_slashing", "test_invalid_sig_1"),
+    ("deposit", "test_new_deposit"),
+    ("deposit", "test_invalid_sig_new_deposit"),
+    ("voluntary_exit", "test_success"),
+    ("voluntary_exit", "test_invalid_signature"),
+)
+SUITE_KEYS = ("title", "summary", "forks_timeline", "forks", "config", "runner",
+              "handler", "test_cases")
+# worker processes of the mainnet emission, each with its own CUDA context:
+# a suite's time is host-bound (the launches of its signatures, hashlib
+# roots, YAML), and the card is idle most of it
+VECTORS_WORKERS = 6
+
+
+def load_yaml(path):
+    """yaml.safe_load of a file, through libyaml's safe loader where the
+    installation has it (the same documents, faster)."""
+    with open(path) as fh:
+        return yaml.load(fh, Loader=getattr(yaml, "CSafeLoader", yaml.SafeLoader))
+
+
+def emit(creator, out_dir: Path, preset: str, argv):
+    """run_generator("vectors", [creator], ...): the CLI's own entry point, one
+    suite. Returns (path, ms, launches by kernel counted from 0)."""
+    from consensus_specs_tpu_torch.generators.base import run_generator
+    zero_counts()
+    (written,), ms = fenced_ms(lambda: run_generator(
+        "vectors", [creator], ["-o", str(out_dir), "-p", preset, *argv]))
+    return Path(written), ms, counts()
+
+
+def emit_suite(index: int, out_dir: str, argv):
+    """One suite of suites.all_creators() (by index) emitted at mainnet with
+    BLS on through "torch", in a worker process of drive_vectors' pool;
+    its file reloaded as YAML and its header checked. Returns the suite's
+    row: name, ms, cases, bytes and launches by kernel (this process's
+    counters, from 0)."""
+    from consensus_specs_tpu_torch.crypto import bls as spec_bls
+    from consensus_specs_tpu_torch.generators import suites
+    spec_bls.bls_active = True
+    spec_bls.set_backend("torch")
+    path, ms, launches = emit(suites.all_creators()[index], Path(out_dir), "mainnet", argv)
+    doc = load_yaml(path)
+    missing = [k for k in SUITE_KEYS if k not in doc]
+    if missing or doc["config"] != "mainnet" or not doc["test_cases"]:
+        raise AssertionError(f"vectors: {path} lacks {missing} or its cases")
+    return {"suite": f"{doc['runner']}/{doc['handler']}", "ms": ms,
+            "cases": len(doc["test_cases"]), "bytes": path.stat().st_size,
+            "launches": launches}
+
+
+def table_creators(bls_default: bool):
+    """Every table family's creators (operations, epoch_processing,
+    sanity), replaying with BLS on or off by default."""
+    from consensus_specs_tpu_torch.generators import suites
+    return [(lambda preset, device="cuda", r=r, h=h, m=m: suites._replay(
+                r, h, m, preset, bls_default=bls_default, device=device))
+            for r, tables in (("operations", suites.OPERATION_TABLES),
+                              ("epoch_processing", suites.EPOCH_TABLES),
+                              ("sanity", suites.SANITY_TABLES))
+            for h, m in tables.items()]
+
+
+def rederive_bls(bls_dir: Path, dev):
+    """Every sign_msg, priv_to_pub, aggregate_sigs and aggregate_pubkeys
+    vector of the emitted BLS family (computed by the host bignum curve)
+    re-derived through TorchBackend on the card, every msg_hash_g2_*
+    vector through bls_torch.hash_to_g2_batch; raises on any difference.
+    Returns vectors by handler."""
+    tb = bls_torch.TorchBackend(dev)
+
+    def cases(handler):
+        return load_yaml(bls_dir / handler / f"{handler}_mainnet.yaml")["test_cases"]
+
+    def hexb(s):
+        return bytes.fromhex(s[2:])
+
+    derive = {
+        "sign_msg": lambda i: tb.sign(hexb(i["message"]), int(i["privkey"], 16), i["domain"]),
+        "priv_to_pub": lambda i: tb.privtopub(int(i, 16)),
+        "aggregate_sigs": lambda i: tb.aggregate_signatures([hexb(s) for s in i]),
+        "aggregate_pubkeys": lambda i: tb.aggregate_pubkeys([hexb(p) for p in i]),
+    }
+    done = {}
+    for handler, fn in derive.items():
+        cs = cases(handler)
+        for c in cs:
+            if "0x" + fn(c["input"]).hex() != c["output"]:
+                raise AssertionError(f"vectors bls {handler}: the card != the vector "
+                                     f"for input {c['input']}")
+        done[handler] = len(cs)
+    for handler in ("msg_hash_g2_uncompressed", "msg_hash_g2_compressed"):
+        cs = cases(handler)
+        pts = bls_torch.hash_to_g2_batch(
+            [(hexb(c["input"]["message"]), c["input"]["domain"]) for c in cs], dev)
+        for c, (x, y) in zip(cs, pts):
+            if handler == "msg_hash_g2_uncompressed":
+                got = [[hex(x.c0), hex(x.c1)], [hex(y.c0), hex(y.c1)]]
+            else:
+                z = bls_host.compress_g2((x, y))
+                got = ["0x" + z[:48].hex(), "0x" + z[48:].hex()]
+            if got != c["output"]:
+                raise AssertionError(f"vectors bls {handler}: hash_to_g2_batch on the card"
+                                     f" != the vector for input {c['input']}")
+        done[handler] = len(cs)
+    return done
+
+
+def drive_vectors(dev):
+    """phase vectors: the conformance-vector generators of the port
+    (consensus_specs_tpu_torch.generators) on the card.
+
+    (a) run_generator for every family of suites.all_creators() at the
+        mainnet preset with --device <dev> --accel, BLS on through the
+        "torch" backend, one suite a call in VECTORS_WORKERS worker
+        processes (emit_suite): each suite's ms, cases and launches by
+        kernel, the emission's wall time; every file reloads as YAML with
+        the suite header's keys;
+    (b) the 10 signature-bearing corpus rows (VECTORS_CORPUS_ROWS) in
+        generator mode at minimal, BLS on: "torch" with the spec on the
+        card against the port's bignum "python" with the spec on the CPU,
+        artifacts equal dict for dict;
+    (c) every vector of (a)'s BLS family re-derived on the card
+        (rederive_bls);
+    (d) every table family at minimal with BLS off by default: the card
+        route (--device <dev> --accel, "torch" for the rows that force
+        BLS on) against the host route (--device cpu, no bulk root,
+        "python"), YAML bytes equal.
+    Raises on any failure; nothing is caught and carried on."""
+    from consensus_specs_tpu_torch.crypto import bls as spec_bls
+    from consensus_specs_tpu_torch.generators import suites
+    from consensus_specs_tpu_torch.generators.from_tables import table
+    device = str(dev)
+    card = ["--device", device, "--accel"]
+    host = ["--device", "cpu"]
+    out = {"suites": [], "corpus": [], "routes": []}
+    old_backend, was_active = spec_bls._active_backend_name, spec_bls.bls_active
+    tmp = Path(tempfile.mkdtemp(prefix="vectors-"))
+    try:
+        spec_bls.bls_active = True
+        spec_bls.set_backend("torch")
+        # (a) the emission at mainnet, VECTORS_WORKERS suites at a time
+        n = len(suites.all_creators())
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(VECTORS_WORKERS,
+                                 mp_context=multiprocessing.get_context("spawn")) as pool:
+            out["suites"] = list(pool.map(emit_suite, range(n), [str(tmp / "a")] * n,
+                                          [card] * n))
+        out["emission_s"] = time.perf_counter() - t0
+        total = collections.Counter()
+        for row in out["suites"]:
+            total.update(row["launches"])
+        out["launches"] = dict(total)
+        if not launched_path(total):
+            raise AssertionError(f"vectors: the emission launched {dict(total)}")
+
+        # (b) the BLS corpus: "torch" on the card == the "python" oracle
+        for module, case in VECTORS_CORPUS_ROWS:
+            fn = getattr(importlib.import_module(table(module)), case)
+            spec_bls.set_backend("torch")
+            zero_counts()
+            got, card_ms = fenced_ms(lambda: fn(
+                generator_mode=True, phase="phase0", preset="minimal", bls_active=True,
+                device=device))
+            launches = counts()
+            spec_bls.set_backend("python")
+            t0 = time.perf_counter()
+            want = fn(generator_mode=True, phase="phase0", preset="minimal",
+                      bls_active=True, device="cpu")
+            host_ms = (time.perf_counter() - t0) * 1e3
+            if got is None or got != want:
+                raise AssertionError(f"vectors corpus {module}:{case}: the card's artifacts"
+                                     " != the bignum backend's")
+            out["corpus"].append({"row": f"{module}:{case}", "card_ms": card_ms,
+                                  "host_ms": host_ms, "launches": launches})
+        spec_bls.set_backend("torch")
+
+        # (c) the BLS family re-derived on the card
+        zero_counts()
+        done, ms = fenced_ms(lambda: rederive_bls(tmp / "a" / "tests" / "bls", dev))
+        out["bls"] = {"vectors": done, "ms": ms, "launches": counts()}
+
+        # (d) the card route against the host route, minimal, BLS off
+        for creator in table_creators(bls_default=False):
+            spec_bls.set_backend("torch")
+            c_path, c_ms, c_launches = emit(creator, tmp / "card", "minimal", card)
+            spec_bls.set_backend("python")
+            h_path, h_ms, _ = emit(creator, tmp / "host", "minimal", host)
+            if (c_path.relative_to(tmp / "card") != h_path.relative_to(tmp / "host")
+                    or c_path.read_bytes() != h_path.read_bytes()):
+                raise AssertionError(f"vectors routes: {c_path} != {h_path}")
+            out["routes"].append({"suite": str(c_path.parent.relative_to(tmp / "card" / "tests")),
+                                  "card_ms": c_ms, "host_ms": h_ms,
+                                  "bytes": c_path.stat().st_size, "launches": c_launches})
+    finally:
+        spec_bls._active_backend_name, spec_bls.bls_active = old_backend, was_active
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def report_vectors(v) -> None:
+    def kernels(launches):
+        return (f"sha256_pairs {launches['sha256_pairs']} / fq_mul {launches['fq_mul']} /"
+                f" fq_bilinear {launches['fq_bilinear']} / chains"
+                f" {launches['fq_bilinear_chain']}")
+
+    for s in v["suites"]:
+        log(f"phase vectors suite {s['suite']} (mainnet, --accel, BLS on \"torch\"):"
+            f" {s['ms']:.1f} ms, {s['cases']} cases, {s['bytes']} bytes | launches"
+            f" {kernels(s['launches'])}")
+    log(f"phase vectors emission: {len(v['suites'])} suites, "
+        f"{sum(s['cases'] for s in v['suites'])} cases, {VECTORS_WORKERS} worker processes:"
+        f" {v['emission_s']:.1f} s wall (suites' ms summed"
+        f" {sum(s['ms'] for s in v['suites']) / 1e3:.1f} s), every file reloaded as YAML"
+        f" with the suite header | launches {kernels(v['launches'])}")
+    log("phase vectors corpus (minimal, BLS on): \"torch\" with the spec on the card =="
+        " the bignum \"python\" with the spec on the CPU, dict for dict; row card ms /"
+        " host ms (card launches fq_mul / fq_bilinear / chains): " + "; ".join(
+            f"{r['row']} {r['card_ms']:.1f} / {r['host_ms']:.1f}"
+            f" ({r['launches']['fq_mul']} / {r['launches']['fq_bilinear']} /"
+            f" {r['launches']['fq_bilinear_chain']})" for r in v["corpus"]))
+    b = v["bls"]
+    log(f"phase vectors bls: {sum(b['vectors'].values())} vectors re-derived on the card"
+        f" == the host bignum's (" + ", ".join(f"{k} {n}" for k, n in b["vectors"].items())
+        + f") in {b['ms']:.1f} ms | launches {kernels(b['launches'])}")
+    routes = collections.Counter()
+    for r in v["routes"]:
+        routes.update(r["launches"])
+    log(f"phase vectors routes (minimal, BLS off; {len(v['routes'])} table families):"
+        " card (--accel) == host (--device cpu) byte for byte; suite card ms / host ms: "
+        + "; ".join(f"{r['suite']} {r['card_ms']:.1f} / {r['host_ms']:.1f}"
+                    for r in v["routes"])
+        + f" | card launches {kernels(routes)}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the results to this file")
@@ -3171,6 +3435,12 @@ def main() -> int:
         f" {fc['head_index']}, slot {fc['head_slot']}), subtree weights equal")
     result["fork_choice"] = fc
 
+    # -- 10b. slice 10: the conformance vectors from the card ---------------------
+    torch.cuda.empty_cache()
+    vec = drive_vectors(dev)
+    report_vectors(vec)
+    result["vectors"] = vec
+
     # -- 11. kernels line --------------------------------------------------------
     gossip_launches = b["gossip"]["good"]["verify_launches"]
     kernels = [{
@@ -3188,6 +3458,9 @@ def main() -> int:
                              "phase1": s8["phase1_launches"]["sha256_pairs"],
                              "api": sp["api"]["publish_sha256"],
                              "mesh": sp["mesh"]["launches"]["sha256_pairs"]},
+        # the vectors' states (512 validators) have no Merkle level of
+        # bulk._DEVICE_MIN_PAIRS pairs: their roots stay on hashlib
+        "launches_off_path": {"vectors": vec["launches"]["sha256_pairs"]},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -3211,7 +3484,8 @@ def main() -> int:
                              "phase1": s8["phase1_launches"][name],
                              "light_client": s8["light_client"]["launches"][name],
                              "bls_oracle": oracle["launches"][name],
-                             "mesh_pairing": sp["mesh"]["pairing_launches"][name]},
+                             "mesh_pairing": sp["mesh"]["pairing_launches"][name],
+                             "vectors": vec["launches"][name]},
         "max_abs_err": fq_k[name]["max_abs_err"],
         "ms": fq_k[name]["ms"],
         "plain_ms": fq_k[name]["plain_ms"],
@@ -3236,7 +3510,8 @@ def main() -> int:
                              "phase1": s8["phase1_launches"]["fq_bilinear"],
                              "light_client": s8["light_client"]["launches"]["fq_bilinear"],
                              "bls_oracle": oracle["launches"]["fq_bilinear"],
-                             "mesh_pairing": sp["mesh"]["pairing_launches"]["fq_bilinear"]},
+                             "mesh_pairing": sp["mesh"]["pairing_launches"]["fq_bilinear"],
+                             "vectors": vec["launches"]["fq_bilinear"]},
         "max_abs_err": max(k["max_abs_err"] for k in fq_k["fq_bilinear"].values()),
         "ms": mul12["check_ms"],
         "plain_ms": mul12["plain_ms"],
@@ -3262,7 +3537,8 @@ def main() -> int:
                              "phase1": s8["phase1_launches"]["fq_bilinear_chain"],
                              "light_client": s8["light_client"]["launches"]["fq_bilinear_chain"],
                              "bls_oracle": oracle["launches"]["fq_bilinear_chain"],
-                             "mesh_pairing": sp["mesh"]["pairing_launches"]["fq_bilinear_chain"]},
+                             "mesh_pairing": sp["mesh"]["pairing_launches"]["fq_bilinear_chain"],
+                             "vectors": vec["launches"]["fq_bilinear_chain"]},
         "max_abs_err": fq_ch["max_abs_err"],
         "ms": pow_z["ms"],
         "plain_ms": pow_z["plain_ms"],

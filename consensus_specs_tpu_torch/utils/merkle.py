@@ -1,11 +1,13 @@
 """Merkle tree utilities (own copy of consensus_specs_tpu/utils/merkle.py).
 
 `merkleize_chunks` pads the chunk count to the next power of two with zero
-chunks and reduces pairwise, one `hash_pairs` call per level.
+chunks and reduces pairwise, one `hash_pairs` call per level. The full-tree
+helpers (`calc_merkle_tree_from_leaves`, `get_merkle_root`,
+`get_merkle_proof`) serve the deposit tree of testing/factories.py.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 from .hash import ZERO_BYTES32, hash_pairs, sha256, zerohashes
 
@@ -38,6 +40,37 @@ def merkleize_chunks(chunks: Sequence[bytes]) -> bytes:
         level = hash_pairs([level[i] + level[i + 1] for i in range(0, len(level), 2)])
         depth += 1
     return level[0]
+
+
+def calc_merkle_tree_from_leaves(values: Sequence[bytes], layer_count: int = 32) -> List[List[bytes]]:
+    """All layers of a fixed-depth tree (layer 0 = leaves), zero-padded."""
+    values = list(values)
+    tree: List[List[bytes]] = [list(values)]
+    for h in range(layer_count):
+        if len(values) % 2 == 1:
+            values = values + [zerohashes[h]]
+        values = hash_pairs([values[i] + values[i + 1] for i in range(0, len(values), 2)])
+        tree.append(values)
+    return tree
+
+
+def get_merkle_root(values: Sequence[bytes], pad_to: int = 1) -> bytes:
+    """Root of a tree of exactly `pad_to` leaves (zero-padded)."""
+    layer_count = max(0, (pad_to - 1).bit_length())
+    assert len(values) <= pad_to, f"{len(values)} leaves exceed pad_to={pad_to}"
+    if len(values) == 0:
+        return zerohashes[layer_count]
+    tree = calc_merkle_tree_from_leaves(values, layer_count)
+    return tree[-1][0]
+
+
+def get_merkle_proof(tree: List[List[bytes]], item_index: int) -> List[bytes]:
+    """Sibling path (bottom-up) for the leaf at item_index."""
+    proof = []
+    for i in range(len(tree) - 1):
+        subindex = (item_index // (1 << i)) ^ 1
+        proof.append(tree[i][subindex] if subindex < len(tree[i]) else zerohashes[i])
+    return proof
 
 
 def verify_merkle_branch(leaf: bytes, proof: Sequence[bytes], depth: int, index: int, root: bytes) -> bool:

@@ -64,7 +64,15 @@ def test_scan_sees_the_package():
             "models/phase1/spec.py", "light_client/__init__.py",
             "light_client/multiproof.py",
             "light_client/sync_protocol.py", "parallel/__init__.py",
-            "parallel/sharding.py", "parallel/exchange.py"} <= names
+            "parallel/sharding.py", "parallel/exchange.py",
+            "debug/encode.py", "debug/decode.py", "debug/random_value.py",
+            "fuzzing/sedes.py", "fuzzing/decoder.py", "testing/utils.py",
+            "testing/keys.py", "testing/context.py", "testing/factories.py",
+            "testing/runners.py", "testing/cases/__init__.py",
+            "testing/cases/attestation.py", "testing/cases/finality.py",
+            "testing/cases/sanity_blocks.py", "generators/base.py",
+            "generators/from_tables.py", "generators/suites.py",
+            "generators/__main__.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -94,3 +102,21 @@ def test_bls_backend_refuses_missing_cuda():
         with pytest.raises(RuntimeError):
             TorchBackend(device="cuda")
     assert TorchBackend(device="cpu").device.type == "cpu"
+
+
+def test_generators_refuse_missing_cuda(tmp_path):
+    """cases_from_table and the generator CLI run the specs on the card
+    unless told `--device cpu` / device="cpu": without one they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from consensus_specs_tpu_torch.generators.__main__ import main
+    from consensus_specs_tpu_torch.generators.from_tables import cases_from_table, table
+    with pytest.raises(RuntimeError):
+        cases_from_table(table("sanity_slots"), "minimal", bls_default=False)
+    with pytest.raises(RuntimeError):
+        main(["-o", str(tmp_path), "-p", "minimal", "--family", "shuffling"])
+    with pytest.raises(RuntimeError):
+        main(["-o", str(tmp_path), "-p", "mainnet", "--family", "bls"])
+    assert not (tmp_path / "tests").exists()
+    main(["-o", str(tmp_path), "-p", "minimal", "--family", "shuffling", "--device", "cpu"])
+    assert (tmp_path / "tests").exists()
