@@ -182,6 +182,30 @@ byte. The fq_mont kernels carry the phase; its states (512 validators)
 have no Merkle level big enough for the bulk root's device route, so it
 launches no sha256_pairs.
 
+Then slice 11, each phase with the counts at 0 just before it and read
+just after:
+
+  * deposit: a mainnet genesis through the deposit contract
+    (consensus_specs_tpu_torch.deposit_contract), 65,536 full deposits
+    made from the seed: DepositContract.deposit one at a time (the
+    Eth2Genesis event fires on the 65,536th exactly), the native C++ tree
+    (csrc/deposit_tree.cpp, built with g++) in one batch, and the card:
+    the 65,536 leaves recomputed there over the contract's fixed chunk
+    shapes (every message 64 bytes: sha256_pairs launches) equal the
+    host's deposit_data_root, and their tree (16 levels on the card, then
+    the zero subtrees to depth 32) gives the contract's root, as does the
+    native tree; sha256_many on the card equals hashlib at lengths 1, 55,
+    56, 64, 65 and 200;
+  * networking (consensus_specs_tpu_torch.networking): a NodeRecord
+    signed and verified through TorchBackend on the card (True, False
+    after seq += 1, False with another record's signature; fq_mont
+    launches), then an RPC loopback pair whose server answers from the
+    spec-block drive's chain at V = 131,072: hello (should_disconnect:
+    same network stays, another drops), beacon_block_roots over the
+    drive's slots, beacon_block_headers and beacon_block_bodies in the
+    mainnet types; every decoded body's hash_tree_root equals its
+    header's body_root, and a garbage wire comes back PARSE_ERROR.
+
 Kernel times: at 1,048,576 lanes beside each kernel's bound, and at the
 lane count the verify launches most, beside an empty kernel's launch on
 the same stream (per eager call, host included, and per launch replayed
@@ -233,6 +257,11 @@ from consensus_specs_tpu_torch.utils.config import load_preset
 from consensus_specs_tpu_torch.parallel.sharding import ServingMesh
 from consensus_specs_tpu_torch.networking.gossip import (GossipRouter,
                                                          TOPIC_BEACON_ATTESTATION)
+from consensus_specs_tpu_torch import networking
+from consensus_specs_tpu_torch.networking import identity, messaging, rpc
+from consensus_specs_tpu_torch.deposit_contract import contract as deposit_contract
+from consensus_specs_tpu_torch.deposit_contract import native as deposit_native
+from consensus_specs_tpu_torch.utils.hash import zerohashes
 from consensus_specs_tpu_torch.utils.ssz import bulk as ssz_bulk
 from consensus_specs_tpu_torch.utils.ssz import impl as ssz_impl
 from consensus_specs_tpu_torch.resilience import faults, integrity
@@ -2421,6 +2450,7 @@ def drive_blocks(spec, V: int, n_blocks: int, sync, dev):
     backend.verify_indexed_batch = timed_verify
     backend.verify = timed_single
     core = None
+    chain = []          # the accepted blocks, in order (phase networking serves them)
     try:
         counter = sha256_cuda.counter
         n0 = counter.launches
@@ -2461,6 +2491,8 @@ def drive_blocks(spec, V: int, n_blocks: int, sync, dev):
                    "attestations": len(state.current_epoch_attestations) - before,
                    **fq_launches(), **slots}
             out["blocks"].append(row)
+            if raised is None:
+                chain.append(block)
             return row, raised
 
         slot = epoch0 * spe + delay
@@ -2575,6 +2607,9 @@ def drive_blocks(spec, V: int, n_blocks: int, sync, dev):
         out["sha256_launches"] = out["enter_launches"] + sum(
             r["slots_launches"] + r["sha256_launches"] for r in out["blocks"])
         root = core._state_root(state)
+        # not JSON: phase networking pops it
+        out["chain"] = {"blocks": chain, "finalized_epoch": int(state.finalized_epoch),
+                        "finalized_root": bytes(state.finalized_root)}
     finally:
         del backend.verify_indexed_batch, backend.verify
         spec_bls.bls_active = was_active
@@ -3126,6 +3161,272 @@ def report_vectors(v) -> None:
         + f" | card launches {kernels(routes)}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: the deposit contract and networking
+# ---------------------------------------------------------------------------
+
+DEPOSIT_TIMESTAMP = 1_606_824_023       # the genesis deposit's block time
+SHA256_MANY_LENGTHS = (1, 55, 56, 64, 65, 200)
+SHA256_MANY_N = 4_096                   # messages of each length
+
+
+def drive_deposit(dev, seed: int, sync):
+    """phase deposit: a mainnet genesis through the deposit contract,
+    CHAIN_START_FULL_DEPOSIT_THRESHOLD (65,536) full deposits made from the
+    seed, through the host contract (DepositContract.deposit, one at a
+    time: the Eth2Genesis event must fire on the last exactly), the native
+    C++ tree (deposit_batch) and the card: the leaves recomputed over the
+    contract's fixed chunk shapes (deposit_data_roots, four pair-hash
+    launches) equal the host's deposit_data_root, and their tree
+    (merkle_root_from_leaves_device, 16 levels, then zerohashes[16..31])
+    gives the contract's root. sha256_many on the card equals hashlib at
+    SHA256_MANY_LENGTHS. Returns the numbers."""
+    t_phase = time.perf_counter()
+    zero_fq_counters()
+    n = deposit_contract.CHAIN_START_FULL_DEPOSIT_THRESHOLD
+    rng = np.random.default_rng(seed)
+    pks = rng.integers(0, 256, (n, 48), dtype=np.uint8)
+    wcs = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    sigs = rng.integers(0, 256, (n, 96), dtype=np.uint8)
+    vals = np.full(n, deposit_contract.FULL_DEPOSIT_GWEI, dtype=np.uint64)
+    rows = [(pks[i].tobytes(), wcs[i].tobytes(), sigs[i].tobytes()) for i in range(n)]
+    out = {"deposits": n}
+
+    contract = deposit_contract.DepositContract()
+    t0 = time.perf_counter()
+    events = [contract.deposit(pk, wc, sig, int(vals[i]), DEPOSIT_TIMESTAMP)
+              for i, (pk, wc, sig) in enumerate(rows)]
+    out["host_ms"] = (time.perf_counter() - t0) * 1e3
+    fired = [i for i, e in enumerate(events) if e is not None]
+    if fired != [n - 1] or not contract.chain_started:
+        raise AssertionError(f"Eth2Genesis fired at deposits {fired}, not at {n - 1} alone")
+    genesis = events[-1]
+    root = contract.get_deposit_root()
+    if genesis.deposit_root != root or genesis.deposit_count != n.to_bytes(8, "little"):
+        raise AssertionError("the genesis event's root or count != the contract's")
+    out["genesis_time"] = int.from_bytes(genesis.time, "little")
+
+    t0 = time.perf_counter()
+    tree = deposit_native.NativeDepositTree()
+    tree.deposit_batch(pks, wcs, sigs, vals)
+    out["native_ms"] = (time.perf_counter() - t0) * 1e3
+    if tree.get_deposit_root() != root or tree.deposit_count != n:
+        raise AssertionError("native deposit tree root != the contract's")
+
+    t0 = time.perf_counter()
+    host_leaves = [deposit_contract.deposit_data_root(pk, wc, int(vals[i]), sig)
+                   for i, (pk, wc, sig) in enumerate(rows)]
+    out["host_leaves_ms"] = (time.perf_counter() - t0) * 1e3
+    sha256_cuda.counter.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    leaves = deposit_contract.deposit_data_roots(pks, wcs, vals, sigs, device=dev)
+    out["card_leaves_ms"] = (time.perf_counter() - t0) * 1e3   # words_to_bytes synced
+    out["leaves_launches"] = sha256_cuda.counter.launches
+    if [leaf.tobytes() for leaf in leaves] != host_leaves:
+        raise AssertionError("the card's deposit leaves != deposit_data_root on the host")
+
+    n0 = sha256_cuda.counter.launches
+    t0 = time.perf_counter()
+    sub = sha256.merkle_root_from_leaves_device(host_leaves, n, device=dev)
+    node = sub
+    for depth in range(n.bit_length() - 1, deposit_contract.TREE_DEPTH):
+        node = _sha(node + zerohashes[depth])
+    out["card_root_ms"] = (time.perf_counter() - t0) * 1e3
+    out["root_launches"] = sha256_cuda.counter.launches - n0
+    if node != root:
+        raise AssertionError("the card's deposit root != the contract's")
+    out["launches"] = out["leaves_launches"] + out["root_launches"]
+    if out["root_launches"] <= 0 or out["leaves_launches"] <= 0:
+        raise AssertionError("phase deposit never launched sha256_pairs")
+
+    mrng = np.random.default_rng(seed + 1)
+    t0 = time.perf_counter()
+    for length in SHA256_MANY_LENGTHS:
+        msgs = mrng.integers(0, 256, (SHA256_MANY_N, length), dtype=np.uint8)
+        got = sha256.sha256_many(msgs, device=dev)
+        for i in range(SHA256_MANY_N):
+            if got[i].tobytes() != hashlib.sha256(msgs[i].tobytes()).digest():
+                raise AssertionError(f"sha256_many on the card != hashlib at length {length}")
+    out["sha256_many_ms"] = (time.perf_counter() - t0) * 1e3
+    out["root"] = root.hex()
+    out["fq_launches"] = fq_launches()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def report_deposit(d) -> None:
+    log(f"phase deposit: {d['deposits']:,} full deposits (mainnet genesis threshold),"
+        f" Eth2Genesis on the last exactly (time {d['genesis_time']}) | deposit root"
+        f" {d['root'][:16]}.. equal through the host contract ({d['host_ms']:.1f} ms,"
+        f" one deposit at a time), the native tree ({d['native_ms']:.1f} ms, one batch)"
+        f" and the card (tree of the leaves {d['card_root_ms']:.1f} ms,"
+        f" {d['root_launches']} sha256_pairs launches) | leaves on the card"
+        f" {d['card_leaves_ms']:.1f} ms ({d['leaves_launches']} launches) == host"
+        f" deposit_data_root ({d['host_leaves_ms']:.1f} ms) | sha256_many on the card =="
+        f" hashlib at lengths {list(SHA256_MANY_LENGTHS)} x {SHA256_MANY_N}"
+        f" ({d['sha256_many_ms']:.1f} ms) | phase {d['seconds']:.1f} s")
+
+
+def drive_networking(spec, chain, dev, sync):
+    """phase networking: one NodeRecord signed and verified through
+    TorchBackend on the card (True as signed, False after seq += 1, False
+    with another record's signature), then an RPC loopback_pair whose node
+    B serves the block drive's chain (mainnet types): hello with
+    should_disconnect both ways, beacon_block_roots over the drive's
+    slots, beacon_block_headers and beacon_block_bodies; the client
+    decodes every body and its hash_tree_root must equal its header's
+    body_root, and each header's signing root its block root. A garbage
+    wire comes back PARSE_ERROR. Returns the numbers."""
+    from consensus_specs_tpu_torch.crypto import bls as spec_bls
+    from consensus_specs_tpu_torch.utils.ssz.typing import List as SSZList
+    t_phase = time.perf_counter()
+    out = {}
+    was_active = spec_bls.bls_active
+    spec_bls.bls_active = True
+    spec_bls.set_backend("torch")
+    zero_fq_counters()
+    n0 = sha256_cuda.counter.launches
+    try:
+        ms = {}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            return res
+        record = timed("sign", lambda: networking.NodeRecord(
+            ip="10.0.0.1", pubkey=bls_host.privtopub(key_of(0))).sign(key_of(0)))
+        other = networking.NodeRecord(ip="10.0.0.2", pubkey=bls_host.privtopub(key_of(1)))
+        other.sign(key_of(1))
+        if not bls_host.PythonBackend().verify(
+                bytes(record.pubkey), record.content_digest(), record.signature,
+                identity.ENR_SIGNING_DOMAIN):
+            raise AssertionError("the card's record signature fails the bignum verify")
+        verdicts = [timed("verify", record.verify)]
+        record.seq += 1
+        verdicts.append(timed("verify_seq_changed", record.verify))
+        record.seq -= 1
+        record.signature = other.signature
+        verdicts.append(timed("verify_other_signature", record.verify))
+        if verdicts != [True, False, False]:
+            raise AssertionError(f"node record verdicts {verdicts} != [True, False, False]")
+        out["record_ms"] = ms
+        out["launches"] = fq_launches()
+        if min(out["launches"][k] for k in BLS_PATH) <= 0:
+            raise AssertionError(f"the node records did not launch the fq kernels: {out['launches']}")
+    finally:
+        spec_bls.bls_active = was_active
+
+    blocks = chain["blocks"]
+    roots = [spec.signing_root(b) for b in blocks]
+    by_root = dict(zip(roots, blocks))
+    head = blocks[-1]
+    a, b = rpc.loopback_pair("client", "server")
+    mine = rpc.Hello(network_id=1, chain_id=1,
+                     latest_finalized_root=chain["finalized_root"],
+                     latest_finalized_epoch=chain["finalized_epoch"],
+                     best_root=roots[-1], best_slot=int(head.slot))
+
+    def known_root(epoch):
+        return chain["finalized_root"] if epoch == chain["finalized_epoch"] else None
+
+    def roots_of(req):
+        lo, hi = int(req.start_slot), int(req.start_slot) + int(req.count)
+        return rpc.BlockRootsResponse(roots=[
+            rpc.BlockRootSlot(block_root=r, slot=int(blk.slot))
+            for r, blk in zip(roots, blocks) if lo <= int(blk.slot) < hi])
+
+    def header_of(blk):
+        return spec.BeaconBlockHeader(
+            slot=blk.slot, parent_root=blk.parent_root, state_root=blk.state_root,
+            body_root=spec.hash_tree_root(blk.body, spec.BeaconBlockBody),
+            signature=blk.signature)
+
+    def headers_of(req):
+        start = roots.index(bytes(req.start_root))
+        picked = blocks[start::int(req.skip_slots) + 1][:int(req.max_headers)]
+        return rpc.BlockHeadersResponse(headers=ssz_impl.serialize(
+            [header_of(blk) for blk in picked], SSZList[spec.BeaconBlockHeader]))
+
+    def bodies_of(req):
+        return rpc.BlockBodiesResponse(block_bodies=ssz_impl.serialize(
+            [by_root[bytes(r)].body for r in req.block_roots],
+            SSZList[spec.BeaconBlockBody]))
+
+    b.register(rpc.HELLO, lambda theirs: mine)
+    b.register(rpc.BEACON_BLOCK_ROOTS, roots_of)
+    b.register(rpc.BEACON_BLOCK_HEADERS, headers_of)
+    b.register(rpc.BEACON_BLOCK_BODIES, bodies_of)
+    ms = {}
+
+    def call(name, method, body):
+        t0 = time.perf_counter()
+        res = a.call(method, body)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return res
+    theirs = call("hello", rpc.HELLO, mine)
+    stranger = rpc.Hello(**{f: getattr(theirs, f) for f in rpc.Hello.get_field_names()})
+    stranger.network_id = 2
+    hello = [rpc.should_disconnect(mine, theirs, known_root),
+             rpc.should_disconnect(mine, stranger, known_root)]
+    if hello != [False, True]:
+        raise AssertionError(f"should_disconnect (same network, other network) = {hello}")
+    first, last = int(blocks[0].slot), int(head.slot)
+    got_roots = call("beacon_block_roots", rpc.BEACON_BLOCK_ROOTS,
+                     rpc.BlockRootsRequest(start_slot=first, count=last - first + 1))
+    if [(bytes(r.block_root), int(r.slot)) for r in got_roots.roots] != \
+            [(r, int(blk.slot)) for r, blk in zip(roots, blocks)]:
+        raise AssertionError("beacon_block_roots != the drive's chain")
+    got_headers = call("beacon_block_headers", rpc.BEACON_BLOCK_HEADERS, rpc.BlockHeadersRequest(
+        start_root=roots[0], start_slot=first, max_headers=len(blocks), skip_slots=0))
+    got_bodies = call("beacon_block_bodies", rpc.BEACON_BLOCK_BODIES, rpc.BlockBodiesRequest(
+        block_roots=[r.block_root for r in got_roots.roots]))
+    t0 = time.perf_counter()
+    headers = ssz_impl.deserialize(bytes(got_headers.headers), SSZList[spec.BeaconBlockHeader])
+    bodies = ssz_impl.deserialize(bytes(got_bodies.block_bodies), SSZList[spec.BeaconBlockBody])
+    if len(headers) != len(blocks) or len(bodies) != len(blocks):
+        raise AssertionError(f"{len(headers)} headers, {len(bodies)} bodies for {len(blocks)} blocks")
+    for k, (header, body) in enumerate(zip(headers, bodies)):
+        if spec.hash_tree_root(body, spec.BeaconBlockBody) != bytes(header.body_root):
+            raise AssertionError(f"block {k}: body root != the header's body_root")
+        if spec.signing_root(header) != roots[k] or int(header.slot) != int(blocks[k].slot):
+            raise AssertionError(f"block {k}: header's signing root != the block root")
+    ms["client_check"] = (time.perf_counter() - t0) * 1e3
+    _, _, payload = messaging.decode_message(b.handle_wire(b"\xff" * 40))
+    if int(ssz_impl.deserialize(payload, rpc.Response).response_code) != rpc.PARSE_ERROR:
+        raise AssertionError("a garbage wire did not come back PARSE_ERROR")
+    out["rpc_ms"] = ms
+    out["rpc"] = {"blocks": len(blocks), "slots": [first, last],
+                  "attestations": sum(len(blk.body.attestations) for blk in blocks),
+                  "headers_bytes": len(bytes(got_headers.headers)),
+                  "bodies_bytes": len(bytes(got_bodies.block_bodies))}
+    out["sha256_launches"] = sha256_cuda.counter.launches - n0
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def report_networking(nw) -> None:
+    r, rm, l = nw["rpc"], nw["rpc_ms"], nw["launches"]
+    log("phase networking: node record on TorchBackend, sign / verify / verify after"
+        " seq += 1 / verify with another record's signature ms "
+        + " / ".join(f"{v:.1f}" for v in nw["record_ms"].values())
+        + f" -> True / False / False | launches fq_mul {l['fq_mul']} / fq_bilinear"
+        f" {l['fq_bilinear']} / fq_bilinear_chain {l['fq_bilinear_chain']} / fq_redc"
+        f" {l['fq_redc']} | RPC loopback over the block drive's {r['blocks']} blocks"
+        f" (slots {r['slots'][0]}..{r['slots'][1]}, {r['attestations']} attestations,"
+        f" mainnet types): hello {rm['hello']:.1f} ms (same network: stay, another:"
+        f" drop), beacon_block_roots {rm['beacon_block_roots']:.1f} ms,"
+        f" beacon_block_headers {rm['beacon_block_headers']:.1f} ms"
+        f" ({r['headers_bytes']} B), beacon_block_bodies"
+        f" {rm['beacon_block_bodies']:.1f} ms ({r['bodies_bytes']} B), the client's"
+        f" decode and body roots {rm['client_check']:.1f} ms: every body root =="
+        f" its header's body_root; garbage wire -> PARSE_ERROR | sha256_pairs"
+        f" launches {nw['sha256_launches']} | phase {nw['seconds']:.1f} s")
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the results to this file")
@@ -3441,6 +3742,15 @@ def main() -> int:
     report_vectors(vec)
     result["vectors"] = vec
 
+    # -- 10c. slice 11: the deposit contract and networking ----------------------
+    torch.cuda.empty_cache()
+    dep = drive_deposit(dev, SEED + 5, sync)
+    report_deposit(dep)
+    result["deposit"] = dep
+    nw = drive_networking(phase0.get_spec("mainnet", device=dev), b.pop("chain"), dev, sync)
+    report_networking(nw)
+    result["networking"] = nw
+
     # -- 11. kernels line --------------------------------------------------------
     gossip_launches = b["gossip"]["good"]["verify_launches"]
     kernels = [{
@@ -3457,10 +3767,13 @@ def main() -> int:
                              "chunk_tree": s8["chunk_tree"]["launches"],
                              "phase1": s8["phase1_launches"]["sha256_pairs"],
                              "api": sp["api"]["publish_sha256"],
-                             "mesh": sp["mesh"]["launches"]["sha256_pairs"]},
+                             "mesh": sp["mesh"]["launches"]["sha256_pairs"],
+                             "deposit": dep["launches"]},
         # the vectors' states (512 validators) have no Merkle level of
-        # bulk._DEVICE_MIN_PAIRS pairs: their roots stay on hashlib
-        "launches_off_path": {"vectors": vec["launches"]["sha256_pairs"]},
+        # bulk._DEVICE_MIN_PAIRS pairs: their roots stay on hashlib; the
+        # networking phase's roots (block bodies) are host SSZ
+        "launches_off_path": {"vectors": vec["launches"]["sha256_pairs"],
+                              "networking": nw["sha256_launches"]},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -3485,7 +3798,9 @@ def main() -> int:
                              "light_client": s8["light_client"]["launches"][name],
                              "bls_oracle": oracle["launches"][name],
                              "mesh_pairing": sp["mesh"]["pairing_launches"][name],
-                             "vectors": vec["launches"][name]},
+                             "vectors": vec["launches"][name],
+                             "networking": nw["launches"][name]},
+        "launches_off_path": {"deposit": dep["fq_launches"][name]},
         "max_abs_err": fq_k[name]["max_abs_err"],
         "ms": fq_k[name]["ms"],
         "plain_ms": fq_k[name]["plain_ms"],
@@ -3511,7 +3826,9 @@ def main() -> int:
                              "light_client": s8["light_client"]["launches"]["fq_bilinear"],
                              "bls_oracle": oracle["launches"]["fq_bilinear"],
                              "mesh_pairing": sp["mesh"]["pairing_launches"]["fq_bilinear"],
-                             "vectors": vec["launches"]["fq_bilinear"]},
+                             "vectors": vec["launches"]["fq_bilinear"],
+                             "networking": nw["launches"]["fq_bilinear"]},
+        "launches_off_path": {"deposit": dep["fq_launches"]["fq_bilinear"]},
         "max_abs_err": max(k["max_abs_err"] for k in fq_k["fq_bilinear"].values()),
         "ms": mul12["check_ms"],
         "plain_ms": mul12["plain_ms"],
@@ -3538,7 +3855,9 @@ def main() -> int:
                              "light_client": s8["light_client"]["launches"]["fq_bilinear_chain"],
                              "bls_oracle": oracle["launches"]["fq_bilinear_chain"],
                              "mesh_pairing": sp["mesh"]["pairing_launches"]["fq_bilinear_chain"],
-                             "vectors": vec["launches"]["fq_bilinear_chain"]},
+                             "vectors": vec["launches"]["fq_bilinear_chain"],
+                             "networking": nw["launches"]["fq_bilinear_chain"]},
+        "launches_off_path": {"deposit": dep["fq_launches"]["fq_bilinear_chain"]},
         "max_abs_err": fq_ch["max_abs_err"],
         "ms": pow_z["ms"],
         "plain_ms": pow_z["plain_ms"],

@@ -102,6 +102,21 @@ FQ2_ONE = Fq2(1, 0)
 XI = Fq2(1, 1)          # v^3 = xi = 1 + u
 G2_B = Fq2(4, 4)        # E': y^2 = x^3 + 4(1 + u)
 
+G2_GEN = (
+    Fq2(
+        int("352701069587466618187139116011060144890029952792775240219"
+            "908644239793785735715026873347600343865175952761926303160"),
+        int("305914434424421370997125981475378163698647032547664755865"
+            "9373206291635324768958432433509563104347017837885763365758"),
+    ),
+    Fq2(
+        int("198515060228729193556805452117717163830086897821565573085"
+            "9378665066344726373823718423869104263333984641494340347905"),
+        int("927553665492332455747201965776037880757740193453592970025"
+            "027978793976877002675564980949289727957565575433344219582"),
+    ),
+)
+
 
 # ---------------------------------------------------------------------------
 # Fq6 = Fq2[v] / (v^3 - xi)

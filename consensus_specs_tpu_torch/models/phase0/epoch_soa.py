@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ... import telemetry
+from ...device import resolve
 from ...ops import intmath
 from ...ops.intmath import (udivmod_u64, ule, ult, umax, umax_reduce, umin,
                             u64_key)
@@ -628,6 +629,16 @@ def columns_np_from_state(state) -> dict:
         "effective_balance": col("effective_balance"),
         "balance": np.fromiter((b for b in state.balances), dtype=np.uint64, count=n),
     }
+
+
+def columns_from_state(state, np_cols: dict = None, device="cuda") -> ValidatorColumns:
+    """The registry's columns as tensors on `device` (uint64 as int64 bit
+    patterns), from `np_cols` when the caller has them already."""
+    from ...convert import to_tensor
+    dev = resolve(device)
+    np_cols = np_cols if np_cols is not None else columns_np_from_state(state)
+    return ValidatorColumns(**{f: to_tensor(np_cols[f], dev)
+                               for f in ValidatorColumns._fields})
 
 
 def scalars_from_state(state) -> EpochScalars:

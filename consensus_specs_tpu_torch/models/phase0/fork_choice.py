@@ -152,6 +152,33 @@ class Store:
         return None
 
 
+def lmd_ghost_reference(store: Store, effective_balances: Sequence[int],
+                        active_indices: Sequence[int],
+                        start_root: bytes) -> bytes:
+    """Object-model LMD-GHOST (the oracle): per-child vote counting through
+    get_ancestor, ties by lexicographically higher root
+    (0_fork-choice.md:78-103). O(V * B * depth), host only — test scale."""
+    targets = [
+        (int(v), store.block_index[store.latest_messages[int(v)].beacon_block_root])
+        for v in active_indices if int(v) in store.latest_messages
+    ]
+
+    def vote_count(block_idx: int) -> int:
+        blk_slot = store.slots[block_idx]
+        return sum(
+            int(effective_balances[v])
+            for v, tgt in targets
+            if store.get_ancestor(tgt, blk_slot) == block_idx
+        )
+
+    head = store.block_index[start_root]
+    while True:
+        kids = store.children[head]
+        if not kids:
+            return store.roots[head]
+        head = max(kids, key=lambda i: (vote_count(i), store.roots[i]))
+
+
 def subtree_weights(store: Store, effective_balances,
                     active_indices: Sequence[int], device="cuda") -> np.ndarray:
     """[B] uint64 subtree vote weight per block.

@@ -75,7 +75,8 @@ from .epoch_soa import (EpochConfig, EpochInputs, EpochScalars,
                         ValidatorColumns, build_epoch_context,
                         build_epoch_inputs, columns_np_from_state,
                         epoch_transition_device, inert_column_tail,
-                        pad_epoch_inputs, process_crosslinks_vectorized,
+                        pad_epoch_inputs, pad_validator_columns,
+                        process_crosslinks_vectorized,
                         scalars_from_state, _apply_justification,
                         _apply_validator_columns, _write_back_scalars)
 

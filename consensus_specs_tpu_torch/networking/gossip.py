@@ -13,12 +13,18 @@ digest (gossipsub's seen-cache), and capped at the spec's message size.
 It is the multi-node test backend — the same role the minimal preset plays
 for state-transition tests (SURVEY.md §4 "the minimal preset is the fake
 backend").
+
+One departure from the reference: a subscriber that fails is counted in
+`handler_failures` and the sweep goes on, except for an error of the card
+(resilience/dispatch.py::is_device_fault), which propagates out of
+`publish` (the message is un-marked as seen, as for any escape).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Set, Tuple
 
+from ..resilience.dispatch import is_device_fault
 from ..utils.hash import sha256
 
 GOSSIPSUB_PROTOCOL_ID = "/eth/serenity/gossipsub/1.0.0"
@@ -84,7 +90,7 @@ class GossipRouter:
         # mark seen BEFORE the delivery sweep: a handler that synchronously
         # republishes the same message (the forwarding pattern) must hit the
         # duplicate check, not re-enter a nested sweep. If the sweep itself
-        # escapes (impossible above, but future-proof), un-mark so a
+        # escapes (a device fault in a handler), un-mark so a
         # half-delivered message is not permanently blacklisted.
         self._seen.add(digest)
         reached = 0
@@ -95,9 +101,12 @@ class GossipRouter:
                 try:
                     handler(topic, payload)
                     reached += 1
-                except Exception:
+                except Exception as exc:
                     # a peer's handler failing is that peer's problem:
-                    # delivery to the others proceeds, observably counted
+                    # delivery to the others proceeds, observably counted;
+                    # a fault of the card is everyone's, and propagates
+                    if is_device_fault(exc):
+                        raise
                     self.handler_failures += 1
         except BaseException:
             self._seen.discard(digest)

@@ -28,6 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelCompileError(RuntimeError):
+    """A source of csrc/ did not build: no compiler, or the compiler failed."""
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home and (Path(home) / "bin" / "nvcc").exists():
@@ -36,7 +40,7 @@ def _nvcc() -> str:
         "/usr/local/cuda/bin/nvcc"
         if Path("/usr/local/cuda/bin/nvcc").exists() else None)
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+        raise KernelCompileError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
     return found
 
 
@@ -72,7 +76,7 @@ def _finish(name: str, job) -> None:
     rc = proc.wait()
     log.close()
     if rc != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (rc={rc}):\n"
+        raise KernelCompileError(f"nvcc failed for {name}.cu (rc={rc}):\n"
                            + log_path(name).read_text())
     os.replace(tmp, out)
 

@@ -72,10 +72,14 @@ QINV_NEG = pow(-Q, -1, 1 << B)   # -q^{-1} mod 2^B
 NORM_FULL = L + 3           # rounds for exact ripple propagation
 
 # The laziness budget (module docstring), as in the reference.
+NARROW_LIMB_LO = -16                    # post-norm body limb floor
+NARROW_LIMB_HI = 1 << B                 # post-norm body limb ceiling (2^29)
 NARROW_INPUT_BOUND = 1 << 32            # |body limb| into a multiply
 NARROW_TOP_SPILL = 1 << 16              # |top limb| into a multiply
+CANONICAL_TOP = Q >> (B * (L - 1))      # = 13: top limb of a canonical x < q
 WIDE_COL_RAW = L << (2 * B)             # 14*2^58: one raw schoolbook column
-WIDE_COL_BUDGET = 64 << B               # 2^35: fq_redc body-column budget
+WIDE_ACCUM_FANIN = 64                   # gamma abs-fan-in ceiling (fq_tower)
+WIDE_COL_BUDGET = WIDE_ACCUM_FANIN << B  # 2^35: fq_redc body-column budget
 WIDE_TOP_SPILL = 1 << 38                # fq_redc top-column budget
 
 
@@ -120,7 +124,8 @@ def stack_mont(values: Sequence[int]) -> np.ndarray:
     return np.stack([to_mont(v) for v in values])
 
 
-_Q_NP = int_to_limbs(Q)
+Q_LIMBS = int_to_limbs(Q)
+_Q_NP = Q_LIMBS
 _Q2_NP = int_to_limbs(2 * Q)     # 2q < 2^383: fits 14 limbs
 _Q_TAIL_NP = _Q_NP[1:].copy()    # q's limbs 1..L-1, added during REDC
 _ZERO_PAT = np.zeros(L, dtype=np.int64)
@@ -512,6 +517,12 @@ def _exp_window_digits(bits_np: np.ndarray, w: int) -> np.ndarray:
         [np.zeros(m * w - n, np.uint8), bits_np.astype(np.uint8)])
     weights = 1 << np.arange(w - 1, -1, -1, dtype=np.int64)
     return (padded.reshape(m, w) @ weights).astype(np.int32)
+
+
+def pow_static_muls(nbits: int, w: int) -> int:
+    """Multiplies of Field.pow_static over an `nbits` exponent, squarings
+    excluded: the table's 2^w - 2 and one per window after the first."""
+    return ((1 << w) - 2) + (-(-nbits // w) - 1)
 
 
 # ---------------------------------------------------------------------------

@@ -14,11 +14,16 @@ builds the odd multiples [1P, 3P, .., (2^w - 1)P], then runs m - 1 trips
 of w doublings and one table add. Where the reference selects on traced
 digits (the sign of a digit, the even-k fixup), the port branches in
 Python on the host digit: the same values reach the same operations.
+
+`jac_scalar_mul` (double-and-add over `scalar_bits`) is the plain oracle
+the windowed multiply is held against, and `sequential_adds` /
+`sequential_doubles` its cost model; no entry point selects it, and
+there is no backend switch or window knob.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -112,9 +117,36 @@ def _lift_affine(fo, aff, inf=None):
     return (x, y, z)
 
 
+def jac_scalar_mul(fo, aff, bits, inf=None):
+    """[k]P for affine P, k given MSB-first as an [nbits] host bit array
+    (scalar_bits): double-and-add, the plain oracle of the windowed
+    multiply. No entry point selects it. Where the reference selects the
+    add on a traced bit, the port branches on the host bit: the kept value
+    is the same."""
+    lifted = _lift_affine(fo, aff, inf)
+    acc = jac_infinity(fo, lifted[0].shape[:-fo.val_ndim], lifted[0].device)
+    for bit in np.asarray(bits):
+        acc = jac_double(fo, acc)
+        if bit == 1:
+            acc = jac_add(fo, acc, lifted)
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # Host recoding
 # ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=4096)
+def scalar_bits(k: int, width: int = 256) -> np.ndarray:
+    """MSB-first [width] uint8 bit array of k (read-only, memoized): the
+    double-and-add input."""
+    if not 0 <= k < (1 << width):
+        raise ValueError(f"scalar {k} out of range for {width} bits")
+    raw = np.frombuffer(int(k).to_bytes((width + 7) // 8, "big"), np.uint8)
+    bits = np.unpackbits(raw)[-width:]
+    bits.flags.writeable = False
+    return bits
+
 
 class SignedWindows(NamedTuple):
     """Host-recoded signed windows of one scalar, MSB window first."""
@@ -198,3 +230,25 @@ def windowed_scalar_mul(fo, aff, rec: SignedWindows, inf=None):
         acc = jac_add(fo, acc, (lifted[0], fo.neg(lifted[1]), lifted[2]))
     return acc
 
+
+# ---------------------------------------------------------------------------
+# Cost model: the dependent chains of one scalar multiply
+# ---------------------------------------------------------------------------
+
+def sequential_adds(backend: str, nbits: int, w: Optional[int] = None) -> int:
+    """Length of the dependent jac_add chain of one scalar multiply:
+    "double_add" (jac_scalar_mul) or "window" (windowed_scalar_mul, w)."""
+    if backend == "double_add":
+        return nbits
+    assert backend == "window" and w is not None
+    return (2 ** (w - 1) - 1) + (n_windows(nbits, w) - 1) + 1
+
+
+def sequential_doubles(backend: str, nbits: int, w: Optional[int] = None) -> int:
+    """Dependent jac_double chain length (the windowed multiply pays up to
+    w - 1 extra from rounding nbits up to whole windows, plus the table's
+    2P)."""
+    if backend == "double_add":
+        return nbits
+    assert backend == "window" and w is not None
+    return (1 if w > 1 else 0) + w * (n_windows(nbits, w) - 1)

@@ -15,11 +15,12 @@ pair-hash call, so on the card each level is one kernel launch.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..device import resolve
 from ..utils.hash import zerohashes
 
 # Round constants: fractional parts of cube roots of the first 64 primes.
@@ -80,13 +81,21 @@ def words_tensor(words: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(w.view(np.int32).copy()).to(device)
 
 
-def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
-    return ((x >> n) | (x << (32 - n))) & _M32
+def _doubled(x: torch.Tensor) -> torch.Tensor:
+    """x in [0, 2**32) with a copy of itself in the high half: bits k..k+31
+    of the result are x rotated right by k (0 <= k <= 32)."""
+    return x | (x << 32)
 
 
 def _compress(state, w):
     """One compression over int64 word lists (8 state, 16 message
-    tensors, values in [0, 2**32)); returns the 8 new state words."""
+    tensors, values in [0, 2**32)); returns the 8 new state words.
+
+    A rotation is a shift of the doubled word. The sigma sums keep the
+    doubled word's high bits: they only ever feed sums that are reduced
+    mod 2**32 (every state word and schedule word is masked), and the low
+    32 bits of a sum do not depend on the high bits of its terms. No sum
+    leaves int64 (each term is below 2**62 in magnitude, at most four)."""
     w = list(w)
     a, b, c, d, e, f, g, h = state
     for i in range(64):
@@ -95,15 +104,17 @@ def _compress(state, w):
         else:
             x = w[(i - 15) % 16]
             y = w[(i - 2) % 16]
-            s0 = _rotr(x, 7) ^ _rotr(x, 18) ^ (x >> 3)
-            s1 = _rotr(y, 17) ^ _rotr(y, 19) ^ (y >> 10)
+            xx, yy = _doubled(x), _doubled(y)
+            s0 = (xx >> 7) ^ (xx >> 18) ^ (x >> 3)
+            s1 = (yy >> 17) ^ (yy >> 19) ^ (y >> 10)
             wi = (w[i % 16] + s0 + w[(i - 7) % 16] + s1) & _M32
             w[i % 16] = wi
-        S1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-        ch = (e & f) ^ (~e & g)
-        t1 = h + S1 + ch + int(K[i]) + wi
-        S0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
+        ee, aa = _doubled(e), _doubled(a)
+        S1 = (ee >> 6) ^ (ee >> 11) ^ (ee >> 25)
+        ch = g ^ (e & (f ^ g))
+        t1 = h + S1 + ch + (wi + int(K[i]))
+        S0 = (aa >> 2) ^ (aa >> 13) ^ (aa >> 22)
+        maj = (a & b) | (c & (a | b))
         a, b, c, d, e, f, g, h = ((t1 + S0 + maj) & _M32, a, b, c,
                                   (d + t1) & _M32, e, f, g)
     return [(s + t) & _M32 for s, t in zip(state, (a, b, c, d, e, f, g, h))]
@@ -192,6 +203,25 @@ def words_to_bytes(words) -> np.ndarray:
     return out.reshape(words.shape[:-1] + (-1,))
 
 
+def sha256_many(messages: np.ndarray, device="cuda") -> np.ndarray:
+    """SHA-256 of N equal-length messages on `device`: [N, L] uint8 ->
+    [N, 32] uint8, any L. The standard padded multi-block layout is built
+    on the host; the blocks are compressed in sequence (sha256_blocks),
+    each over all N messages at once."""
+    dev = resolve(device)
+    n, length = messages.shape
+    n_blocks = (length + 9 + 63) // 64
+    padded = np.zeros((n, n_blocks * 64), dtype=np.uint8)
+    padded[:, :length] = messages
+    padded[:, length] = 0x80
+    padded[:, -8:] = np.frombuffer((length * 8).to_bytes(8, "big"), dtype=np.uint8)
+    words = words_tensor(bytes_to_words(padded).reshape(n, n_blocks, 16), dev)
+    state = narrow(torch.stack(_h0_state((n,), dev), dim=-1))
+    for i in range(n_blocks):
+        state = sha256_blocks(state, words[:, i, :])
+    return words_to_bytes(state)
+
+
 # ---------------------------------------------------------------------------
 # Merkle pair hash and reductions
 # ---------------------------------------------------------------------------
@@ -250,3 +280,34 @@ def subtree_roots_words(leaves: torch.Tensor,
     while level.shape[1] > 1:
         level = fn(level.reshape(-1, 16)).reshape(V, level.shape[1] // 2, 8)
     return level[:, 0, :]
+
+
+def merkle_root_device(leaves: torch.Tensor, depth: int,
+                       pair_fn: Optional[PairFn] = None) -> torch.Tensor:
+    """Root words [8] of a power-of-two tree over [N, 8] leaf rows,
+    N == 2**depth: one pair-hash call per level (on the card, one
+    sha256_pairs launch)."""
+    fn = pair_fn or pair_hash_words
+    if leaves.shape[0] != 1 << depth:
+        raise ValueError(f"{leaves.shape[0]} leaves for a tree of depth {depth}")
+    level = leaves
+    for _ in range(depth):
+        level = fn(level.reshape(-1, 16))
+    return level[0]
+
+
+def merkle_root_from_leaves_device(leaves_bytes: Sequence[bytes], pad_to: int,
+                                   device="cuda") -> bytes:
+    """Merkle root of 32-byte leaves zero-padded to `pad_to` (a power of
+    two), every level on `device`."""
+    dev = resolve(device)
+    n = len(leaves_bytes)
+    if pad_to < 1 or pad_to & (pad_to - 1) or n > pad_to:
+        raise ValueError(f"{n} leaves cannot pad to {pad_to}")
+    depth = (pad_to - 1).bit_length()
+    if n == 0:
+        return zerohashes[depth]
+    arr = np.zeros((pad_to, 32), dtype=np.uint8)
+    arr[:n] = np.frombuffer(b"".join(leaves_bytes), dtype=np.uint8).reshape(n, 32)
+    root = merkle_root_device(words_tensor(bytes_to_words(arr), dev), depth)
+    return words_to_bytes(root).tobytes()

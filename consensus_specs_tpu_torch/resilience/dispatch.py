@@ -90,6 +90,26 @@ def _counter(name: str):
     return telemetry.counter(name, always=True)
 
 
+def is_device_fault(exc: BaseException) -> bool:
+    """True when `exc` is the card's fault, not the input's: a sticky CUDA
+    error, the card out of memory, a kernel that failed to build, or a
+    typed error of the guard (also where one of these is the `__cause__`).
+    Host code that turns errors into a verdict or a response code -- the
+    RPC server, node-record verification, the gossip router's handler
+    isolation -- re-raises these: read as "bad input", a poisoned context
+    would drop every peer and answer every request with an error code."""
+    import torch
+    from ..ops._nvcc import KernelCompileError
+    while exc is not None:
+        if isinstance(exc, (torch.cuda.OutOfMemoryError, KernelCompileError,
+                            DispatchError)):
+            return True
+        if any(marker in str(exc) for marker in _STICKY_CUDA_MARKERS):
+            return True
+        exc = exc.__cause__
+    return False
+
+
 def set_deadline_ms_default(ms: Optional[float]) -> None:
     """The budget a guard uses when its `deadline_ms` is None (0 or None:
     unarmed, the default)."""

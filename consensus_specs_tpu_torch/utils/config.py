@@ -75,6 +75,33 @@ def load_preset(name_or_path: str) -> Preset:
     return preset
 
 
+_timeline_cache: Dict[str, Dict[str, int]] = {}
+
+
+def load_fork_timeline(name_or_path: str = "mainnet") -> Dict[str, int]:
+    """Fork-scheduling axis of the config system: fork name -> activation
+    epoch, loaded from configs/fork_timelines/ (by name, or an explicit
+    YAML path). Every call returns a fresh copy of the cached mapping."""
+    if name_or_path not in _timeline_cache:
+        path = name_or_path
+        if not os.path.exists(path):
+            path = os.path.join(_CONFIG_DIR, "fork_timelines",
+                                f"{name_or_path}.yaml")
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+        timeline = {str(k): int(v) for k, v in raw.items()}
+        assert "phase0" in timeline, "a fork timeline must schedule phase0"
+        _timeline_cache[name_or_path] = timeline
+    return dict(_timeline_cache[name_or_path])
+
+
+def fork_at_epoch(timeline: Dict[str, int], epoch: int) -> str:
+    """The latest fork whose activation epoch is <= `epoch`."""
+    live = [(e, name) for name, e in timeline.items() if e <= epoch]
+    assert live, f"epoch {epoch} precedes every scheduled fork"
+    return max(live)[1]
+
+
 def mainnet() -> Preset:
     return load_preset("mainnet")
 

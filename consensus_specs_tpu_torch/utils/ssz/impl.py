@@ -17,7 +17,7 @@ Capability parity: consensus-specs test_libs/pyspec/eth2spec/utils/ssz/ssz_impl.
 """
 from __future__ import annotations
 
-from typing import Any, List as PyList, Tuple
+from typing import Any, Dict, List as PyList, Tuple
 
 from ..hash import sha256
 from ..merkle import merkleize_chunks
@@ -218,21 +218,41 @@ def is_bottom_layer_kind(typ: Any) -> bool:
     )
 
 
+_BASIC, _PACKED, _SERIES, _CONTAINER = range(4)
+# type -> (kind, element type, mixes in its length): the type predicates'
+# answers, read once a type (List[T] and Vector[T, N] are cached classes)
+_root_kinds: Dict[Any, Tuple[int, Any, bool]] = {}
+
+
+def _root_kind(typ: Any) -> Tuple[int, Any, bool]:
+    kind = _root_kinds.get(typ)
+    if kind is None:
+        if is_bottom_layer_kind(typ):
+            kind = ((_BASIC, None, False) if is_basic_type(typ)
+                    else (_PACKED, read_elem_type(typ), is_list_kind(typ)))
+        elif is_list_type(typ) or is_vector_type(typ):
+            kind = (_SERIES, typ.elem_type, is_list_type(typ))
+        elif is_container_type(typ):
+            kind = (_CONTAINER, None, False)
+        else:
+            raise TypeError(f"unsupported type: {typ}")
+        _root_kinds[typ] = kind
+    return kind
+
+
 def hash_tree_root(obj: Any, typ: Any = None) -> bytes:
     if typ is None:
         typ = infer_type(obj)
-    if is_bottom_layer_kind(typ):
-        data = serialize_basic(obj, typ) if is_basic_type(typ) else pack(obj, read_elem_type(typ))
-        leaves = chunkify(data)
-    elif is_list_type(typ):
-        leaves = [hash_tree_root(v, typ.elem_type) for v in obj]
-    elif is_vector_type(typ):
-        leaves = [hash_tree_root(v, typ.elem_type) for v in obj]
-    elif is_container_type(typ):
-        leaves = [hash_tree_root(v, t) for v, t in obj.get_typed_values()]
+    kind, elem, mix = _root_kind(typ)
+    if kind == _BASIC:
+        leaves = chunkify(serialize_basic(obj, typ))
+    elif kind == _PACKED:
+        leaves = chunkify(pack(obj, elem))
+    elif kind == _SERIES:
+        leaves = [hash_tree_root(v, elem) for v in obj]
     else:
-        raise TypeError(f"unsupported type: {typ}")
-    if is_list_kind(typ):
+        leaves = [hash_tree_root(v, t) for v, t in obj.get_typed_values()]
+    if mix:
         return mix_in_length(merkleize_chunks(leaves), len(obj))
     return merkleize_chunks(leaves)
 

@@ -144,6 +144,55 @@ def test_g1_scalar_mul_full_width_matches_oracle():
     assert _affine_g1(_np(x), _np(y), _np(inf)) == [gt.ec_mul(p, k)]
 
 
+def test_g2_generator_matches_reference():
+    assert (pgt.G2_GEN[0].c0, pgt.G2_GEN[0].c1, pgt.G2_GEN[1].c0, pgt.G2_GEN[1].c1) == \
+        (gt.G2_GEN[0].c0, gt.G2_GEN[0].c1, gt.G2_GEN[1].c0, gt.G2_GEN[1].c1)
+    assert pgt.g2_on_curve(pgt.G2_GEN)
+    assert pgt.ec_mul(pgt.G2_GEN, pgt.r) is None
+
+
+def test_scalar_bits_and_cost_model_match_reference():
+    for k, width in [(0, 8), (1, 8), (0xA5, 8), (gt.r - 1, 256), (12345, 24),
+                     (gt.G2_COFACTOR, gt.G2_COFACTOR.bit_length())]:
+        got = TSM.scalar_bits(k, width)
+        assert got.dtype == np.uint8 and not got.flags.writeable
+        assert (got == JSM.scalar_bits(k, width)).all()
+    with pytest.raises(ValueError):
+        TSM.scalar_bits(256, 8)
+    for nbits in (4, 24, 255, 256, gt.G2_COFACTOR.bit_length()):
+        assert TSM.sequential_adds("double_add", nbits) == \
+            JSM.sequential_adds("double_add", nbits) == nbits
+        assert TSM.sequential_doubles("double_add", nbits) == \
+            JSM.sequential_doubles("double_add", nbits)
+        for w in range(1, 8):
+            assert TSM.sequential_adds("window", nbits, w) == \
+                JSM.sequential_adds("window", nbits, w)
+            assert TSM.sequential_doubles("window", nbits, w) == \
+                JSM.sequential_doubles("window", nbits, w)
+
+
+def test_windowed_matches_double_and_add_at_a_short_scalar():
+    """tests/test_scalar_mul.py's infinity case: a 24-bit scalar at w = 3
+    over a batch of a finite point and a flagged infinity; the windowed
+    multiply and the double-and-add oracle (jac_scalar_mul over
+    scalar_bits) both give [k]P and keep O. The reference's own
+    double-and-add is a fori_loop that compiles for about 18 s on the CPU,
+    so it is held here through its bits and cost model, and in value
+    through the bignum oracle."""
+    nbits, w = 24, 3
+    k = random.Random(24).randrange(1, 1 << nbits)
+    p = gt.ec_mul(gt.G1_GEN, 5)
+    arr = np.stack([BJ.g1_to_limbs(p), BJ.g1_to_limbs(p)])
+    aff = (_t(arr[:, 0]), _t(arr[:, 1]))
+    inf = _b([False, True])
+    win = TSM.windowed_scalar_mul(BT.G1_OPS, aff, TSM.recode_signed_windows(k, nbits, w),
+                                  inf=inf)
+    da = TSM.jac_scalar_mul(BT.G1_OPS, aff, TSM.scalar_bits(k, nbits), inf=inf)
+    for pt in (win, da):
+        x, y, is_inf = TSM.jac_to_affine(BT.G1_OPS, pt)
+        assert _affine_g1(_np(x), _np(y), _np(is_inf)) == [gt.ec_mul(p, k), None]
+
+
 def test_recoding_matches_reference():
     for k, nbits in [(0, 8), (1, 8), (255, 8), (gt.r - 1, 256),
                      (gt.G2_COFACTOR, gt.G2_COFACTOR.bit_length())]:

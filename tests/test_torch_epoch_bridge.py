@@ -109,6 +109,25 @@ def _started(j):
 # The fused bridge: tests/test_epoch_soa.py's scenarios
 # ---------------------------------------------------------------------------
 
+def test_columns_from_state_matches_jax(specs):
+    """The registry's columns on a device, from the state or from the
+    caller's numpy columns; resident.py re-exports pad_validator_columns."""
+    from consensus_specs_tpu.models.phase0 import epoch_soa as JE
+    from consensus_specs_tpu_torch.models.phase0 import epoch_soa as PE
+    from consensus_specs_tpu_torch.models.phase0 import resident as PR
+    j, p = specs
+    state = _genesis(j)
+    state.balances[3] = 2 ** 64 - 1          # a uint64 past int64's range
+    port = _to_port(j, p, state)
+    want = JE.columns_from_state(state)
+    for got in (PE.columns_from_state(port, device="cpu"),
+                PE.columns_from_state(port, PE.columns_np_from_state(port), device="cpu")):
+        assert got._fields == want._fields
+        for f in want._fields:
+            assert (convert.to_numpy(getattr(got, f)) == np.asarray(getattr(want, f))).all(), f
+    assert PR.pad_validator_columns is PE.pad_validator_columns
+
+
 def test_genesis_epoch_transition(specs):
     j, p = specs
     _same_epoch_transition(j, p, _genesis(j))

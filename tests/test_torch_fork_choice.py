@@ -80,6 +80,7 @@ def test_lmd_ghost_matches_reference(seed, n_blocks, ties):
         want = JFC.lmd_ghost(j, balances, active, start)
         assert PFC.lmd_ghost(p, balances, active, start, device="cpu") == want
         assert JFC.lmd_ghost_reference(j, balances, active, start) == want
+        assert PFC.lmd_ghost_reference(p, balances, active, start) == want
 
 
 def test_latest_message_rule_bit_for_bit():

@@ -44,13 +44,36 @@ def _same(t, j):
 def test_constants_match_jax():
     for name in ("Q", "B", "L", "MASK", "R_MONT", "R2_MONT", "QINV_NEG",
                  "NORM_FULL", "NARROW_INPUT_BOUND", "NARROW_TOP_SPILL",
-                 "WIDE_COL_RAW", "WIDE_COL_BUDGET", "WIDE_TOP_SPILL"):
+                 "WIDE_COL_RAW", "WIDE_COL_BUDGET", "WIDE_TOP_SPILL",
+                 "NARROW_LIMB_LO", "NARROW_LIMB_HI", "CANONICAL_TOP",
+                 "WIDE_ACCUM_FANIN"):
         assert getattr(TF, name) == getattr(JF, name), name
+    assert (TF.Q_LIMBS == JF.Q_LIMBS).all() and TF.CANONICAL_TOP == 13
     for k in (0, 1, 2, 12345, JF.Q - 1):
         assert (TF.to_mont(k) == JF.to_mont(k)).all()
         assert TF.from_mont(TF.to_mont(k)) == k
     assert (TF._INV_EXP_BITS == JF._INV_EXP_BITS).all()
     assert (TF._SQRT_EXP_BITS == JF._SQRT_EXP_BITS).all()
+
+
+def test_pow_static_cost_model_matches_jax_and_counts_the_multiplies():
+    """pow_static_muls == the reference's cost model, and == the multiplies
+    Field.pow_static makes (squarings excluded) on a short exponent."""
+    for nbits in (1, 7, 64, 380, 381):
+        for w in range(1, 7):
+            assert TF.pow_static_muls(nbits, w) == JF.pow_static_muls(nbits, w)
+    calls = []
+
+    def mul(a, b):
+        calls.append(1)
+        return TF.fq_mul_plain(a, b)
+    field = TF.Field(mul, TF.fq_mul_norm_plain, TF.fq_redc_plain, TF.fq_bilinear_plain)
+    bits = TF._exp_bits(0b1011_0010_0111_1101_0110)
+    a = _t(np.stack([TF.to_mont(5)]))
+    got = field.pow_static(a, bits, w=3)
+    assert TF.from_mont(convert.limbs_to_numpy(got)[0]) == pow(5, 0b1011_0010_0111_1101_0110, TF.Q)
+    squarings = 3 * (-(-len(bits) // 3) - 1)
+    assert len(calls) == TF.pow_static_muls(len(bits), 3) + squarings
 
 
 def test_kernel_source_constants_match():

@@ -86,3 +86,35 @@ def test_int32_bit_pattern_round_trip_high_words():
     wide = TS.widen(t)
     assert int(wide.min()) >= 0 and int(wide.max()) < 2 ** 32
     assert torch.equal(TS.narrow(wide), t)
+
+
+def test_sha256_many_matches_jax_and_hashlib():
+    """Equal-length messages of any length, block by block (the lengths
+    cross the one-block limit of 55 bytes and the 64-byte boundary)."""
+    rng = np.random.default_rng(1)
+    for length in (1, 33, 55, 56, 64, 65, 128, 200):
+        msgs = rng.integers(0, 256, (5, length), dtype=np.uint8)
+        got = TS.sha256_many(msgs, device="cpu")
+        assert got.shape == (5, 32) and got.dtype == np.uint8
+        assert (got == JS.sha256_many(msgs)).all(), length
+        for i in range(5):
+            assert got[i].tobytes() == hashlib.sha256(msgs[i].tobytes()).digest()
+
+
+def test_device_merkle_root_matches_jax_and_host():
+    from consensus_specs_tpu.utils.hash import zerohashes
+    from consensus_specs_tpu.utils.merkle import merkleize_chunks
+    rng = np.random.default_rng(3)
+    for n, pad_to in ((1, 1), (3, 4), (8, 8), (5, 16), (100, 128)):
+        leaves = [rng.integers(0, 256, 32, dtype=np.uint8).tobytes() for _ in range(n)]
+        got = TS.merkle_root_from_leaves_device(leaves, pad_to, device="cpu")
+        assert got == JS.merkle_root_from_leaves_device(leaves, pad_to)
+        assert got == merkleize_chunks(leaves + [b"\x00" * 32] * (pad_to - n))
+    assert TS.merkle_root_from_leaves_device([], 8, device="cpu") == zerohashes[3]
+    words = rng.integers(0, 2 ** 32, (16, 8), dtype=np.uint32)
+    got = TS.merkle_root_device(TS.words_tensor(words, "cpu"), 4)
+    assert (_u32(got) == np.asarray(JS.merkle_root_device(words, 4))).all()
+    with pytest.raises(ValueError):
+        TS.merkle_root_device(TS.words_tensor(words, "cpu"), 3)
+    with pytest.raises(ValueError):
+        TS.merkle_root_from_leaves_device([b"\x00" * 32] * 3, 6, device="cpu")

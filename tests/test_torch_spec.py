@@ -61,6 +61,36 @@ def test_preset_and_epoch_config_match(name):
     assert tuple(EpochConfig.from_preset(name)) == tuple(want)
 
 
+@pytest.mark.parametrize("name", ["mainnet", "testing"])
+def test_fork_timelines_match(name):
+    """configs/fork_timelines/ through both packages; each call a copy."""
+    tl = PC.load_fork_timeline(name)
+    assert tl == JC.load_fork_timeline(name) and tl["phase0"] == 0
+    tl["phase0"] = 99
+    assert PC.load_fork_timeline(name)["phase0"] == 0
+    for timeline in (tl, {"phase0": 0, "phase1": 100}, PC.load_fork_timeline(name)):
+        for epoch in (0, 99, 100, 500, 10 ** 6):
+            live = [e for e in timeline.values() if e <= epoch]
+            if not live:
+                with pytest.raises(AssertionError):
+                    PC.fork_at_epoch(timeline, epoch)
+                continue
+            assert PC.fork_at_epoch(timeline, epoch) == JC.fork_at_epoch(timeline, epoch)
+
+
+def test_ssz_package_reexports_match():
+    """utils/ssz/__init__ exports the reference's names, each the port's
+    own typing/impl object."""
+    import consensus_specs_tpu.utils.ssz as JS
+    import consensus_specs_tpu_torch.utils.ssz as PS
+    from consensus_specs_tpu_torch.utils.ssz import typing as PT
+    want = sorted(n for n, v in vars(JS).items() if not n.startswith("_")
+                  and not isinstance(v, type(JS)))
+    assert len(want) == 44
+    for n in want:
+        assert getattr(PS, n) is getattr(PT, n, None) or getattr(PS, n) is getattr(PI, n), n
+
+
 def test_spec_and_bls_backend_default_to_the_card():
     """get_spec and the built-in "torch" backend run on "cuda" unless told
     otherwise; without a card they raise instead of using the CPU."""
