@@ -206,6 +206,24 @@ just after:
     mainnet types; every decoded body's hash_tree_root equals its
     header's body_root, and a garbage wire comes back PARSE_ERROR.
 
+The point kernels (csrc/fq_points.cu, ops/fq_points.py), in `phase
+kernel`: the G2 ladder (g2_ladder_kernel: hash-to-G2's cofactor multiply
+and a signature's 256-bit multiply, one launch each, the table, every
+window, the correction and the inversion) at 16 and 128 lanes on the
+cofactor and at 1 lane on a 256-bit scalar, and the grouped Miller loop
+(miller_grouped_kernel, one launch a grouped pairing) at 16 x 2 and
+128 x 3, each bit-identical (torch.equal on the limbs and flags) to its
+plain twin, the same program run through torch's plain functions on the
+card, lane 0 of each ladder also equal to the bignum oracle; each with
+its ms, its plain twin's, its bound and block 0's cycles per bundle. On
+the main path every verify's grouped pairing is one miller_grouped launch
+and its message batch one g2_ladder launch (the stage lines count them:
+stage 3 and the Miller loop launch no fq_mul or fq_bilinear), and
+pairing_routes holds the kernel route against the Python loop over the
+plain functions on the block's and the firehose's inputs. `phase bls
+sign` times TorchBackend.sign (the host's hash_to_g2, then one ladder
+launch), its signature equal to the bignum oracle's.
+
 Kernel times: at 1,048,576 lanes beside each kernel's bound, and at the
 lane count the verify launches most, beside an empty kernel's launch on
 the same stream (per eager call, host included, and per launch replayed
@@ -250,7 +268,8 @@ from consensus_specs_tpu_torch.models.phase0 import helpers as spec_helpers
 from consensus_specs_tpu_torch.models.phase0.resident import (ResidentColumns,
                                                              ResidentCore)
 from consensus_specs_tpu_torch.ops import _nvcc, sha256, sha256_cuda
-from consensus_specs_tpu_torch.ops import bls_torch, fq_cuda, fq_tower
+from consensus_specs_tpu_torch.ops import bls_torch, fq_cuda, fq_points, fq_tower
+from consensus_specs_tpu_torch.ops import scalar_mul as scalar_mul_mod
 from consensus_specs_tpu_torch.ops import fq as fq_mod
 from consensus_specs_tpu_torch.ops import shuffle as shuffle_mod
 from consensus_specs_tpu_torch.utils.config import load_preset
@@ -492,7 +511,9 @@ def device_busy(fn):
 
 FQ_COUNTERS = {"fq_mul": fq_cuda.mul_counter, "fq_redc": fq_cuda.redc_counter,
                "fq_bilinear": fq_cuda.bilinear_counter,
-               "fq_bilinear_chain": fq_cuda.chain_counter}
+               "fq_bilinear_chain": fq_cuda.chain_counter,
+               "g2_ladder": fq_points.ladder_counter,
+               "miller_grouped": fq_points.miller_counter}
 
 
 def aten_ops(fn):
@@ -513,9 +534,11 @@ def aten_ops(fn):
     return Count.n
 
 
-# the Montgomery kernels every BLS path launches (fq_redc runs inside the
-# tower products)
-BLS_PATH = ("fq_mul", "fq_bilinear", "fq_bilinear_chain")
+# the kernels every BLS verify launches (fq_redc runs inside the tower
+# products; the final exponentiation's fq12_inv multiplies with fq_mul, its
+# tower products are fq_bilinear launches and its |z| powers chains; the
+# Miller loop is one miller_grouped launch)
+BLS_PATH = ("fq_mul", "fq_bilinear", "fq_bilinear_chain", "miller_grouped")
 
 
 def launched_path(launches) -> bool:
@@ -528,7 +551,8 @@ def fq_launches():
 
 def fq_lanes():
     """Launches by lanes per launch ("table:lanes" for fq_bilinear,
-    "steps:lanes" for fq_bilinear_chain)."""
+    "steps:lanes" for fq_bilinear_chain, "groups:pairs" for
+    miller_grouped)."""
     return {name: {(k if isinstance(k, int) else f"{k[0]}:{k[1]}"): v
                    for k, v in c.lanes.items()}
             for name, c in FQ_COUNTERS.items()}
@@ -552,7 +576,8 @@ def sass_counts(lib: Path) -> dict:
                           text=True, check=True).stdout
     counts, cur = {}, None
     for line in text.splitlines():
-        m = re.search(r"Function : \S*?(fq_mul|fq_redc|fq_chain)_kernel", line)
+        m = re.search(r"Function : \S*?(fq_mul|fq_redc|fq_chain|g2_ladder|miller_grouped)"
+                      r"_kernel", line)
         if m:
             cur = counts.setdefault(m.group(1), collections.Counter())
             continue
@@ -791,6 +816,117 @@ def check_chains(rng, dev):
     return {"max_abs_err": max(errs), "chains": rows}
 
 
+# the point kernels' shapes on the main path: the cofactor ladder of a block
+# verify (16 .. 32 messages) and of a firehose-sized batch, a signature's
+# 256-bit ladder; the grouped Miller loop of a block (16 x 2) and of a
+# firehose batch (128 x 3)
+LADDER_CASES = {"cofactor 16": (16, "cofactor"), "cofactor 128": (FIREHOSE_G, "cofactor"),
+                "sign 256-bit 1": (1, "sign")}
+MILLER_CASES = {"16 x 2": (16, 2), "128 x 3": (FIREHOSE_G, 3)}
+
+
+def bundle_split(prog, cycles):
+    """The clocked bundles of one launch by what they hold: linear ops
+    only, multiplies without tower products, with tower products ->
+    {class: {bundles, mean_cycles, share}}."""
+    b = prog.bundles
+    cls = np.where(b[:, 2] > 0, "with tower products",
+                   np.where(b[:, 1] > 0, "multiplies only", "linear only"))
+    total = max(int(cycles.sum()), 1)
+    return {c: {"bundles": int((cls == c).sum()),
+                "mean_cycles": float(cycles[cls == c].mean()) if (cls == c).any() else 0.0,
+                "share": float(cycles[cls == c].sum()) / total}
+            for c in ("linear only", "multiplies only", "with tower products")}
+
+
+def check_point_kernels(rng, dev):
+    """The ladder kernel (g2_ladder_kernel) and the grouped Miller kernel
+    (miller_grouped_kernel) vs their plain twins (fq_points.g2_ladder_plain
+    / miller_grouped_plain, the same program through torch's plain
+    functions on the card), torch.equal on the limbs and flags, at the
+    main path's shapes (LADDER_CASES, MILLER_CASES); lane 0 of each ladder
+    case also against the bignum oracle. Then each kernel's ms beside its
+    plain twin's and its bound, and block 0's cycles per bundle, split by
+    what the bundles hold. Returns {"ladder": {case: numbers}, "miller":
+    {case: numbers}}."""
+    out = {"ladder": {}, "miller": {}}
+    seed = int(rng.integers(1 << 30))
+    for label, (n, what) in LADDER_CASES.items():
+        if what == "cofactor":
+            msgs = [(int(seed + j).to_bytes(32, "big"), BLS_DOMAIN) for j in range(n)]
+            pts = [bls_host.hash_to_g2_candidate(m, d) for m, d in msgs]
+            k, nbits = bls_host.G2_COFACTOR, bls_torch._G2_COFACTOR_NBITS
+            oracle = bls_host.hash_to_g2(*msgs[0])
+        else:
+            pts = [bls_host.hash_to_g2(seed.to_bytes(32, "big"), BLS_DOMAIN)]
+            k, nbits = int(seed * 0x9E3779B97F4A7C15 + 1) % bls_host.r, 256
+            oracle = bls_host.ec_mul(pts[0], k)
+        arr = np.stack([bls_torch.g2_to_limbs(p) for p in pts])
+        x = torch.from_numpy(arr[:, 0]).to(dev)
+        y = torch.from_numpy(arr[:, 1]).to(dev)
+        rec = scalar_mul_mod.recode_signed_windows(k, nbits, bls_torch.SCALAR_WINDOW)
+        prog = fq_points.ladder_program(nbits, bls_torch.SCALAR_WINDOW)
+        got = fq_points.g2_ladder_cuda(x, y, None, rec)
+        want, plain_ms = fenced_ms(lambda: fq_points.g2_ladder_plain(x, y, None, rec))
+        for g, w, what_ in zip(got, want, ("x", "y", "is_inf")):
+            _same(g.long(), w.long(), f"g2_ladder {label} {what_}")
+        x0, y0 = got[0][0].cpu().numpy(), got[1][0].cpu().numpy()
+        if bool(got[2][0]) or (fq_tower.fq2_from_limbs(x0), fq_tower.fq2_from_limbs(y0)) != oracle:
+            raise AssertionError(f"g2_ladder {label}: lane 0 != the bignum oracle")
+        row = {"lanes": n, "bits": nbits, "max_abs_err": 0, "plain_ms": plain_ms,
+               "ms": time_cuda(lambda: fq_points.g2_ladder_cuda(x, y, None, rec), 5),
+               "program": prog.describe()}
+        row["bound_ms"], row["bound_by"] = fq_points.bound_ms(prog, n, INT32_OPS_PER_S,
+                                                              HBM_BYTES_PER_S)
+        cycles = fq_points.bundle_clocks(
+            lambda st: fq_points.g2_ladder_cuda(x, y, None, rec, stamps=st), prog, dev)
+        row["bundle_cycles"] = bundle_split(prog, cycles)
+        row["us_per_bundle"] = row["ms"] * 1e3 / prog.n_bundles
+        out["ladder"][label] = row
+    g1d, g2d = [], []
+    for j in range(8):
+        g1d.append(bls_torch.g1_to_limbs(bls_host.ec_mul(bls_host.G1_GEN, seed + 2 * j + 1)))
+        g2d.append(bls_torch.g2_to_limbs(bls_host.ec_mul(bls_host.G2_GEN, seed + 2 * j + 2)))
+    g1d, g2d = np.stack(g1d), np.stack(g2d)
+    for label, (G, P) in MILLER_CASES.items():
+        sel = (np.arange(G)[:, None] * P + np.arange(P)[None, :]) % 8
+        g1 = torch.from_numpy(g1d[sel]).to(dev)
+        g2 = torch.from_numpy(g2d[sel]).to(dev)
+        prog = fq_points.miller_program(P)
+        got = fq_points.miller_grouped_cuda(g1, g2)
+        want, plain_ms = fenced_ms(lambda: fq_points.miller_grouped_plain(g1, g2))
+        _same(got, want, f"miller_grouped {label}")
+        row = {"groups": G, "pairs": P, "max_abs_err": 0, "plain_ms": plain_ms,
+               "ms": time_cuda(lambda: fq_points.miller_grouped_cuda(g1, g2), 10),
+               "program": prog.describe()}
+        row["bound_ms"], row["bound_by"] = fq_points.bound_ms(prog, G, INT32_OPS_PER_S,
+                                                              HBM_BYTES_PER_S)
+        cycles = fq_points.bundle_clocks(
+            lambda st: fq_points.miller_grouped_cuda(g1, g2, stamps=st), prog, dev)
+        row["bundle_cycles"] = bundle_split(prog, cycles)
+        row["us_per_bundle"] = row["ms"] * 1e3 / prog.n_bundles
+        out["miller"][label] = row
+    return out
+
+
+def report_point_kernels(pk) -> None:
+    def split(row):
+        return "; ".join(f"{c} {v['bundles']} x {v['mean_cycles']:.0f} cycles"
+                         f" ({100 * v['share']:.1f}%)" for c, v in row["bundle_cycles"].items())
+
+    for name, rows in (("g2_ladder", pk["ladder"]), ("miller_grouped", pk["miller"])):
+        for label, r in rows.items():
+            prog = r["program"]
+            log(f"phase kernel: {name} {label} bit-identical to its plain twin (max_abs_err"
+                f" {r['max_abs_err']}){' and lane 0 == the bignum oracle' if name == 'g2_ladder' else ''}"
+                f" | kernel {r['ms']:.4f} ms, plain twin {r['plain_ms']:.1f} ms, bound"
+                f" {r['bound_ms']:.6f} ms by {r['bound_by']} | program: {prog['ops']} ops"
+                f" ({prog['muls']} multiplies, {prog['products']} tower products,"
+                f" {prog['linear']} linear) in {prog['bundles']} bundles"
+                f" ({prog['product_bundles']} with products), {prog['registers']} registers,"
+                f" {r['us_per_bundle']:.2f} us a bundle | block 0's cycles by bundle: {split(r)}")
+
+
 def small_launch_times(lanes_seen, dev, rng, pairs):
     """Each kernel at the lane count the verify launched it with most
     (for fq_bilinear: each table at its own; for fq_bilinear_chain: each
@@ -911,6 +1047,20 @@ def drive_bls(block: Block, dev):
         raise AssertionError(f"the verify ran {out['plain_wide_on_card']} plain"
                              " wide products on the card")
     out["aten_ops_per_verify"] = aten_ops(lambda: tb.verify_indexed_batch(block.items))
+
+    # signing: the host's hash_to_g2, then the 256-bit ladder on the card
+    msg, key = bytes(range(32)), (SEED * 0x9E3779B97F4A7C15) % bls_host.r
+    want = bls_host.sign(msg, key, BLS_DOMAIN)
+    tb.sign(msg, key, BLS_DOMAIN)            # the 256-bit program, built once
+    sign_ms = []
+    for _ in range(3):
+        zero_fq_counters()
+        sig, ms = fenced_ms(lambda: tb.sign(msg, key, BLS_DOMAIN))
+        if sig != want:
+            raise AssertionError("TorchBackend.sign != the bignum oracle's signature")
+        sign_ms.append(ms)
+    out["sign"] = {"ms": sign_ms, "launches": {k: v for k, v in fq_launches().items() if v},
+                   "host_hash_ms": fenced_ms(lambda: bls_host.hash_to_g2(msg, BLS_DOMAIN))[1]}
     bad, out["verify_corrupt_ms"] = fenced_ms(
         lambda: tb.verify_indexed_batch(block.corrupt))
     if bad != [k != BAD_ITEM for k in range(block.n_att)]:
@@ -1172,6 +1322,7 @@ def report_firehose(fh) -> None:
     chains = fh["chains_per_batch"]
     log(f"phase firehose launches: per batch fq_mul {per['fq_mul']:.1f} / fq_redc"
         f" {per['fq_redc']:.1f} / fq_bilinear {per['fq_bilinear']:.1f} /"
+        f" miller_grouped {per['miller_grouped']:.1f} / g2_ladder {per['g2_ladder']:.1f} /"
         f" fq_bilinear_chain {per['fq_bilinear_chain']:.1f} (pow_abs chains"
         f" {chains['pow_abs']:.1f}, Miller-step chains {chains['miller']:.1f}); the"
         f" fq_bilinear family {per['fq_bilinear'] + per['fq_bilinear_chain']:.1f}, all"
@@ -2845,8 +2996,7 @@ def report_spec_path(sp) -> dict:
         f" model ({ref['s']:.1f} s)")
     spec_launches = {
         "sha256_pairs": r["launches"] + b["sha256_launches"],
-        **{k: sum(row[k] for row in b["blocks"])
-           for k in ("fq_mul", "fq_redc", "fq_bilinear", "fq_bilinear_chain")}}
+        **{k: sum(row[k] for row in b["blocks"]) for k in FQ_COUNTERS}}
     if b["sha256_launches"] <= 0:
         raise AssertionError("the block drive never launched sha256_pairs")
     return spec_launches
@@ -3455,7 +3605,9 @@ def main() -> int:
         f" | nvcc build of {list(_nvcc.SOURCES)} {build_s:.1f} s"
         f" | ptxas sha256_pairs: {' / '.join(ptxas['sha256_pairs'])}")
     log("phase device: ptxas fq_mont: " + " / ".join(ptxas["fq_mont"]))
-    sass = sass_counts(_nvcc.library_path("fq_mont"))
+    log("phase device: ptxas fq_points: " + " / ".join(ptxas["fq_points"]))
+    sass = {**sass_counts(_nvcc.library_path("fq_mont")),
+            **sass_counts(_nvcc.library_path("fq_points"))}
     for name, cnt in sass.items():
         imad = sum(v for k, v in cnt.items() if k.startswith("IMAD"))
         log(f"phase device: SASS {name}_kernel: {sum(cnt.values())} instructions"
@@ -3532,6 +3684,10 @@ def main() -> int:
             " right after: " + " / ".join(str(x) for x in c["first_step_cycles"]["cold"])
             + "; " + " / ".join(str(x) for x in c["first_step_cycles"]["warm"]))
     result["fq_chains"] = fq_ch
+    torch.cuda.empty_cache()
+    pk = check_point_kernels(rng, dev)
+    report_point_kernels(pk)
+    result["point_kernels"] = pk
 
     preset = load_preset("mainnet")
     cfg = epoch_soa.EpochConfig.from_preset("mainnet")
@@ -3649,11 +3805,14 @@ def main() -> int:
     for name, st in bls["stages"].items():
         log(f"phase bls {STAGE_LABELS[name]}: {st['ms']:.1f} ms, fq_mul"
             f" {st['fq_mul']} / fq_redc {st['fq_redc']} / fq_bilinear"
-            f" {st['fq_bilinear']} / fq_bilinear_chain {st['fq_bilinear_chain']}"
+            f" {st['fq_bilinear']} / fq_bilinear_chain {st['fq_bilinear_chain']} /"
+            f" g2_ladder {st['g2_ladder']} / miller_grouped {st['miller_grouped']}"
             f" launches, {st['aten_ops']} aten ops (an extra, untimed run) | lanes"
             f" per launch: fq_mul {hist(st['lanes']['fq_mul'])}; fq_bilinear"
             f" {hist(st['lanes']['fq_bilinear'])}; fq_bilinear_chain (steps:lanes)"
-            f" {hist(st['lanes']['fq_bilinear_chain'])}")
+            f" {hist(st['lanes']['fq_bilinear_chain'])}; g2_ladder"
+            f" {hist(st['lanes']['g2_ladder'])}; miller_grouped (groups:pairs)"
+            f" {hist(st['lanes']['miller_grouped'])}")
     launches, warm = bls["launches"], bls["warm_launches"]
     log(f"phase bls verify: {shape['attestations']} x {shape['committee']}"
         f" ({shape['pubkeys']} pubkeys, {shape['pairs']} pairs per group) |"
@@ -3664,7 +3823,9 @@ def main() -> int:
         f" {launches['fq_bilinear']} / {warm['fq_bilinear']} (one per tower"
         f" product outside the chains), fq_bilinear_chain"
         f" {launches['fq_bilinear_chain']} / {warm['fq_bilinear_chain']} (family"
-        f" {launches['fq_bilinear'] + launches['fq_bilinear_chain']}), plain wide"
+        f" {launches['fq_bilinear'] + launches['fq_bilinear_chain']}), g2_ladder"
+        f" {launches['g2_ladder']} / {warm['g2_ladder']}, miller_grouped"
+        f" {launches['miller_grouped']} / {warm['miller_grouped']}, plain wide"
         f" products on the card {bls['plain_wide_on_card']},"
         f" aten ops per verify {bls['aten_ops_per_verify']} (an extra, untimed run) |"
         f" peak device memory {bls['peak_device_gib']:.2f} GiB | host staging"
@@ -3673,6 +3834,10 @@ def main() -> int:
         f" {bls['messages_hashed']} messages alone"
         f" {bls['stage_messages_host_ms']:.1f} ms of the stage's"
         f" {bls['stages']['stage_messages']['ms']:.1f} ms")
+    sg = bls["sign"]
+    log(f"phase bls sign: TorchBackend.sign ms {[round(t, 1) for t in sg['ms']]} (warm),"
+        f" of which the host's hash_to_g2 {sg['host_hash_ms']:.1f} ms | launches per"
+        f" signature {sg['launches']} | == the bignum oracle's signature")
     log(f"phase bls checks: {shape['attestations']} x True; item {BAD_ITEM} alone"
         f" False with a swapped signature; grouped pairing of"
         f" {bls['pairing_groups_compared']} groups bit-identical through kernels"
@@ -3869,6 +4034,48 @@ def main() -> int:
         "per_product_ms": pow_z["per_product_ms"],
         "bit_identical": True,
     })
+    def by_path(name):
+        return {"bls_verify": bls["launches"][name], "spec_blocks": spec_launches[name],
+                "firehose": fh["launches"][name], "gossip_verify": gossip_launches[name],
+                "api": sp["api"]["publish_fq"][name], "phase1": s8["phase1_launches"][name],
+                "light_client": s8["light_client"]["launches"][name],
+                "bls_oracle": oracle["launches"][name],
+                "mesh_pairing": sp["mesh"]["pairing_launches"][name],
+                "vectors": vec["launches"][name], "networking": nw["launches"][name],
+                "deposit": dep["fq_launches"][name]}
+
+    # the ladder runs where a batch of 8 or more messages is hashed on the
+    # card (a block's verify, the spec path's blocks, the vectors' BLS
+    # family) and in every TorchBackend.sign (the vectors, the node record);
+    # the Miller kernel in every pairing
+    ladder_paths = ("bls_verify", "spec_blocks", "vectors", "networking")
+    for name, rows, main_case, replaces in (
+            ("g2_ladder", pk["ladder"], "cofactor 16",
+             "consensus_specs_tpu/ops/scalar_mul.py:275"),
+            ("miller_grouped", pk["miller"], "16 x 2",
+             "consensus_specs_tpu/ops/bls_jax.py:240")):
+        paths = by_path(name)
+        must = ladder_paths if name == "g2_ladder" else tuple(p for p in paths if p != "deposit")
+        r = rows[main_case]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "consensus_specs_tpu_torch/csrc/fq_points.cu",
+            "replaces": replaces,
+            "launches": spec_launches[name],
+            "launches_by_path": {p: paths[p] for p in must},
+            "launches_off_path": {p: n for p, n in paths.items() if p not in must},
+            "max_abs_err": max(x["max_abs_err"] for x in rows.values()),
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            "shape": main_case,
+            "by_shape": {label: {k: x[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                         for label, x in rows.items()},
+            "bit_identical": True,
+        })
     # every tower product's REDC runs inside fq_bilinear now, so no path
     # launches fq_redc; every path must have launched each of the others
     for k in kernels:

@@ -6,10 +6,12 @@
 // Ca and Cb input coefficients of a and b (b has one more, Montgomery
 // one, with one_col), norm_in (three carry rounds on the inputs first).
 // alpha(a, x) / beta(b, y): x[k * kL] = alpha[k] . (a[c * kL])_c for one
-// limb of one lane (a and x point at that limb of row 0). gamma(lv, g):
+// limb of one lane (x points at that limb of row 0; a is a pointer to it
+// in row 0 of contiguous rows, or any source whose a[c * kL] reads it in
+// coefficient c, such as a register file's gather). gamma(lv, g):
 // g[r * kWPitch] = sum_k gamma[r][k] * lv[k * kW] for one column of one
 // lane (lv: int32 leaf columns). kL, kW and kWPitch come from the
-// including file (csrc/fq_mont.cu).
+// including file (csrc/fq_arith.cuh).
 
 #pragma once
 
@@ -26,16 +28,18 @@ template <>
 struct Table<0> {
   static constexpr int P = 3, R = 2, Ca = 2, Cb = 2;
   static constexpr bool one_col = false, norm_in = false;
+  template <class Src>
   static __device__ __forceinline__ void alpha(
-      const long long* __restrict__ a, long long* __restrict__ x) {
+      const Src& a, long long* __restrict__ x) {
     const long long a0 = a[0 * kL];
     const long long a1 = a[1 * kL];
     x[0 * kL] = a0;
     x[1 * kL] = a1;
     x[2 * kL] = a0 + a1;
   }
+  template <class Src>
   static __device__ __forceinline__ void beta(
-      const long long* __restrict__ b, long long* __restrict__ y) {
+      const Src& b, long long* __restrict__ y) {
     const long long b0 = b[0 * kL];
     const long long b1 = b[1 * kL];
     y[0 * kL] = b0;
@@ -57,8 +61,9 @@ template <>
 struct Table<1> {
   static constexpr int P = 54, R = 12, Ca = 12, Cb = 12;
   static constexpr bool one_col = false, norm_in = false;
+  template <class Src>
   static __device__ __forceinline__ void alpha(
-      const long long* __restrict__ a, long long* __restrict__ x) {
+      const Src& a, long long* __restrict__ x) {
     const long long a0 = a[0 * kL];
     const long long a1 = a[1 * kL];
     const long long a2 = a[2 * kL];
@@ -126,8 +131,9 @@ struct Table<1> {
     x[52 * kL] = a1 + a5 + a7 + a11;
     x[53 * kL] = a0 + a1 + a4 + a5 + a6 + a7 + a10 + a11;
   }
+  template <class Src>
   static __device__ __forceinline__ void beta(
-      const long long* __restrict__ b, long long* __restrict__ y) {
+      const Src& b, long long* __restrict__ y) {
     const long long b0 = b[0 * kL];
     const long long b1 = b[1 * kL];
     const long long b2 = b[2 * kL];
@@ -271,8 +277,9 @@ template <>
 struct Table<2> {
   static constexpr int P = 36, R = 12, Ca = 12, Cb = 12;
   static constexpr bool one_col = false, norm_in = false;
+  template <class Src>
   static __device__ __forceinline__ void alpha(
-      const long long* __restrict__ a, long long* __restrict__ x) {
+      const Src& a, long long* __restrict__ x) {
     const long long a0 = a[0 * kL];
     const long long a1 = a[1 * kL];
     const long long a2 = a[2 * kL];
@@ -322,8 +329,9 @@ struct Table<2> {
     x[34 * kL] = a1 + a5 + a7 + a11;
     x[35 * kL] = a0 + a1 + a4 + a5 + a6 + a7 + a10 + a11;
   }
+  template <class Src>
   static __device__ __forceinline__ void beta(
-      const long long* __restrict__ b, long long* __restrict__ y) {
+      const Src& b, long long* __restrict__ y) {
     const long long b0 = b[0 * kL];
     const long long b1 = b[1 * kL];
     const long long b2 = b[2 * kL];
@@ -431,8 +439,9 @@ template <>
 struct Table<3> {
   static constexpr int P = 39, R = 12, Ca = 12, Cb = 6;
   static constexpr bool one_col = false, norm_in = false;
+  template <class Src>
   static __device__ __forceinline__ void alpha(
-      const long long* __restrict__ a, long long* __restrict__ x) {
+      const Src& a, long long* __restrict__ x) {
     const long long a0 = a[0 * kL];
     const long long a1 = a[1 * kL];
     const long long a2 = a[2 * kL];
@@ -485,8 +494,9 @@ struct Table<3> {
     x[37 * kL] = a1 + a5 + a7 + a11;
     x[38 * kL] = a0 + a1 + a4 + a5 + a6 + a7 + a10 + a11;
   }
+  template <class Src>
   static __device__ __forceinline__ void beta(
-      const long long* __restrict__ b, long long* __restrict__ y) {
+      const Src& b, long long* __restrict__ y) {
     const long long b0 = b[0 * kL];
     const long long b1 = b[1 * kL];
     const long long b2 = b[2 * kL];
@@ -594,8 +604,9 @@ template <>
 struct Table<4> {
   static constexpr int P = 30, R = 12, Ca = 12, Cb = 12;
   static constexpr bool one_col = true, norm_in = true;
+  template <class Src>
   static __device__ __forceinline__ void alpha(
-      const long long* __restrict__ a, long long* __restrict__ x) {
+      const Src& a, long long* __restrict__ x) {
     const long long a0 = a[0 * kL];
     const long long a1 = a[1 * kL];
     const long long a2 = a[2 * kL];
@@ -639,8 +650,9 @@ struct Table<4> {
     x[28 * kL] = a10;
     x[29 * kL] = a11;
   }
+  template <class Src>
   static __device__ __forceinline__ void beta(
-      const long long* __restrict__ b, long long* __restrict__ y) {
+      const Src& b, long long* __restrict__ y) {
     const long long b0 = b[0 * kL];
     const long long b1 = b[1 * kL];
     const long long b2 = b[2 * kL];

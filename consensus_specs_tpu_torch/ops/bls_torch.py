@@ -23,11 +23,13 @@ compare bit for bit with it. What differs:
   own lanes, so verdicts and values are unchanged. The committee axis of
   an aggregation tree is padded to a power of two too (with infinity
   points), because the tree halves it; message counts are not padded.
-- The pairing functions take `tower=`: `fq_tower.DEVICE` (the default:
-  the hand-written Montgomery kernel for CUDA tensors, the plain version
-  for CPU tensors) or `fq_tower.PLAIN` (the plain version everywhere),
-  which lets a run on the card hold the kernel route against the plain
-  one.
+- The pairing functions and g2_scalar_mul take `tower=`:
+  `fq_tower.DEVICE` (the default: the hand-written kernels for CUDA
+  tensors, the plain versions for CPU tensors) or `fq_tower.PLAIN` (the
+  plain versions everywhere), which lets a run on the card hold the
+  kernel route against the plain one. Under DEVICE on the card the G2
+  ladder of g2_scalar_mul and the grouped Miller loop are one launch each
+  (ops/fq_points.py).
 
 TorchBackend has JaxBackend's surface and verdicts; it is not registered
 as a backend of the reference.
@@ -60,10 +62,15 @@ G1_OPS = SimpleNamespace(
     inv=F.fq_inv, select=F.fq_select, is_zero=F.fq_is_zero,
     zeros=F.fq_zeros, ones=F.fq_ones, val_ndim=1)
 
-G2_OPS = SimpleNamespace(
-    mul=T.fq2_mul, sqr=T.fq2_sqr, add=T.fq2_add, sub=T.fq2_sub, neg=T.fq2_neg,
-    inv=T.fq2_inv, select=T.fq2_select, is_zero=T.fq2_is_zero,
-    zeros=T.fq2_zeros, ones=T.fq2_ones, val_ndim=2)
+def g2_ops(tower: T.Tower) -> SimpleNamespace:
+    """The G2 namespace over a tower's Fq2 arithmetic."""
+    return SimpleNamespace(
+        mul=tower.fq2_mul, sqr=tower.fq2_sqr, add=T.fq2_add, sub=T.fq2_sub,
+        neg=T.fq2_neg, inv=tower.fq2_inv, select=T.fq2_select,
+        is_zero=tower.fq2_is_zero, zeros=T.fq2_zeros, ones=T.fq2_ones, val_ndim=2)
+
+
+G2_OPS = g2_ops(T.DEVICE)
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +150,12 @@ def miller_loop_grouped(g1_aff, g2_aff, tower: T.Tower = T.DEVICE):
     """Shared-squaring multi-pairing: g1 [G, P, 2, L], g2 [G, P, 2, 2, L]
     -> [G, 2, 3, 2, L] with f_g = prod_p f_{|z|,Q_gp}(P_gp): per bit one
     Fq12 squaring per group and P sparse line multiplies, the f-update of
-    each step one chain (Tower.fq12_sqr_mul_lines / fq12_mul_lines)."""
+    each step one chain (Tower.fq12_sqr_mul_lines / fq12_mul_lines). For
+    CUDA tensors under fq_tower.DEVICE the whole loop is one launch of the
+    grouped Miller kernel (ops/fq_points.py), with the same limbs."""
+    if tower is T.DEVICE and g1_aff.is_cuda:
+        from . import fq_points
+        return fq_points.miller_grouped_cuda(g1_aff, g2_aff)
     tw = tower
     xp, yp = g1_aff[..., 0, :], g1_aff[..., 1, :]            # [G, P, L]
     xq, yq = g2_aff[..., 0, :, :], g2_aff[..., 1, :, :]      # [G, P, 2, L]
@@ -268,11 +280,23 @@ def g1_scalar_mul(aff_x, aff_y, k: int, nbits: int = 256):
         G1_OPS, (aff_x, aff_y), rec))
 
 
-def g2_scalar_mul(aff_x, aff_y, k: int, nbits: int = 256):
-    """G2 twin of g1_scalar_mul."""
+def g2_scalar_mul(aff_x, aff_y, k: int, nbits: int = 256,
+                  tower: T.Tower = T.DEVICE):
+    """G2 twin of g1_scalar_mul: aff_x, aff_y [..., 2, L]. For CUDA
+    tensors under fq_tower.DEVICE the whole walk, table, windows,
+    correction and inversion, is one launch of the ladder kernel
+    (ops/fq_points.py); for CPU tensors and under another tower it is the
+    windowed loop over that tower's G2 ops. The limbs are the same."""
     rec = SM.recode_signed_windows(int(k), nbits, SCALAR_WINDOW)
-    return jac_to_affine(G2_OPS, SM.windowed_scalar_mul(
-        G2_OPS, (aff_x, aff_y), rec))
+    if tower is T.DEVICE and (aff_x.is_cuda or aff_y.is_cuda):
+        from . import fq_points
+        batch = aff_x.shape[:-2]
+        x, y, inf = fq_points.g2_ladder_cuda(aff_x.reshape(-1, 2, F.L),
+                                             aff_y.reshape(-1, 2, F.L), None, rec)
+        return (x.reshape(batch + (2, F.L)), y.reshape(batch + (2, F.L)),
+                inf.reshape(batch))
+    ops = G2_OPS if tower is T.DEVICE else g2_ops(tower)
+    return jac_to_affine(ops, SM.windowed_scalar_mul(ops, (aff_x, aff_y), rec))
 
 
 _G2_COFACTOR_NBITS = gt.G2_COFACTOR.bit_length()

@@ -11,8 +11,9 @@ norm_in options), `alpha` and `beta` (a leaf's operands as sums of input
 coefficients with immediate coefficients) and `gamma` (an output
 coefficient's wide columns as a sum of leaves). Each function works on
 one limb or column of one lane, so every thread of a warp runs the same
-code. The header also carries Montgomery one's limbs (the cyclotomic
-square's extra b coefficient).
+code; the pre-sums are templates over their source (a row pointer, or
+the point kernels' register gather). The header also carries Montgomery
+one's limbs (the cyclotomic square's extra b coefficient).
 """
 from __future__ import annotations
 
@@ -39,8 +40,9 @@ def _sum(row: np.ndarray, name: str) -> str:
 
 def _presum(fn: str, mat: np.ndarray, src: str, dst: str) -> list:
     cols = sorted({int(c) for c in np.nonzero(mat)[1]})
-    lines = [f"  static __device__ __forceinline__ void {fn}(",
-             f"      const long long* __restrict__ {src}, long long* __restrict__ {dst}) {{"]
+    lines = ["  template <class Src>",
+             f"  static __device__ __forceinline__ void {fn}(",
+             f"      const Src& {src}, long long* __restrict__ {dst}) {{"]
     lines += [f"    const long long {src}{c} = {src}[{c} * kL];" for c in cols]
     lines += [f"    {dst}[{k} * kL] = {_sum(row, src)};" for k, row in enumerate(mat)]
     return lines + ["  }"]
@@ -67,10 +69,12 @@ def render() -> str:
         "// Ca and Cb input coefficients of a and b (b has one more, Montgomery",
         "// one, with one_col), norm_in (three carry rounds on the inputs first).",
         "// alpha(a, x) / beta(b, y): x[k * kL] = alpha[k] . (a[c * kL])_c for one",
-        "// limb of one lane (a and x point at that limb of row 0). gamma(lv, g):",
+        "// limb of one lane (x points at that limb of row 0; a is a pointer to it",
+        "// in row 0 of contiguous rows, or any source whose a[c * kL] reads it in",
+        "// coefficient c, such as a register file's gather). gamma(lv, g):",
         "// g[r * kWPitch] = sum_k gamma[r][k] * lv[k * kW] for one column of one",
         "// lane (lv: int32 leaf columns). kL, kW and kWPitch come from the",
-        "// including file (csrc/fq_mont.cu).",
+        "// including file (csrc/fq_arith.cuh).",
         "",
         "#pragma once",
         "",

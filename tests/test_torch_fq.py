@@ -19,8 +19,10 @@ from consensus_specs_tpu_torch.ops import fq_cuda
 
 from _release_jax import release_jax_programs, torch_one_thread  # noqa: F401 (autouse)
 
+# the field's constants of the CUDA sources (csrc/fq_mont.cu and
+# csrc/fq_points.cu include them)
 KERNEL_SOURCE = (Path(__file__).resolve().parent.parent
-                 / "consensus_specs_tpu_torch" / "csrc" / "fq_mont.cu")
+                 / "consensus_specs_tpu_torch" / "csrc" / "fq_arith.cuh")
 
 
 def _narrow(rng, n):
@@ -77,8 +79,9 @@ def test_pow_static_cost_model_matches_jax_and_counts_the_multiplies():
 
 
 def test_kernel_source_constants_match():
-    """csrc/fq_mont.cu carries q's limbs, -q^-1 mod 2^29, B and L as
-    literals; they must be the field's."""
+    """csrc/fq_arith.cuh (the arithmetic csrc/fq_mont.cu and
+    csrc/fq_points.cu share) carries q's limbs, -q^-1 mod 2^29, B and L
+    as literals; they must be the field's."""
     src = KERNEL_SOURCE.read_text()
     q_block = re.search(r"kQ\[kL\]\s*=\s*\{([^}]*)\}", src).group(1)
     q_limbs = [int(v.rstrip("LL"), 16) for v in re.findall(r"0x[0-9a-fA-F]+LL", q_block)]

@@ -86,12 +86,12 @@ def test_scan_sees_the_package():
 
 def test_kernel_source_present_and_build_dir_ignored():
     from consensus_specs_tpu_torch.ops import _nvcc
-    for name in ("sha256_pairs", "fq_mont"):
+    for name in ("sha256_pairs", "fq_mont", "fq_points"):
         assert (PKG / "csrc" / f"{name}.cu").is_file()
         assert name in _nvcc.SOURCES
     # the host library's source sits beside them and builds with g++, not nvcc
     assert (PKG / "csrc" / "deposit_tree.cpp").is_file()
-    assert _nvcc.SOURCES == ("sha256_pairs", "fq_mont")
+    assert _nvcc.SOURCES == ("sha256_pairs", "fq_mont", "fq_points")
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "consensus_specs_tpu_torch/_build/" in ignored
 
