@@ -825,18 +825,46 @@ LADDER_CASES = {"cofactor 16": (16, "cofactor"), "cofactor 128": (FIREHOSE_G, "c
 MILLER_CASES = {"16 x 2": (16, 2), "128 x 3": (FIREHOSE_G, 3)}
 
 
-def bundle_split(prog, cycles):
+# PR 12's times of the point kernels at these shapes, ms ("NVIDIA H100
+# 80GB HBM3, 700.00 W", runs 12.1 / 12.2 of PERF.md section 6): the first
+# version of the interpreter, printed beside this run's
+PR12_MS = {("g2_ladder", "cofactor 16"): (25.5147, 25.5123),
+           ("g2_ladder", "cofactor 128"): (26.2645, 26.3028),
+           ("g2_ladder", "sign 256-bit 1"): (13.5664, 13.5518),
+           ("miller_grouped", "16 x 2"): (2.9886, 2.9923),
+           ("miller_grouped", "128 x 3"): (3.4638, 3.4521)}
+BUNDLE_CLASSES = ("linear only", "multiplies only", "with tower products", "with a phase E")
+
+
+def bundle_split(prog, cycles, phases):
     """The clocked bundles of one launch by what they hold: linear ops
-    only, multiplies without tower products, with tower products ->
-    {class: {bundles, mean_cycles, share}}."""
-    b = prog.bundles
-    cls = np.where(b[:, 2] > 0, "with tower products",
-                   np.where(b[:, 1] > 0, "multiplies only", "linear only"))
+    only, multiplies without tower products, with tower products, and
+    (across the last two) the product bundles that also run a phase E
+    -> {class: {bundles, mean_cycles, share, phases: {phase: mean
+    cycles}}} (phases: fq_points.PHASES, the split of bundle_clocks)."""
+    b = prog.bundles                     # linear A, multiplies, products, linear E
+    products = (b[:, 1] + b[:, 2]) > 0
+    members = {"linear only": ~products,
+               "multiplies only": (b[:, 1] > 0) & (b[:, 2] == 0),
+               "with tower products": b[:, 2] > 0,
+               "with a phase E": products & (b[:, 3] > 0)}
     total = max(int(cycles.sum()), 1)
-    return {c: {"bundles": int((cls == c).sum()),
-                "mean_cycles": float(cycles[cls == c].mean()) if (cls == c).any() else 0.0,
-                "share": float(cycles[cls == c].sum()) / total}
-            for c in ("linear only", "multiplies only", "with tower products")}
+    return {c: {"bundles": int(m.sum()),
+                "mean_cycles": float(cycles[m].mean()) if m.any() else 0.0,
+                "share": float(cycles[m].sum()) / total,
+                "phases": {ph: float(phases[m, j].mean()) if m.any() else 0.0
+                           for j, ph in enumerate(fq_points.PHASES)}}
+            for c, m in members.items()}
+
+
+def point_launch(prog, lanes):
+    """The launch's shape (fq_points.launch_shape on this card's SMs):
+    lanes a block, threads, shared bytes a block and a lane (the ring
+    included), the ring's bytes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile, threads, nbytes, ring = fq_points.launch_shape(prog, lanes, sms)
+    return {"lanes_a_block": tile, "threads": threads, "smem_block": nbytes,
+            "smem_lane": nbytes / tile, "ring_bytes": ring}
 
 
 def check_point_kernels(rng, dev):
@@ -878,10 +906,12 @@ def check_point_kernels(rng, dev):
                "program": prog.describe()}
         row["bound_ms"], row["bound_by"] = fq_points.bound_ms(prog, n, INT32_OPS_PER_S,
                                                               HBM_BYTES_PER_S)
-        cycles = fq_points.bundle_clocks(
+        cycles, phases = fq_points.bundle_clocks(
             lambda st: fq_points.g2_ladder_cuda(x, y, None, rec, stamps=st), prog, dev)
-        row["bundle_cycles"] = bundle_split(prog, cycles)
+        row["bundle_cycles"] = bundle_split(prog, cycles, phases)
         row["us_per_bundle"] = row["ms"] * 1e3 / prog.n_bundles
+        row["launch"] = point_launch(prog, n)
+        row["pr12_ms"] = PR12_MS[("g2_ladder", label)]
         out["ladder"][label] = row
     g1d, g2d = [], []
     for j in range(8):
@@ -901,10 +931,12 @@ def check_point_kernels(rng, dev):
                "program": prog.describe()}
         row["bound_ms"], row["bound_by"] = fq_points.bound_ms(prog, G, INT32_OPS_PER_S,
                                                               HBM_BYTES_PER_S)
-        cycles = fq_points.bundle_clocks(
+        cycles, phases = fq_points.bundle_clocks(
             lambda st: fq_points.miller_grouped_cuda(g1, g2, stamps=st), prog, dev)
-        row["bundle_cycles"] = bundle_split(prog, cycles)
+        row["bundle_cycles"] = bundle_split(prog, cycles, phases)
         row["us_per_bundle"] = row["ms"] * 1e3 / prog.n_bundles
+        row["launch"] = point_launch(prog, G)
+        row["pr12_ms"] = PR12_MS[("miller_grouped", label)]
         out["miller"][label] = row
     return out
 
@@ -912,19 +944,28 @@ def check_point_kernels(rng, dev):
 def report_point_kernels(pk) -> None:
     def split(row):
         return "; ".join(f"{c} {v['bundles']} x {v['mean_cycles']:.0f} cycles"
-                         f" ({100 * v['share']:.1f}%)" for c, v in row["bundle_cycles"].items())
+                         f" ({100 * v['share']:.1f}%: " + " / ".join(
+                             f"{u:.0f}" for u in v["phases"].values()) + ")"
+                         for c, v in row["bundle_cycles"].items())
 
     for name, rows in (("g2_ladder", pk["ladder"]), ("miller_grouped", pk["miller"])):
         for label, r in rows.items():
-            prog = r["program"]
+            prog, ln = r["program"], r["launch"]
             log(f"phase kernel: {name} {label} bit-identical to its plain twin (max_abs_err"
                 f" {r['max_abs_err']}){' and lane 0 == the bignum oracle' if name == 'g2_ladder' else ''}"
-                f" | kernel {r['ms']:.4f} ms, plain twin {r['plain_ms']:.1f} ms, bound"
-                f" {r['bound_ms']:.6f} ms by {r['bound_by']} | program: {prog['ops']} ops"
-                f" ({prog['muls']} multiplies, {prog['products']} tower products,"
-                f" {prog['linear']} linear) in {prog['bundles']} bundles"
-                f" ({prog['product_bundles']} with products), {prog['registers']} registers,"
-                f" {r['us_per_bundle']:.2f} us a bundle | block 0's cycles by bundle: {split(r)}")
+                f" | kernel {r['ms']:.4f} ms (PR 12, runs 12.1 / 12.2:"
+                f" {r['pr12_ms'][0]:.4f} / {r['pr12_ms'][1]:.4f} ms), plain twin"
+                f" {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']}"
+                f" | program: {prog['ops']} ops ({prog['muls']} multiplies,"
+                f" {prog['products']} tower products, {prog['linear']} linear of which"
+                f" {prog['linear_e']} in phase E) in {prog['bundles']} bundles"
+                f" ({prog['product_bundles']} with products, {prog['linear_only']} linear"
+                f" only), {prog['registers']} registers, {r['us_per_bundle']:.3f} us a bundle"
+                f" | launch: {ln['lanes_a_block']} lane(s) a block, {ln['threads']} threads,"
+                f" shared {ln['smem_block']} B a block, {ln['smem_lane']:.0f} B a lane with"
+                f" the ring ({ln['ring_bytes']} B, records of <= {prog['record_words_max']}"
+                f" words) | block 0's cycles by bundle (" + " / ".join(fq_points.PHASES)
+                + f" of each): {split(r)}")
 
 
 def small_launch_times(lanes_seen, dev, rng, pairs):

@@ -31,40 +31,87 @@
 // What bounds them on this card. At the main path's sizes (1-16 ladder
 // lanes in a block verify or a signature, 128 in a firehose stage; 16 or
 // 128 Miller groups) neither bytes nor multiply-adds: a cofactor ladder
-// lane is about 50,000 dependent field operations (some 4,000 levels of
-// products), against a few kilobytes of input and output. The time is the
-// latency of the dependency chain, and before these kernels it was the
-// host's cost of one launch per product (about 10,500 launches per hash
-// batch, 2,200 per Miller loop).
+// lane is about 50,000 dependent field operations (4,619 bundles deep),
+// against a few kilobytes of input and output. The time is the latency of
+// the dependency chain: what one SM takes to get through a bundle's phases
+// and barriers (chip_smoke.py's `phase kernel` prints block 0's cycles a
+// bundle, phase by phase).
 //
 // Design:
 // - One program for the whole loop. The host schedules the ops into
-//   bundles of mutually independent ops (an op joins the first bundle after
-//   its inputs), allocates registers by liveness and uploads the program
-//   once per device. The ladder's program depends only on (nbits, w): the
-//   digits are data, so the cofactor and every 256-bit signing scalar each
-//   reuse one program. The Miller program depends only on P.
+//   bundles, allocates registers by liveness and uploads the program once
+//   per device. The ladder's program depends only on (nbits, w): the digits
+//   are data, so the cofactor and every 256-bit signing scalar each reuse
+//   one program. The Miller program depends only on P.
 // - State in shared memory for the whole loop. A lane's register file
 //   (rows of 14 int64 limbs, 16-byte aligned), its flags and the bundle's
 //   scratch (leaf operand rows, wide rows) live in dynamic shared memory
 //   (above 48 KB through cudaFuncSetAttribute); inputs are staged once with
-//   cp.async and the outputs leave in one coalesced store.
-// - A bundle in four phases over the block's threads, a barrier after
-//   each, as one step of the chain kernel (csrc/fq_mont.cu): (A) linear
-//   ops (one thread per row) and the tower products' pre-sums (one thread
-//   per operand limb, the compiled Table<K> code reading the register file
-//   through a gather); (B) every multiply's schoolbook into int64 columns
-//   and every tower product's leaves (one thread per leaf); (C) the tower
-//   products' gamma sums (one thread per column); (D) every REDC (one
-//   thread per output row). So a doubling costs its dependency depth in
-//   bundles, not its products one after another. A bundle without
-//   products runs phase A alone; one without tower products skips C.
-// - A phase's items are numbered across the bundle's ops, class by class,
-//   and thread t takes items t, t + threads, ...: the ops of one bundle run
-//   side by side, neighbouring threads on the same code.
+//   cp.async and the outputs leave in one coalesced store. The window
+//   digits and signs (at most 128 each) and q's limbs are staged once too.
+// - The program streamed into shared memory. Each bundle is one
+//   self-contained record (header, op words, each leaf's and each REDC's
+//   scratch row, the register lists of loads and products inline), 16-byte
+//   aligned in device memory. The block's last warp is the producer: its
+//   lane 0 keeps kRing records in flight in a ring of shared-memory slots,
+//   each fetched by one TMA bulk copy (cp.async.bulk) that completes on the
+//   slot's "full" mbarrier. It requests records 0 .. kRing - 1 first; then,
+//   for each bundle, it reads from the record's header where the record
+//   kRing on lies, waits on the slot's "empty" mbarrier (the consumers
+//   arrive there once past the bundle's last barrier) and requests that
+//   record into the same slot. The consumer warps wait on "full" (parity:
+//   the slot's round) and then read only shared memory: no record, op word
+//   or register list comes from device memory on their path.
+// - A bundle in five phases, each skipped with its barrier when empty: (A)
+//   linear ops (one thread per row) and the tower products' pre-sums (one
+//   thread per operand limb, the compiled Table<K> code reading the
+//   register file through a gather); (B) every multiply's schoolbook and
+//   every tower-product leaf; (C) the tower products' gamma sums (one
+//   thread per column); (D) every REDC; (E) the linear ops that read the
+//   bundle's own results (the lazy add, sub, neg, select and load after a
+//   REDC, so they do not open a bundle of their own). A multiply reads
+//   phase A's results of its bundle. Phases A and E share one copy of the
+//   linear code (the pass loop of bundle()). The row ops (add, sub, neg,
+//   sel, load) take one branch-free path, both source rows loaded before
+//   the store.
+// - The ladder's kernel (few products a bundle: latency first) runs B and D
+//   on 16-thread groups (a half-warp). Lane k (0..13; lanes 14 and 15
+//   follow lane 13 and store nothing) narrows limb k of each operand
+//   (narrow32's three carry rounds, the carry from lane k - 1 by a
+//   shuffle); the group swaps the int32 limbs through 72 words of shared
+//   memory; lane k sums columns k and k + 14 of the schoolbook (the same
+//   integer sums as schoolbook()); a leaf's columns are wide-normalized
+//   across the lanes (wide_norm32). REDC: every lane makes the 14 digits
+//   from the low columns (redc()'s low triangle), so the digits and the
+//   last carry are redc()'s integers; lane k then adds m_i q_{14+k-i} to
+//   its own column 14 + k, lane 0 the carry, and the closing carry rounds
+//   (and is_zero's seventeen) run across the lanes. A warp's two groups
+//   always run group code together (a group without an item repeats its
+//   partner's and stores nothing), so every shuffle is a full-warp one.
+// - The Miller kernel (dozens of leaves and REDCs a bundle: each phase is
+//   bound by the SM's throughput, and a 16-thread group costs a warp's
+//   instructions for two items) runs B and D one thread an item, with
+//   csrc/fq_arith.cuh's narrow32, schoolbook, wide_norm32 and redc.
+// - Barriers. A bundle needs nw consumer warps (its widest phase, in
+//   threads or groups); the others go straight to the bundle's end. A phase
+//   ends with __syncwarp when nw is 1 and with the named barrier 1 over the
+//   nw warps otherwise; the bundle ends with the named barrier 2 over all
+//   consumer warps.
 // - One lane (ladder) or one group (Miller) per block while the launch has
 //   fewer lanes than the card has SMs; more lanes per block only beyond.
-//   Threads: enough for the widest phase of the program, 64 to 256.
+//   Threads: 32 x the consumer warps of the program's widest phase (2 to
+//   8), and the producer warp. More consumer warps were slower on both
+//   kernels (register spills at 544 threads; longer phases at 160).
+//
+// Shared memory (ops/fq_points.py::launch_shape computes the same): the
+// ring is kRing slots of the program's largest record (cofactor and
+// 256-bit ladders 368 words: 11,776 bytes; Miller P = 2 440 words: 14,080;
+// P = 3 660 words: 21,120), the mbarriers, a 32-word q table, the digits,
+// 288 bytes a 16-thread group (4,608 for 256 consumer threads), and per
+// lane the file: the ladder 16,192 bytes (98 rows, 9 leaf rows, 13 wide
+// rows, 19 flags), Miller P = 3 50,176 (127 rows, 93 leaf rows, 63 wide
+// rows). A cofactor-ladder block of one lane takes 33,856 bytes, a Miller
+// block of one group at P = 3 76,160: inside the 227 KB of an SM.
 //
 // Ranges: the ops see exactly the values the plain loops see, so every
 // intermediate stays in the reference's proven budget (csrc/fq_mont.cu's
@@ -76,31 +123,28 @@ namespace {
 
 constexpr int kWords = 8;             // int32 words per op
 constexpr int kAdd = 1, kSub = 2, kNeg = 3, kNorm = 4, kSel = 5, kLoad = 6,
-              kSgn = 7, kFand = 8, kFnot = 9;
-constexpr int kMul = 16, kIsz = 17, kBil = 32;
+              kSgn = 7, kFand = 8;         // 9: fnot
+constexpr int kIsz = 17, kBil = 32;       // 16: mul
 constexpr int kNormFull = kL + 3;     // rounds to the unique signed-top form
-constexpr int kThreads = 256;
-
-// The tower products a program may run: P leaves, R outputs, Ca / Cb rows.
-struct KindShape {
-  int P, R, Ca, Cb;
-};
-static_assert(kNumKinds == 5, "the kind list below names kinds 0 .. 4");
-#define FQ_SHAPE(K) {Table<K>::P, Table<K>::R, Table<K>::Ca, Table<K>::Cb}
-__constant__ KindShape kShapes[kNumKinds] = {FQ_SHAPE(0), FQ_SHAPE(1), FQ_SHAPE(2),
-                                             FQ_SHAPE(3), FQ_SHAPE(4)};
+constexpr int kMaxThreads = 256 + 32;  // at most 8 consumer warps, and the producer warp
+constexpr int kGroup = 16;            // threads of a schoolbook or a REDC
+constexpr unsigned kFull = 0xFFFFFFFFu;   // both groups of a warp run group code together
+constexpr int kRing = 8;              // records in flight (ops/fq_program.py RING)
+constexpr int kHdr = 12;              // a record's header words (HDR)
+constexpr int kNextOff = 7, kNextWords = 8;
+constexpr int kScrWords = 72;         // a group's exchange (group_schoolbook)
+constexpr int kQWords = 32;           // q's limbs, then zeros (group_redc)
 
 struct Prog {
-  const int* bundles;        // [n_bundles][4]: linear ops, multiplies, products, first op
-  const int* ops;            // [n_ops][kWords]
-  const int* pool;           // row lists
+  const int* records;        // the bundle records, 16-byte aligned
+  const int* ring0;          // [kRing][2] offset and words of records 0 .. kRing - 1
   const int* const_regs;     // [n_const]
   const int* in_regs[2];     // [in_rows[g]]
   const int* out_regs;       // [out_rows]
   const long long* consts;   // [n_const][kL]
-  const int* d_idx;          // [m] table index of each window digit
-  const int* d_sign;         // [m] its sign
-  int n_bundles, n_const, nreg, nflag, nx, ng;
+  const int* d_idx;          // [n_digits] table index of each window digit
+  const int* d_sign;         // [n_digits] its sign
+  int n_bundles, n_const, nreg, nflag, nx, ng, n_digits, slot_words;
   int in_rows[2], out_rows;
   int lane_flag, uniform_flag, uniform_val, out_flag;
 };
@@ -112,29 +156,138 @@ struct Io {
   unsigned char* out_flags;        // [n] or null
   unsigned n;
   int tile;                        // lanes per block
-  long long* stamps;               // null, or 1 + n_bundles clock64() values
+  long long* stamps;               // null, or [n_bundles][kMarks] + 1 clock64() values
 };
 
-// A block's shared memory: per lane the register file (nreg rows), the
-// leaf operand rows x and y (nx each), the wide rows (ng) and the flags.
-struct File {
+// Block 0's clock stamps of a bundle (thread 0): before the record's wait,
+// after it, after phases A, B, C, D and E (each with its barrier; a
+// skipped phase stamps at once), after the bundle's last barrier. The
+// next bundle's first stamp closes the producer's fetch.
+constexpr int kMarks = 8;
+
+// The block's shared memory: the ring and its mbarriers, the q table, the
+// digits, the groups' exchange words, then per lane the register file
+// (nreg rows), the leaf operand rows x and y (nx each), the wide rows (ng)
+// and the flags.
+struct Smem {
+  int* ring;
+  unsigned long long *full, *empty;   // a slot's record is in / has been read
+  unsigned* qs;
+  int *d_idx, *d_sign;
+  int* scr;
   long long *regs, *x, *y, *g;
   int* flags;
   int reg_r, x_r, g_r, flag_r;     // per lane
 };
 
-__device__ __forceinline__ File file_of(long long* smem, const Prog& p, int tile) {
-  File f;
-  f.reg_r = p.nreg * kL;
-  f.x_r = p.nx * kL;
-  f.g_r = p.ng * kWPitch;
-  f.flag_r = (p.nflag + 3) & ~3;
-  f.regs = smem;
-  f.x = f.regs + tile * f.reg_r;
-  f.y = f.x + tile * f.x_r;
-  f.g = f.y + tile * f.x_r;
-  f.flags = reinterpret_cast<int*>(f.g + tile * f.g_r);
-  return f;
+__device__ __forceinline__ Smem smem_of(char* base, const Prog& p, int tile, int scr_words) {
+  Smem s;
+  s.ring = reinterpret_cast<int*>(base);
+  base += 4 * kRing * p.slot_words;
+  s.full = reinterpret_cast<unsigned long long*>(base);
+  s.empty = s.full + kRing;
+  base += 16 * kRing;
+  s.qs = reinterpret_cast<unsigned*>(base);
+  base += 4 * kQWords;
+  const int dpad = (p.n_digits + 3) & ~3;
+  s.d_idx = reinterpret_cast<int*>(base);
+  s.d_sign = s.d_idx + dpad;
+  base += 8 * dpad;
+  s.scr = reinterpret_cast<int*>(base);
+  base += 4 * scr_words;
+  s.reg_r = p.nreg * kL;
+  s.x_r = p.nx * kL;
+  s.g_r = p.ng * kWPitch;
+  s.flag_r = (p.nflag + 3) & ~3;
+  s.regs = reinterpret_cast<long long*>(base);
+  s.x = s.regs + tile * s.reg_r;
+  s.y = s.x + tile * s.x_r;
+  s.g = s.y + tile * s.x_r;
+  s.flags = reinterpret_cast<int*>(s.g + tile * s.g_r);
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// The ring: TMA bulk copies completing on mbarriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// One record into a slot (the producer): the slot's full mbarrier expects its
+// bytes.
+__device__ __forceinline__ void fetch_record(int* dst, const int* src, int words,
+                                             unsigned long long* bar) {
+  const unsigned bytes = static_cast<unsigned>(words) * 4u;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void wait_bar(unsigned long long* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Linear ops and the tower products' pre-sums and gamma sums
+// ---------------------------------------------------------------------------
+
+// One linear op on a lane. The row ops (add, sub, neg, sel, load) share
+// one branch-free path, d = (+-a) + (+-b or 0) with the source rows chosen
+// first, so the threads of a warp on different ops do not split; norm and
+// the flag ops are rare and take their own. A phase never reads a register
+// it writes: both source rows are loaded whole before the first store, so
+// the loads overlap.
+__device__ __forceinline__ void linear(const int* wp, const int* rec, const Smem& s,
+                                       long long* R, int* Fl) {
+  const int4 w0 = reinterpret_cast<const int4*>(wp)[0];
+  const int4 w1 = reinterpret_cast<const int4*>(wp)[1];
+  const int code = w0.x;
+  if (code >= kSgn) {
+    Fl[w0.y] = code == kSgn ? s.d_sign[w1.y] < 0
+                            : code == kFand ? Fl[w0.z] & Fl[w0.w] : !Fl[w0.z];
+    return;
+  }
+  if (code == kNorm) {
+    long long a[kL];
+    load_row(R + w0.z * kL, a);
+    carry_rounds(a);
+    store_row(R + w0.y * kL, a);
+    return;
+  }
+  int ra = w0.z, rb = w0.w;
+  if (code == kSel) ra = Fl[w1.x] ? w0.z : w0.w;
+  if (code == kLoad) ra = rec[w1.z + s.d_idx[w1.y]];
+  const bool two = code == kAdd || code == kSub;
+  if (!two) rb = ra;
+  const long long sa = code == kNeg ? -1 : 0, sb = code == kSub ? -1 : 0;
+  const long long mb = two ? -1 : 0;
+  long long a[kL], b[kL];
+  load_row(R + ra * kL, a);
+  load_row(R + rb * kL, b);
+#pragma unroll
+  for (int j = 0; j < kL; ++j) a[j] = ((a[j] ^ sa) - sa) + (((b[j] ^ sb) - sb) & mb);
+  store_row(R + w0.y * kL, a);
 }
 
 // Row c of a product's operand is register rows[c] of the lane: the
@@ -146,58 +299,6 @@ struct Gather {
     return base[rows[i / kL] * kL];
   }
 };
-
-__device__ __forceinline__ void copy_row(long long* d, const long long* s) {
-  const longlong2* sv = reinterpret_cast<const longlong2*>(s);
-  longlong2* dv = reinterpret_cast<longlong2*>(d);
-#pragma unroll
-  for (int k = 0; k < kL / 2; ++k) dv[k] = sv[k];
-}
-
-// One linear op on lane l.
-__device__ __forceinline__ void linear(const int* w, const Prog& p, long long* R, int* Fl) {
-  const int code = w[0];
-  switch (code) {
-    case kAdd:
-    case kSub: {
-      long long a[kL], b[kL];
-      load_row(R + w[2] * kL, a);
-      load_row(R + w[3] * kL, b);
-#pragma unroll
-      for (int k = 0; k < kL; ++k) a[k] = code == kAdd ? a[k] + b[k] : a[k] - b[k];
-      store_row(R + w[1] * kL, a);
-      break;
-    }
-    case kNeg:
-    case kNorm: {
-      long long a[kL];
-      load_row(R + w[2] * kL, a);
-      if (code == kNeg) {
-#pragma unroll
-        for (int k = 0; k < kL; ++k) a[k] = -a[k];
-      } else {
-        carry_rounds(a);
-      }
-      store_row(R + w[1] * kL, a);
-      break;
-    }
-    case kSel:
-      copy_row(R + w[1] * kL, R + (Fl[w[4]] ? w[2] : w[3]) * kL);
-      break;
-    case kLoad:
-      copy_row(R + w[1] * kL, R + p.pool[w[6] + p.d_idx[w[5]]] * kL);
-      break;
-    case kSgn:
-      Fl[w[1]] = p.d_sign[w[5]] < 0;
-      break;
-    case kFand:
-      Fl[w[1]] = Fl[w[2]] & Fl[w[3]];
-      break;
-    default:    // kFnot
-      Fl[w[1]] = !Fl[w[2]];
-      break;
-  }
-}
 
 template <class T>
 __device__ __forceinline__ void presum(bool is_b, const long long* R, const int* rows,
@@ -222,178 +323,471 @@ __device__ __forceinline__ void gamma_col(const long long* x, long long* g, int 
     case 3: fn<Table<3>> args; break;        \
     default: fn<Table<4>> args; break;       \
   }
+static_assert(kNumKinds == 5, "FQ_PROGRAM_KIND names kinds 0 .. 4");
 
-// Product k of a bundle's tower products holding item j of a phase whose
-// items per product are nl * per(kind): k, and j made relative to it.
-template <class Per>
-__device__ __forceinline__ int product_of(const int* bil, int nl, int& j, Per per) {
-  int k = 0;
-  for (;; ++k) {
-    const int cnt = nl * per(kShapes[bil[k * kWords] - kBil]);
-    if (j < cnt) return k;
-    j -= cnt;
+// ---------------------------------------------------------------------------
+// A multiply over a 16-thread group: lane k (k = min(lane, 13)) owns limb k
+// and columns k and k + 14
+// ---------------------------------------------------------------------------
+
+// narrow32 of an operand, limb k of it: the first carry round in int64 cut
+// to int32 (its low 32 bits are narrow32's), then two rounds in int32, the
+// carry from lane k - 1 by a shuffle; the top limb keeps its own overflow.
+__device__ __forceinline__ int narrow_limb(long long v, int k) {
+  const long long h = v >> kB;
+  unsigned t = static_cast<unsigned>(v & kMask);
+  const int c = __shfl_up_sync(kFull, static_cast<int>(h), 1, kGroup);
+  if (k) t += static_cast<unsigned>(c);
+  if (k == kL - 1) t += static_cast<unsigned>(h) << kB;
+  int x = static_cast<int>(t);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int hi = x >> kB;
+    unsigned u = static_cast<unsigned>(x & static_cast<int>(kMask));
+    const int ci = __shfl_up_sync(kFull, hi, 1, kGroup);
+    if (k) u += static_cast<unsigned>(ci);
+    if (k == kL - 1) u += static_cast<unsigned>(hi) << kB;
+    x = static_cast<int>(u);
   }
+  return x;
 }
 
-// One bundle of the program over the block's nl lanes. In each phase the
-// threads take the phase's items in order, i = tid, tid + nt, ...: the
-// ops of a class stand one after another in the bundle, so neighbouring
-// threads run the same code on neighbouring items.
-__device__ __forceinline__ void bundle(const Prog& p, const File& f, int b, int nl) {
-  const int n_lin = p.bundles[4 * b], n_mul = p.bundles[4 * b + 1];
-  const int n_bil = p.bundles[4 * b + 2];
-  const int* lin = p.ops + p.bundles[4 * b + 3] * kWords;
-  const int* mul = lin + n_lin * kWords;
-  const int* bil = mul + n_mul * kWords;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  // (A) linear ops, one item per (op, lane); pre-sums, one per (product,
-  // operand, limb, lane)
-  const int lin_items = n_lin * nl;
-  for (int i = tid; i < lin_items + n_bil * nl * 2 * kL; i += nt) {
-    if (i < lin_items) {
-      const int k = i / nl, l = i - k * nl;
-      linear(lin + k * kWords, p, f.regs + l * f.reg_r, f.flags + l * f.flag_r);
-    } else {
-      const int j = i - lin_items, per = nl * 2 * kL;
-      const int k = j / per, r = j - k * per, l = r / (2 * kL), lt = r - l * 2 * kL;
-      const int* w = bil + k * kWords;
-      const bool is_b = lt >= kL;
-      const int t = is_b ? lt - kL : lt;
-      long long* x = f.x + l * f.x_r + w[2] * kL;
-      long long* y = f.y + l * f.x_r + w[2] * kL;
-      FQ_PROGRAM_KIND(w[0] - kBil, presum, (is_b, f.regs + l * f.reg_r, p.pool + w[1], t, x, y))
-    }
+// Columns k (lo) and k + 14 (hi) of schoolbook(narrow32(xs), narrow32(ys)):
+// the narrowed limbs go through the group's exchange words: x at 0..13, y
+// at 29..42 behind 13 zeros (so scr[29 + k - i] is y_{k-i}, or 0 for i > k)
+// and at 44..57 ahead of 14 zeros (scr[58 + k - i] is y_{14+k-i}, or 0 for
+// i <= k). Every lane runs the same 28 multiply-adds, the same integer sums
+// as schoolbook().
+__device__ __forceinline__ void group_schoolbook(const long long* xs, const long long* ys,
+                                                 int* scr, int lane, int k, long long& lo,
+                                                 long long& hi) {
+  const int x = narrow_limb(xs[k], k);
+  const int y = narrow_limb(ys[k], k);
+  __syncwarp();                  // the group's last item has read its exchange
+  if (lane < kL) {
+    scr[lane] = x;
+    scr[29 + lane] = y;
+    scr[44 + lane] = y;
   }
-  __syncthreads();
-  if (n_mul + n_bil == 0) return;
-
-  // (B) a multiply's schoolbook into its wide row, one item per (op, lane);
-  // a product's leaf into its own x row as int32 columns, one per (product,
-  // leaf, lane)
-  const int mul_items = n_mul * nl;
-  int leaf_items = 0;
-  for (int k = 0; k < n_bil; ++k) leaf_items += nl * kShapes[bil[k * kWords] - kBil].P;
-  for (int i = tid; i < mul_items + leaf_items; i += nt) {
-    const long long *xs, *ys;
-    long long* dst;
-    const bool is_mul = i < mul_items;
-    if (is_mul) {
-      const int k = i / nl, l = i - k * nl;
-      const int* w = mul + k * kWords;
-      const long long* R = f.regs + l * f.reg_r;
-      xs = R + w[2] * kL;
-      ys = R + w[3] * kL;
-      dst = f.g + l * f.g_r + w[6] * kWPitch;
-    } else {
-      int j = i - mul_items;
-      const int k = product_of(bil, nl, j, [](const KindShape& s) { return s.P; });
-      const int P = kShapes[bil[k * kWords] - kBil].P;
-      const int l = j / P, leaf = j - l * P;
-      const int row = (bil[k * kWords + 2] + leaf) * kL;
-      dst = f.x + l * f.x_r + row;
-      xs = dst;
-      ys = f.y + l * f.x_r + row;
-    }
-    long long x[kL], y[kL];
-    load_row(xs, x);
-    load_row(ys, y);
-    int x32[kL], y32[kL];
-    narrow32(x, x32);
-    narrow32(y, y32);
-    long long c[kW];
-    schoolbook(x32, y32, c);
-    if (is_mul) {
-      longlong2* d = reinterpret_cast<longlong2*>(dst);
+  __syncwarp();
+  const int* ylo = scr + 29 + k;
+  const int* yhi = scr + 58 + k;
+  long long l0 = 0, l1 = 0, h0 = 0, h1 = 0;
 #pragma unroll
-      for (int q = 0; q < kW / 2; ++q) d[q] = make_longlong2(c[2 * q], c[2 * q + 1]);
-    } else {
-      int wn[kW];
-      wide_norm32(c, wn);
-      int4* d = reinterpret_cast<int4*>(dst);
+  for (int i = 0; i < kL; i += 2) {
+    l0 = mad_wide_s32(scr[i], ylo[-i], l0);
+    h0 = mad_wide_s32(scr[i], yhi[-i], h0);
+    l1 = mad_wide_s32(scr[i + 1], ylo[-i - 1], l1);
+    h1 = mad_wide_s32(scr[i + 1], yhi[-i - 1], h1);
+  }
+  lo = l0 + l1;
+  hi = h0 + h1;
+}
+
+// wide_norm32 of a leaf's columns across the group: column j takes the
+// carry of column j - 1 (lane k - 1's, or lane 13's low column for column
+// 14), column 27 keeps its own overflow; two rounds in int64, one in int32.
+__device__ __forceinline__ void group_wide_norm(long long lo, long long hi, int k, int& wlo,
+                                                int& whi) {
+  const int src = k ? k - 1 : kL - 1;
 #pragma unroll
-      for (int q = 0; q < kQuads; ++q)
-        d[q] = make_int4(wn[4 * q], wn[4 * q + 1], wn[4 * q + 2], wn[4 * q + 3]);
-    }
-  }
-  __syncthreads();
-
-  // (C) products' gamma sums, one item per (product, column, lane)
-  if (n_bil) {
-    const int per = nl * kW;
-    for (int i = tid; i < n_bil * per; i += nt) {
-      const int k = i / per, r = i - k * per, l = r / kW, col = r - l * kW;
-      const int* w = bil + k * kWords;
-      FQ_PROGRAM_KIND(w[0] - kBil, gamma_col, (f.x + l * f.x_r + w[2] * kL,
-                                               f.g + l * f.g_r + w[3] * kWPitch, col))
-    }
-    __syncthreads();
-  }
-
-  // (D) REDCs: a multiply's row (and is_zero's compare), one item per (op,
-  // lane); a product's output rows, one per (product, output, lane)
-  int redc_items = 0;
-  for (int k = 0; k < n_bil; ++k) redc_items += nl * kShapes[bil[k * kWords] - kBil].R;
-  for (int i = tid; i < mul_items + redc_items; i += nt) {
-    const long long* src;
-    long long* R;
-    const int* w;
-    int out_row, l;
-    if (i < mul_items) {
-      const int k = i / nl;
-      l = i - k * nl;
-      w = mul + k * kWords;
-      R = f.regs + l * f.reg_r;
-      src = f.g + l * f.g_r + w[6] * kWPitch;
-      out_row = w[1];
+  for (int r = 0; r < 2; ++r) {
+    const long long hl = lo >> kB, hh = hi >> kB;
+    lo &= kMask;
+    hi &= kMask;
+    const long long pl = __shfl_sync(kFull, hl, src, kGroup);
+    const long long ph = __shfl_sync(kFull, hh, src, kGroup);
+    if (k) {
+      lo += pl;
+      hi += ph;
     } else {
-      int j = i - mul_items;
-      const int k = product_of(bil, nl, j, [](const KindShape& s) { return s.R; });
-      w = bil + k * kWords;
-      const KindShape s = kShapes[w[0] - kBil];
-      l = j / s.R;
-      const int r = j - l * s.R;
-      R = f.regs + l * f.reg_r;
-      src = f.g + l * f.g_r + (w[3] + r) * kWPitch;
-      out_row = p.pool[w[1] + s.Ca + s.Cb + r];
+      hi += pl;
     }
-    long long c[kW];
-    load_row(src, c);
-    long long res[kL];
-    redc(c, res);
-    if (w[0] != kIsz) {
-      store_row(R + out_row * kL, res);
-    } else {
+    if (k == kL - 1) hi += hh * kRadix;
+  }
+  int a = static_cast<int>(lo), b = static_cast<int>(hi);
+  const int hl = a >> kB, hh = b >> kB;
+  a &= static_cast<int>(kMask);
+  b &= static_cast<int>(kMask);
+  const int pl = __shfl_sync(kFull, hl, src, kGroup);
+  const int ph = __shfl_sync(kFull, hh, src, kGroup);
+  unsigned ua = static_cast<unsigned>(a), ub = static_cast<unsigned>(b);
+  if (k) {
+    ua += static_cast<unsigned>(pl);
+    ub += static_cast<unsigned>(ph);
+  } else {
+    ub += static_cast<unsigned>(pl);
+  }
+  if (k == kL - 1) ub += static_cast<unsigned>(hh) << kB;
+  wlo = static_cast<int>(ua);
+  whi = static_cast<int>(ub);
+}
+
+// n carry rounds of a row held a limb a lane (int64), as a loop.
+__device__ __forceinline__ long long group_rounds(long long o, int k, int n) {
 #pragma unroll 1
-      for (int s = 0; s < kNormFull; ++s) carry_round(res);
-      const long long* qp = R + w[4] * kL;
-      const long long* qn = R + w[5] * kL;
-      bool z = true, eq = true, en = true;
-#pragma unroll
-      for (int s = 0; s < kL; ++s) {
-        z = z && res[s] == 0;
-        eq = eq && res[s] == qp[s];
-        en = en && res[s] == qn[s];
-      }
-      f.flags[l * f.flag_r + out_row] = z || eq || en;
-    }
+  for (int r = 0; r < n; ++r) {
+    const long long h = o >> kB;
+    o &= kMask;
+    const long long c = __shfl_up_sync(kFull, h, 1, kGroup);
+    if (k) o += c;
+    if (k == kL - 1) o += h * kRadix;
   }
-  __syncthreads();
+  return o;
 }
 
+// redc() of a wide row c[0..27] (16-byte aligned), limb k of the result.
+// Every lane makes the 14 digits from the low columns (redc()'s low
+// triangle), then adds m_i q_{14+k-i} to its own column 14 + k (the q
+// table is q's limbs then zeros, so the terms with i <= k add 0); lane 0
+// adds the last carry. The columns, digits and carry are redc()'s
+// integers.
+__device__ __forceinline__ long long group_redc(const long long* c, int k, const unsigned* qs) {
+  long long lc[kL];
+  load_row(c, lc);
+  unsigned m[kL];
+  long long carry = 0;
+#pragma unroll
+  for (int i = 0; i < kL; ++i) {
+    const long long v = lc[i] + carry;
+    m[i] = (static_cast<unsigned>(v) * static_cast<unsigned>(kQinvNeg)) &
+           static_cast<unsigned>(kMask);
+    carry = mad_wide_u32(m[i], static_cast<unsigned>(kQ[0]), v) >> kB;
+#pragma unroll
+    for (int j = 1; i + j < kL; ++j)
+      lc[i + j] = mad_wide_u32(m[i], static_cast<unsigned>(kQ[j]), lc[i + j]);
+  }
+  long long o = c[kL + k];
+#pragma unroll
+  for (int i = 0; i < kL; ++i) o = mad_wide_u32(m[i], qs[kL + k - i], o);
+  if (k == 0) o += carry;
+  return group_rounds(o, k, 3);
+}
+
+// One thread's multiply or leaf (phase B), the Miller kernel's: csrc/
+// fq_arith.cuh's narrow32, schoolbook and wide_norm32, as the chain kernel
+// runs them (its REDC in phase D is fq_arith.cuh's redc).
+__device__ __forceinline__ void thread_schoolbook(const long long* xs, const long long* ys,
+                                                  long long* dst, bool is_mul) {
+  long long x[kL], y[kL];
+  load_row(xs, x);
+  load_row(ys, y);
+  int x32[kL], y32[kL];
+  narrow32(x, x32);
+  narrow32(y, y32);
+  long long c[kW];
+  schoolbook(x32, y32, c);
+  if (is_mul) {
+    store_row(dst, c);
+  } else {
+    int wn[kW];
+    wide_norm32(c, wn);
+    int4* d = reinterpret_cast<int4*>(dst);
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q)
+      d[q] = make_int4(wn[4 * q], wn[4 * q + 1], wn[4 * q + 2], wn[4 * q + 3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// A bundle
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void phase_sync(int nw) {
+  if (nw == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync 1, %0;\n" ::"r"(nw * 32) : "memory");
+  }
+}
+
+// i / d for the block's few divisors (d <= 2^16, i < 2^16): one wide
+// multiply by ceil(2^32 / d), made once a block, instead of a division.
+struct Div {
+  unsigned long long m;
+  __device__ explicit Div(int d) : m(((1ULL << 32) + d - 1) / static_cast<unsigned>(d)) {}
+  __device__ __forceinline__ int operator()(int i) const {
+    return static_cast<int>((static_cast<unsigned long long>(static_cast<unsigned>(i)) * m) >> 32);
+  }
+};
+
+// The block's lanes: their count, and division by it and by 28 times it.
+struct Lanes {
+  int n;
+  Div by_n, by_row;
+};
+
+// Phase B's item gi (multiplies first, then leaves): its operand rows and
+// where its columns go; true for a multiply.
+__device__ __forceinline__ bool b_item(int gi, int mul_items, const int* mul,
+                                       const int* leaf_tab, const Smem& s, const Lanes& ln,
+                                       const long long*& xs, const long long*& ys,
+                                       long long*& dst) {
+  const int nl = ln.n;
+  if (gi < mul_items) {
+    const int o = ln.by_n(gi), l = gi - o * nl;
+    const int4 w = reinterpret_cast<const int4*>(mul + o * kWords)[0];
+    const long long* R = s.regs + l * s.reg_r;
+    xs = R + w.z * kL;
+    ys = R + w.w * kL;
+    dst = s.g + l * s.g_r + mul[o * kWords + 6] * kWPitch;
+    return true;
+  }
+  const int j = gi - mul_items, q = ln.by_n(j), l = j - q * nl;
+  const int row = leaf_tab[q] * kL;
+  dst = s.x + l * s.x_r + row;
+  xs = dst;
+  ys = s.y + l * s.x_r + row;
+  return false;
+}
+
+// Phase D's item gi (the multiplies' REDCs, then the products' outputs):
+// its wide row, the lane's register file, the output row and the lane;
+// for a multiply its op words too (true).
+__device__ __forceinline__ bool d_item(int gi, int mul_items, const int* mul,
+                                       const int* out_tab, const Smem& s, const Lanes& ln,
+                                       const long long*& src, long long*& R, const int*& w,
+                                       int& out_row, int& l) {
+  const int nl = ln.n;
+  if (gi < mul_items) {
+    const int o = ln.by_n(gi);
+    l = gi - o * nl;
+    w = mul + o * kWords;
+    src = s.g + l * s.g_r + w[6] * kWPitch;
+    out_row = w[1];
+    R = s.regs + l * s.reg_r;
+    return true;
+  }
+  const int j = gi - mul_items, q = ln.by_n(j);
+  l = j - q * nl;
+  const int e = out_tab[q];
+  w = mul;
+  src = s.g + l * s.g_r + (e >> 16) * kWPitch;
+  out_row = e & 0xFFFF;
+  R = s.regs + l * s.reg_r;
+  return false;
+}
+
+// One bundle (its record in shared memory) over the block's lanes, on
+// the consumer warps. Thread items, i = tid, tid + threads, ...: an op's
+// lanes side by side; group items likewise by group. Phases A and E run
+// the same code (the pass loop), so the linear ops' instructions are
+// fetched once a bundle.
+template <bool kGroups>
+__device__ __forceinline__ void bundle(const int* rec, const Smem& s, const Lanes& ln,
+                                       int warps, long long* st) {
+  const int nl = ln.n;
+  const int n_a = rec[1], n_m = rec[2], n_p = rec[3], n_e = rec[4];
+  const int n_leaf = rec[5], n_out = rec[6];
+  const int* lin = rec + kHdr;
+  const int* mul = lin + n_a * kWords;
+  const int* bil = mul + n_m * kWords;
+  const int* lin_e = bil + n_p * kWords;
+  const int* leaf_tab = lin_e + n_e * kWords;
+  const int* out_tab = leaf_tab + n_leaf;
+  const int items_a = (n_a + n_p * 2 * kL) * nl, items_b = (n_m + n_leaf) * nl;
+  const int items_c = n_p * kW * nl, items_d = (n_m + n_out) * nl, items_e = n_e * nl;
+  const int per_item = kGroups ? kGroup : 1;   // threads of a schoolbook or REDC
+  const int need = max(max(items_a, items_c), max(items_e, per_item * max(items_b, items_d)));
+  const int nw = max(1, min(warps, (need + 31) >> 5));
+  const int tid = threadIdx.x;
+  if ((tid >> 5) >= nw) return;
+  const int nt = nw * 32, groups = nw * 2;
+  const int warp = tid >> 5, half = (tid >> 4) & 1, lane = tid & 15, k = min(lane, kL - 1);
+  int* scr = s.scr + (tid >> 4) * kScrWords;
+  const int mul_items = n_m * nl;
+
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {
+      if (st) st[2] = clock64();
+      bool open = items_a > 0;       // a phase ran since the last barrier
+      if (n_m + n_p) {
+        if (open) phase_sync(nw);
+        // (B) a multiply's schoolbook into its wide row, a leaf's
+        // wide-normalized int32 columns over its own x row. Groups (the
+        // ladder): one per (item, lane); a warp's two groups take items base
+        // and base + 1, and where base + 1 is past the end the second repeats
+        // the first's item and stores nothing, so both always run group code
+        // together (full-warp shuffles). Threads (the Miller loop): one per
+        // (item, lane).
+        if constexpr (kGroups) {
+          for (int base = warp * 2; base < items_b; base += nw * 2) {
+            const bool own = base + half < items_b;
+            const int gi = own ? base + half : base;
+            const long long *xs, *ys;
+            long long* dst;
+            const bool is_mul = b_item(gi, mul_items, mul, leaf_tab, s, ln, xs, ys, dst);
+            long long lo, hi;
+            group_schoolbook(xs, ys, scr, lane, k, lo, hi);
+            int wlo, whi;
+            group_wide_norm(lo, hi, k, wlo, whi);
+            if (own && lane < kL) {
+              if (is_mul) {
+                dst[lane] = lo;
+                dst[kL + lane] = hi;
+              } else {
+                reinterpret_cast<int*>(dst)[lane] = wlo;
+                reinterpret_cast<int*>(dst)[kL + lane] = whi;
+              }
+            }
+          }
+        } else {
+          for (int gi = tid; gi < items_b; gi += nt) {
+            const long long *xs, *ys;
+            long long* dst;
+            const bool is_mul = b_item(gi, mul_items, mul, leaf_tab, s, ln, xs, ys, dst);
+            thread_schoolbook(xs, ys, dst, is_mul);
+          }
+        }
+        phase_sync(nw);
+        if (st) st[3] = clock64();
+
+        // (C) products' gamma sums, one item per (product, column, lane)
+        if (n_p) {
+          for (int i = tid; i < items_c; i += nt) {
+            const int o = ln.by_row(i), r = i - o * nl * kW, l = r / kW, col = r - l * kW;
+            const int* w = bil + o * kWords;
+            FQ_PROGRAM_KIND(w[0] - kBil, gamma_col, (s.x + l * s.x_r + w[2] * kL,
+                                                     s.g + l * s.g_r + w[3] * kWPitch, col))
+          }
+          phase_sync(nw);
+        }
+        if (st) st[4] = clock64();
+
+        // (D) REDCs: a multiply's row (and is_zero's compare), a product's
+        // output rows; by groups (items dealt as in (B)) or by threads
+        if constexpr (kGroups) {
+          for (int base = warp * 2; base < items_d; base += nw * 2) {
+            const bool own = base + half < items_d;
+            const int gi = own ? base + half : base;
+            const long long* src;
+            long long* R;
+            const int* w;
+            int out_row, l;
+            const bool is_mul = d_item(gi, mul_items, mul, out_tab, s, ln, src, R, w, out_row, l);
+            const bool isz = own && is_mul && w[0] == kIsz;
+            const long long o = group_redc(src, k, s.qs);
+            if (own && !isz && lane < kL) R[out_row * kL + lane] = o;
+            if (__any_sync(kFull, isz)) {
+              // is_zero: NORM_FULL rounds more, then the three patterns, each
+              // group's vote read from its half of the ballot
+              const long long y = group_rounds(o, k, kNormFull);
+              const long long* qp = R + (isz ? w[4] : 0) * kL;
+              const long long* qn = R + (isz ? w[5] : 0) * kL;
+              const bool in = lane < kL;
+              const int sh = tid & 16;
+              const unsigned z = __ballot_sync(kFull, !in || y == 0) >> sh & 0xFFFFu;
+              const unsigned eq = __ballot_sync(kFull, !in || y == qp[k]) >> sh & 0xFFFFu;
+              const unsigned en = __ballot_sync(kFull, !in || y == qn[k]) >> sh & 0xFFFFu;
+              if (isz && lane == 0)
+                s.flags[l * s.flag_r + out_row] = z == 0xFFFFu || eq == 0xFFFFu || en == 0xFFFFu;
+            }
+          }
+        } else {
+          for (int gi = tid; gi < items_d; gi += nt) {
+            const long long* src;
+            long long* R;
+            const int* w;
+            int out_row, l;
+            const bool is_mul = d_item(gi, mul_items, mul, out_tab, s, ln, src, R, w, out_row, l);
+            long long c[kW];
+            load_row(src, c);
+            long long res[kL];
+            redc(c, res);
+            if (!is_mul || w[0] != kIsz) {
+              store_row(R + out_row * kL, res);
+            } else {
+#pragma unroll 1
+              for (int r = 0; r < kNormFull; ++r) carry_round(res);
+              const long long* qp = R + w[4] * kL;
+              const long long* qn = R + w[5] * kL;
+              bool z = true, eq = true, en = true;
+#pragma unroll
+              for (int j = 0; j < kL; ++j) {
+                z = z && res[j] == 0;
+                eq = eq && res[j] == qp[j];
+                en = en && res[j] == qn[j];
+              }
+              s.flags[l * s.flag_r + out_row] = z || eq || en;
+            }
+          }
+        }
+        open = true;
+      } else if (st) {
+        st[3] = st[4] = clock64();
+      }
+      if (items_e && open) phase_sync(nw);
+      if (st) st[5] = clock64();
+    }
+    // (A) linear ops, one item per (op, lane), and the products' pre-sums,
+    // one per (product, operand, limb, lane); (E) linear ops on the
+    // bundle's own results
+    const int* ops = pass ? lin_e : lin;
+    const int lin_items = (pass ? n_e : n_a) * nl;
+    const int items = pass ? items_e : items_a;
+    for (int i = tid; i < items; i += nt) {
+      if (i < lin_items) {
+        const int o = ln.by_n(i), l = i - o * nl;
+        linear(ops + o * kWords, rec, s, s.regs + l * s.reg_r, s.flags + l * s.flag_r);
+      } else {
+        const int j = i - lin_items;
+        const int o = ln.by_row(j), r = j - o * nl * 2 * kL, l = r / (2 * kL);
+        const int lt = r - l * 2 * kL;
+        const int* w = bil + o * kWords;
+        const bool is_b = lt >= kL;
+        const int t = is_b ? lt - kL : lt;
+        long long* x = s.x + l * s.x_r + w[2] * kL;
+        long long* y = s.y + l * s.x_r + w[2] * kL;
+        FQ_PROGRAM_KIND(w[0] - kBil, presum, (is_b, s.regs + l * s.reg_r, rec + w[1], t, x, y))
+      }
+    }
+  }
+  if (st) st[6] = clock64();
+}
+
+// The producer (lane 0 of the block's last warp): records 0 .. kRing - 1
+// first, then for each bundle b, once its record is in (for the header's
+// place of record b + kRing) and the consumers have released the slot,
+// record b + kRing into the same slot.
+__device__ __forceinline__ void produce(const Prog& p, const Smem& s) {
+  for (int r = 0; r < kRing && r < p.n_bundles; ++r)
+    fetch_record(s.ring + r * p.slot_words, p.records + p.ring0[2 * r], p.ring0[2 * r + 1],
+                 s.full + r);
+  for (int b = 0; b + kRing < p.n_bundles; ++b) {
+    const int slot = b % kRing;
+    const unsigned round = static_cast<unsigned>(b / kRing) & 1u;
+    int* rec = s.ring + slot * p.slot_words;
+    wait_bar(s.full + slot, round);
+    const int off = rec[kNextOff], words = rec[kNextWords];
+    wait_bar(s.empty + slot, round);
+    fetch_record(rec, p.records + off, words, s.full + slot);
+  }
+}
+
+template <bool kGroups>
 __device__ __forceinline__ void run_program(const Prog& p, const Io& io) {
-  extern __shared__ __align__(16) long long smem[];
-  const File f = file_of(smem, p, io.tile);
+  extern __shared__ __align__(16) char smem_raw[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warps = (nt >> 5) - 1;        // consumer warps; the last one produces
+  const Smem s = smem_of(smem_raw, p, io.tile, warps * 2 * kScrWords);
   const unsigned lane0 = blockIdx.x * static_cast<unsigned>(io.tile);
   const int nl = static_cast<int>(min(static_cast<unsigned>(io.tile), io.n - lane0));
-  const int tid = threadIdx.x, nt = blockDim.x;
   constexpr int kHalf = kL / 2;
 
-  // constants into every lane's registers; the inputs' rows (cp.async)
+  if (tid == 0) {
+    for (int r = 0; r < kRing; ++r) {
+      bar_init(s.full + r);
+      bar_init(s.empty + r);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // constants into every lane's registers; the inputs' rows (cp.async); the
+  // flags, the digits, the q table and the groups' exchange words
   for (int i = tid; i < nl * p.n_const * kHalf; i += nt) {
     const int row = i / kHalf, piece = i - row * kHalf;
     const int l = row / p.n_const, c = row - l * p.n_const;
-    reinterpret_cast<longlong2*>(f.regs + l * f.reg_r + p.const_regs[c] * kL)[piece] =
+    reinterpret_cast<longlong2*>(s.regs + l * s.reg_r + p.const_regs[c] * kL)[piece] =
         reinterpret_cast<const longlong2*>(p.consts + c * kL)[piece];
   }
   for (int g = 0; g < 2; ++g) {
@@ -401,44 +795,64 @@ __device__ __forceinline__ void run_program(const Prog& p, const Io& io) {
     for (int i = tid; i < nl * rows * kHalf; i += nt) {
       const int row = i / kHalf, piece = i - row * kHalf;
       const int l = row / rows, r = row - l * rows;
-      cp_async16(f.regs + l * f.reg_r + p.in_regs[g][r] * kL + 2 * piece,
+      cp_async16(s.regs + l * s.reg_r + p.in_regs[g][r] * kL + 2 * piece,
                  io.in[g] + (static_cast<long long>(lane0 + l) * rows + r) * kL + 2 * piece);
     }
   }
   for (int l = tid; l < nl; l += nt) {
-    int* Fl = f.flags + l * f.flag_r;
+    int* Fl = s.flags + l * s.flag_r;
     if (p.lane_flag >= 0) Fl[p.lane_flag] = io.lane_flags ? io.lane_flags[lane0 + l] != 0 : 0;
     if (p.uniform_flag >= 0) Fl[p.uniform_flag] = p.uniform_val;
   }
+  for (int i = tid; i < p.n_digits; i += nt) {
+    s.d_idx[i] = p.d_idx[i];
+    s.d_sign[i] = p.d_sign[i];
+  }
+  if (tid < kQWords) s.qs[tid] = tid < kL ? static_cast<unsigned>(kQ[tid]) : 0u;
+  for (int i = tid; i < warps * 2 * kScrWords; i += nt) s.scr[i] = 0;
   cp_async_wait_all();
   __syncthreads();
-  long long* stamp = (io.stamps != nullptr && blockIdx.x == 0 && tid == 0) ? io.stamps : nullptr;
-  if (stamp) stamp[0] = clock64();
 
-  for (int b = 0; b < p.n_bundles; ++b) {
-    bundle(p, f, b, nl);
-    if (stamp) stamp[1 + b] = clock64();
+  if ((tid >> 5) == warps) {
+    if ((tid & 31) == 0) produce(p, s);
+  } else {
+    const Lanes ln{nl, Div(nl), Div(nl * 2 * kL)};
+    long long* stamp =
+        (io.stamps != nullptr && blockIdx.x == 0 && tid == 0) ? io.stamps : nullptr;
+    for (int b = 0; b < p.n_bundles; ++b) {
+      const int slot = b % kRing;
+      long long* st = stamp ? stamp + b * kMarks : nullptr;
+      if (st) st[0] = clock64();
+      wait_bar(s.full + slot, static_cast<unsigned>(b / kRing) & 1u);
+      if (st) st[1] = clock64();
+      bundle<kGroups>(s.ring + slot * p.slot_words, s, ln, warps, st);
+      asm volatile("bar.sync 2, %0;\n" ::"r"(warps * 32) : "memory");
+      if (tid == (warps - 1) * 32) bar_arrive(s.empty + slot);   // off warp 0's path
+      if (st) st[7] = clock64();
+    }
+    if (stamp) stamp[p.n_bundles * kMarks] = clock64();
   }
+  __syncthreads();
 
   // the outputs: rows (16 bytes per thread), then the flag
   for (int i = tid; i < nl * p.out_rows * kHalf; i += nt) {
     const int row = i / kHalf, piece = i - row * kHalf;
     const int l = row / p.out_rows, r = row - l * p.out_rows;
     reinterpret_cast<longlong2*>(io.out + (static_cast<long long>(lane0) * p.out_rows) * kL)[i] =
-        reinterpret_cast<const longlong2*>(f.regs + l * f.reg_r + p.out_regs[r] * kL)[piece];
+        reinterpret_cast<const longlong2*>(s.regs + l * s.reg_r + p.out_regs[r] * kL)[piece];
   }
   if (p.out_flag >= 0 && io.out_flags != nullptr) {
     for (int l = tid; l < nl; l += nt)
-      io.out_flags[lane0 + l] = static_cast<unsigned char>(f.flags[l * f.flag_r + p.out_flag]);
+      io.out_flags[lane0 + l] = static_cast<unsigned char>(s.flags[l * s.flag_r + p.out_flag]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) g2_ladder_kernel(Prog p, Io io) {
-  run_program(p, io);
+__global__ void __launch_bounds__(kMaxThreads) g2_ladder_kernel(Prog p, Io io) {
+  run_program<true>(p, io);
 }
 
-__global__ void __launch_bounds__(kThreads) miller_grouped_kernel(Prog p, Io io) {
-  run_program(p, io);
+__global__ void __launch_bounds__(kMaxThreads) miller_grouped_kernel(Prog p, Io io) {
+  run_program<false>(p, io);
 }
 
 // ---------------------------------------------------------------------------
@@ -458,12 +872,26 @@ DeviceInfo g_devices[kMaxDevices];
 
 // The header's fields, in order (ops/fq_points.py::_HEADER).
 enum Field {
-  kCode, kConsts, kNBundles, kNConst, kNReg, kNFlag, kNX, kNG, kMaxItems,
-  kOffBundles, kOffOps, kOffPool, kOffConstRegs, kOffIn0, kOffIn1, kOffOut,
+  kCode, kConsts, kNBundles, kNConst, kNReg, kNFlag, kNX, kNG, kNDigits, kSlotWords,
+  kThreadsLane, kOffRecords, kOffRing0, kOffConstRegs, kOffIn0, kOffIn1, kOffOut,
   kInRows0, kInRows1, kOutRows, kLaneFlag, kUniformFlag, kUniformVal, kOutFlag,
   kDigitIdx, kDigitSign, kIn0, kIn1, kLaneFlags, kOut, kOutFlags, kLanes, kStamps,
   kHeaderLen
 };
+
+// Bytes of a block's shared memory before the lanes' files, at `threads`.
+long long fixed_bytes(const Prog& p, long long threads) {
+  return 4LL * kRing * p.slot_words + 16LL * kRing + 4LL * kQWords +
+         8LL * ((p.n_digits + 3) & ~3) + 4LL * kScrWords * ((threads - 32) / kGroup);
+}
+
+// Consumer warps for the widest phase (2 to 8), and the producer warp.
+long long threads_for(long long threads_lane, long long tile) {
+  long long t = ((threads_lane * tile + 31) / 32) * 32;
+  if (t < 64) t = 64;
+  if (t > kMaxThreads - 32) t = kMaxThreads - 32;
+  return t + 32;
+}
 
 int launch(int which, const long long* h, void* stream) {
   const long long n = h[kLanes];
@@ -486,9 +914,8 @@ int launch(int which, const long long* h, void* stream) {
   }
   const int* code = reinterpret_cast<const int*>(h[kCode]);
   Prog p;
-  p.bundles = code + h[kOffBundles];
-  p.ops = code + h[kOffOps];
-  p.pool = code + h[kOffPool];
+  p.records = code + h[kOffRecords];
+  p.ring0 = code + h[kOffRing0];
   p.const_regs = code + h[kOffConstRegs];
   p.in_regs[0] = code + h[kOffIn0];
   p.in_regs[1] = code + h[kOffIn1];
@@ -502,6 +929,8 @@ int launch(int which, const long long* h, void* stream) {
   p.nflag = static_cast<int>(h[kNFlag]);
   p.nx = static_cast<int>(h[kNX]);
   p.ng = static_cast<int>(h[kNG]);
+  p.n_digits = static_cast<int>(h[kNDigits]);
+  p.slot_words = static_cast<int>(h[kSlotWords]);
   p.in_rows[0] = static_cast<int>(h[kInRows0]);
   p.in_rows[1] = static_cast<int>(h[kInRows1]);
   p.out_rows = static_cast<int>(h[kOutRows]);
@@ -518,19 +947,21 @@ int launch(int which, const long long* h, void* stream) {
   io.n = static_cast<unsigned>(n);
   io.stamps = reinterpret_cast<long long*>(h[kStamps]);
 
+  if ((reinterpret_cast<unsigned long long>(p.records) & 15) || (p.slot_words & 3))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const long long per_lane = 8LL * (p.nreg * kL + 2 * p.nx * kL + p.ng * kWPitch) +
                              4LL * ((p.nflag + 3) & ~3);
-  if (per_lane > d.smem_optin) return static_cast<int>(cudaErrorInvalidValue);
   long long tile = (n + d.sms - 1) / d.sms;
-  const long long fit = kSmemTarget / per_lane > 0 ? kSmemTarget / per_lane : 1;
+  const long long room = kSmemTarget - fixed_bytes(p, kMaxThreads);
+  const long long fit = room / per_lane > 0 ? room / per_lane : 1;
   if (tile > fit) tile = fit;
   if (tile < 1) tile = 1;
   io.tile = static_cast<int>(tile);
-  long long threads = ((h[kMaxItems] * tile + 31) / 32) * 32;
-  if (threads < 64) threads = 64;
-  if (threads > kThreads) threads = kThreads;
+  const long long threads = threads_for(h[kThreadsLane], tile);
+  const long long bytes = fixed_bytes(p, threads) + per_lane * tile;
+  if (bytes > d.smem_optin) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>((n + tile - 1) / tile), static_cast<unsigned>(threads),
-           static_cast<size_t>(per_lane * tile), static_cast<cudaStream_t>(stream)>>>(p, io);
+           static_cast<size_t>(bytes), static_cast<cudaStream_t>(stream)>>>(p, io);
   return static_cast<int>(cudaGetLastError());
 }
 

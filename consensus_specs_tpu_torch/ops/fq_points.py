@@ -20,7 +20,14 @@ checks hold the kernel against). bls_torch routes CUDA tensors under
 fq_tower.DEVICE to the kernels and keeps its Python loops for CPU
 tensors and fq_tower.PLAIN; a kernel that does not build or launch
 raises. Each wrapper counts its launches (`ladder_counter`,
-`miller_counter`, lanes per launch).
+`miller_counter`, lanes per launch). `launch_shape` gives a launch's
+block and shared memory as the kernel sizes them; `bundle_clocks` reads
+block 0's cycles a bundle and phase.
+
+The split_* functions model, on the CPU, the ladder kernel's multiply on
+a 16-thread group (limb k and columns k, k + 14 on lane k, the REDC
+digits from the low columns, each lane's own high column), for the tests
+to hold against the plain field; nothing on a path calls them.
 """
 from __future__ import annotations
 
@@ -173,6 +180,33 @@ def bound_ms(prog: FP.Program, lanes: int, imad_per_s: float,
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+# csrc/fq_points.cu's launch constants
+_SMEM_TARGET, _SCR_WORDS, _Q_WORDS = 96 * 1024, 72, 32
+_MAX_CONSUMERS = 256              # threads, the producer warp aside
+
+
+def launch_shape(prog: FP.Program, lanes: int, sms: int = 132):
+    """(lanes a block, threads, shared bytes a block, the ring's bytes) of
+    a launch of `lanes` lanes on a card of `sms` SMs, as csrc/fq_points.cu's
+    launch() computes them: consumer warps for the widest phase (2 to 8)
+    and the producer warp; the ring of FP.RING slots of the largest
+    record, its full and empty mbarriers, the q table, the digits, 72
+    exchange words a 16-thread group, and per lane the register file,
+    leaf rows, wide rows and flags."""
+    per_lane = (8 * (prog.nreg * L + 2 * prog.nx * L + prog.ng * (2 * L + 2))
+                + 4 * ((prog.nflag + 3) & ~3))
+    ring = 4 * FP.RING * prog.slot_words
+
+    def fixed(threads):
+        return (ring + 16 * FP.RING + 4 * _Q_WORDS + 8 * ((prog.n_digits + 3) & ~3)
+                + 4 * _SCR_WORDS * ((threads - 32) // FP.GROUP))
+
+    tile = max(1, min(-(-lanes // sms),
+                      (_SMEM_TARGET - fixed(_MAX_CONSUMERS + 32)) // per_lane))
+    threads = min(_MAX_CONSUMERS, max(64, -(-prog.threads_lane * tile // 32) * 32)) + 32
+    return tile, threads, fixed(threads) + per_lane * tile, ring
+
+
 # ---------------------------------------------------------------------------
 # Plain twins
 # ---------------------------------------------------------------------------
@@ -204,6 +238,121 @@ def miller_grouped_plain(g1: torch.Tensor, g2: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# The ladder kernel's split multiply, modelled on the CPU
+# ---------------------------------------------------------------------------
+#
+# csrc/fq_points.cu's g2_ladder_kernel runs each multiply, leaf and REDC on
+# a group of 16 threads: lane k (0..13) holds limb k of a row and columns k
+# and k + 14 of a wide row. These functions do the same arithmetic on a
+# lane axis (the last axis, length 14), in the kernel's order and integer
+# widths, so the tests can hold the decomposition against fq_mul_plain /
+# fq_redc_plain before any card. The kernel's documented twin; nothing on
+# a path calls them.
+
+_LANE = np.arange(L)
+_ROT = (_LANE[:, None] - _LANE[None, :]) % L            # [k, i]: (k - i) mod 14
+_LOW = _LANE[None, :] <= _LANE[:, None]                 # [k, i]: i <= k
+_Q_PAD = np.concatenate([F.Q_LIMBS, np.zeros(2 * L + 4 - L, np.int64)])
+_Q_HIGH = _Q_PAD[L + _LANE[:, None] - _LANE[None, :]]    # [k, i]: q_{14+k-i}, 0 if i <= k
+
+
+def _wrap32(t: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of t as a signed int32 value (an int32 register)."""
+    return ((t + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _from_below(h: torch.Tensor) -> torch.Tensor:
+    """Lane k - 1's value at lane k (a shuffle up by one), 0 at lane 0."""
+    return torch.cat([torch.zeros_like(h[..., :1]), h[..., :-1]], dim=-1)
+
+
+def lane_round(t: torch.Tensor, int32: bool = False) -> torch.Tensor:
+    """One carry round of a row held a limb a lane: lane k keeps its low
+    29 bits plus lane k - 1's carry, lane 13 keeps its own overflow. With
+    int32, in 32-bit registers (every sum cut to 32 bits)."""
+    hi = t >> F.B
+    top = torch.zeros_like(t)
+    top[..., -1] = hi[..., -1] * (1 << F.B)
+    out = (t & F.MASK) + _from_below(hi) + top
+    return _wrap32(out) if int32 else out
+
+
+def split_narrow(a: torch.Tensor) -> torch.Tensor:
+    """narrow32 of a multiply operand by lanes: one round in int64, cut to
+    int32, two rounds in int32 -> [..., 14] int32 values (as int64)."""
+    x = _wrap32(lane_round(a))
+    return lane_round(lane_round(x, True), True)
+
+
+def split_columns(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The schoolbook by lanes: lane k sums x_i y_{(k-i) mod 14} into
+    column k where i <= k and into column k + 14 where i > k (the kernel
+    reads y from zero-padded copies, so every lane runs the same 28
+    multiply-adds) -> [..., 28] int64 columns."""
+    prod = x[..., None, :] * y[..., torch.as_tensor(_ROT)]        # [..., k, i]
+    low = torch.as_tensor(_LOW)
+    return torch.cat([(prod * low).sum(-1), (prod * ~low).sum(-1)], dim=-1)
+
+
+def split_wide_norm(cols: torch.Tensor) -> torch.Tensor:
+    """wide_norm32 by lanes: lane k holds columns k (lo) and k + 14 (hi);
+    column j takes column j - 1's carry (lane 0's hi takes lane 13's lo
+    carry), column 27 keeps its own overflow; two rounds in int64, one in
+    int32."""
+    lo, hi = cols[..., :L], cols[..., L:]
+    for r in range(3):
+        hl, hh = lo >> F.B, hi >> F.B
+        carry_hi = torch.cat([hl[..., -1:], hh[..., :-1]], dim=-1)
+        top = torch.zeros_like(hi)
+        top[..., -1] = hh[..., -1] * (1 << F.B)
+        lo = (lo & F.MASK) + _from_below(hl)
+        hi = (hi & F.MASK) + carry_hi + top
+        if r >= 1:                   # the int32 round runs on the cut values
+            lo, hi = _wrap32(lo), _wrap32(hi)
+    return torch.cat([lo, hi], dim=-1)
+
+
+def split_redc(cols: torch.Tensor) -> torch.Tensor:
+    """redc() by lanes: the 14 digits one after another from the low 14
+    columns (every lane makes them; the low triangle of the reduction),
+    then lane k adds m_i q_{14+k-i} to its column 14 + k (zero for i <=
+    k), lane 0 adds the last carry, and three carry rounds run across the
+    lanes -> [..., 14] limbs."""
+    low = cols[..., :L].clone()
+    digits = []
+    carry = torch.zeros_like(low[..., 0])
+    q = [int(v) for v in F.Q_LIMBS]
+    for i in range(L):
+        v = low[..., i] + carry
+        m = ((v & 0xFFFFFFFF) * F.QINV_NEG) & F.MASK
+        carry = (m * q[0] + v) >> F.B
+        for j in range(1, L - i):
+            low[..., i + j] += m * q[j]
+        digits.append(m)
+    m = torch.stack(digits, dim=-1)                                 # [..., i]
+    out = cols[..., L:] + (m[..., None, :] * torch.as_tensor(_Q_HIGH)).sum(-1)
+    out[..., 0] += carry
+    for _ in range(3):
+        out = lane_round(out)
+    return out
+
+
+def split_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A multiply as the kernel's group runs it: fq_mul_plain's integers."""
+    return split_redc(split_columns(split_narrow(a), split_narrow(b)))
+
+
+def split_bilinear(av: torch.Tensor, bv: torch.Tensor, tables: F.Bilinear) -> torch.Tensor:
+    """A program's tower product (no norm_in, no one_col) as the kernel
+    runs it: each leaf by a group (narrow, columns, wide norm), the gamma
+    sums, each output's REDC by a group: fq_bilinear_plain's integers."""
+    alpha, beta, gamma = tables
+    leaves = split_wide_norm(split_columns(split_narrow(alpha.apply(av)),
+                                           split_narrow(beta.apply(bv))))
+    return split_redc(gamma.apply(leaves))
+
+
+# ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
 
@@ -211,11 +360,11 @@ ladder_counter = _Counter()       # lanes per launch
 miller_counter = _Counter()       # keyed (groups, pairs)
 
 _HEADER = ("code", "consts", "n_bundles", "n_const", "nreg", "nflag", "nx", "ng",
-           "max_items", "off_bundles", "off_ops", "off_pool", "off_const_regs",
-           "off_in0", "off_in1", "off_out", "in_rows0", "in_rows1", "out_rows",
-           "lane_flag", "uniform_flag", "uniform_val", "out_flag", "digit_idx",
-           "digit_sign", "in0", "in1", "lane_flags", "out", "out_flags", "lanes",
-           "stamps")
+           "n_digits", "slot_words", "threads_lane", "off_records", "off_ring0",
+           "off_const_regs", "off_in0", "off_in1", "off_out", "in_rows0", "in_rows1",
+           "out_rows", "lane_flag", "uniform_flag", "uniform_val", "out_flag",
+           "digit_idx", "digit_sign", "in0", "in1", "lane_flags", "out", "out_flags",
+           "lanes", "stamps")
 _fns: Dict[str, object] = {}
 
 
@@ -282,13 +431,12 @@ def _launch(name: str, prog: FP.Program, dev: torch.device, n: int, ins,
            "digit_sign": 0 if digits is None else digits[1].data_ptr(),
            "stamps": 0 if stamps is None else stamps.data_ptr(),
            "in_rows0": prog.in_rows[0], "in_rows1": prog.in_rows[1]}
-    for k in ("n_bundles", "n_const", "nreg", "nflag", "nx", "ng", "max_items",
-              "out_rows", "lane_flag", "uniform_flag", "out_flag"):
+    for k in ("n_bundles", "n_const", "nreg", "nflag", "nx", "ng", "n_digits",
+              "slot_words", "threads_lane", "out_rows", "lane_flag", "uniform_flag",
+              "out_flag"):
         ptr[k] = getattr(prog, k)
     for k, v in prog.offsets.items():
-        ptr[{"bundles": "off_bundles", "ops": "off_ops", "pool": "off_pool",
-             "const_regs": "off_const_regs", "in0": "off_in0", "in1": "off_in1",
-             "out": "off_out"}[k]] = v
+        ptr["off_" + k] = v
     header = (ctypes.c_longlong * len(_HEADER))(*(int(ptr[k]) for k in _HEADER))
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
@@ -342,10 +490,21 @@ def miller_grouped_cuda(g1: torch.Tensor, g2: torch.Tensor, stamps=None) -> torc
     return out.reshape(G, 2, 3, 2, L)
 
 
-def bundle_clocks(fn, prog: FP.Program, dev) -> np.ndarray:
-    """[n_bundles] SM clock cycles of each bundle in block 0 of one launch
-    (fn(stamps) launches it with a stamp buffer). A measurement: the
-    launch is counted by its wrapper like any other."""
-    stamps = torch.zeros(1 + prog.n_bundles, dtype=torch.int64, device=dev)
+STAMPS = 8          # clock stamps a bundle (csrc/fq_points.cu kMarks)
+PHASES = ("wait", "A", "B", "C", "D", "E", "barrier", "fetch")
+
+
+def bundle_clocks(fn, prog: FP.Program, dev):
+    """Block 0's SM clock cycles in one launch (fn(stamps) launches it
+    with a stamp buffer): ([n_bundles] cycles of each bundle, [n_bundles,
+    8] its split: the wait for its record, phases A to E (each with its
+    barrier), the bundle's last barrier, the producer's fetch of the
+    record RING on). A measurement: the launch is counted by its wrapper
+    like any other."""
+    stamps = torch.zeros(prog.n_bundles * STAMPS + 1, dtype=torch.int64, device=dev)
     fn(stamps)
-    return np.diff(stamps.cpu().numpy())
+    st = stamps.cpu().numpy()
+    marks = st[:-1].reshape(-1, STAMPS)
+    nxt = np.append(marks[1:, 0], st[-1])
+    split = np.diff(np.concatenate([marks, nxt[:, None]], axis=1), axis=1)
+    return nxt - marks[:, 0], split

@@ -28,13 +28,20 @@ mutually independent ops changes no bit: a program computes what the
 recorded formulas compute, limb for limb.
 
 Compiling a recording: dead ops are dropped; every op goes to the first
-bundle after those of its inputs (no earlier than the bundle of the op
-LOOKAHEAD ops before it, which bounds how far ahead loads and line
-coefficients run, and into a later one where the bundle's scratch is
-full); rows and flags get registers by liveness (lowest free first, a
-bundle's outputs never on a register it reads). The program: per bundle
-its op counts (linear ops, multiplies, tower products) and first op;
-per op eight int32 words; a pool of row lists; the constant rows.
+phase its inputs allow. A bundle runs five phases (csrc/fq_points.cu): A
+linear ops and the tower products' pre-sums, B schoolbooks, C gamma
+sums, D REDCs, E linear ops. So a multiply reads phase A's results of
+its own bundle, and the lazy add, sub, neg, select and load that follow
+a REDC run in phase E of the REDC's bundle instead of opening one of
+their own. No op goes earlier than the bundle of the op LOOKAHEAD ops
+before it (which bounds how far ahead loads and line coefficients run),
+nor into a bundle whose scratch is full. Rows and flags get registers by
+liveness over phases (lowest free first; a register is free again only
+after the phase of its last read). The program: one self-contained
+record per bundle (header, eight int32 words per op, each leaf's and
+each REDC's scratch row, the register lists of loads and products
+inline), the first records' places, the register maps and the constant
+rows.
 """
 from __future__ import annotations
 
@@ -62,8 +69,22 @@ LINEAR = {"add": ADD, "sub": SUB, "neg": NEG, "norm": NORM, "sel": SEL,
 MULTIPLY = {"mul": MUL, "isz": ISZ}
 
 LOOKAHEAD = 192                # ops an op may be hoisted above
-MAX_LEAVES = 64                # leaf rows (x and y each) of one bundle
-MAX_WIDE = 32                  # wide rows of one bundle
+MAX_LEAVES = 128               # leaf rows (x and y each) of one bundle
+MAX_WIDE = 64                  # wide rows of one bundle
+
+# A bundle's phases, in order: A linear ops and the tower products'
+# pre-sums, B schoolbooks, C gamma sums, D REDCs, E linear ops that read
+# the bundle's own results. A phase time is NPH * bundle + phase.
+PH_A, PH_B, PH_C, PH_D, PH_E = range(5)
+NPH = 5
+GROUP = 16                     # threads of one schoolbook or REDC (a half-warp)
+RING = 8                       # bundle records in flight in the kernel's ring
+# A record's header, HDR int32 words: its length in words (a multiple of
+# 4), the counts (linear ops in A, multiplies, tower products, linear ops
+# in E, leaves, product outputs), then the place of the record RING on
+# (offset and words in the records section; 0 words at the end).
+HDR = 12
+REC_WORDS, REC_NEXT_OFF, REC_NEXT_WORDS = 0, 7, 8
 
 
 # ---------------------------------------------------------------------------
@@ -363,22 +384,35 @@ class FieldOps:
 # ---------------------------------------------------------------------------
 
 class Program:
-    """A compiled recording. `code` holds, in int32: bundles [nb, 4]
-    (linear ops, multiplies, tower products, first op), ops [nops, 8],
-    the row pool, then the register maps (constants, inputs 0 and 1,
-    outputs); `consts` [n_const, 14] int64 the constant rows."""
+    """A compiled recording. `code` holds, in int32: the bundle records
+    (offset 0, each 16-byte aligned), the first RING records' (offset,
+    words), then the register maps (constants, inputs 0 and 1, outputs);
+    `consts` [n_const, 14] int64 the constant rows. `bundles` [nb, 4]:
+    each bundle's linear ops in phase A, multiplies, tower products and
+    linear ops in phase E. `ops`, `op_bundle`, `op_phase` and `reg` are
+    the compiled schedule (ops with value ids, each op's bundle and phase
+    class, value -> register), which decode() gives back from `code`;
+    `staged` the values written before the first bundle (inputs,
+    constants, flags), `roots` the output values. `slot_words` is the
+    largest record, `threads_lane` the threads a lane's widest phase asks
+    for with 16-thread groups."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
 
     def describe(self) -> dict:
         """Counts of the compiled program (ops by class, bundles by what
-        they hold, registers, scratch rows)."""
+        they hold, registers, scratch rows, record sizes)."""
+        b = self.bundles
         return {"ops": self.n_ops, "bundles": self.n_bundles,
-                "product_bundles": self.product_bundles, "muls": self.n_mul,
-                "products": self.n_bil, "leaves": self.n_leaves,
-                "redcs": self.n_redc, "linear": self.n_lin, "registers": self.nreg,
-                "flags": self.nflag, "leaf_rows": self.nx, "wide_rows": self.ng}
+                "product_bundles": self.product_bundles,
+                "linear_only": int(((b[:, 1] + b[:, 2]) == 0).sum()),
+                "phase_e_bundles": int(((b[:, 3] > 0) & ((b[:, 1] + b[:, 2]) > 0)).sum()),
+                "muls": self.n_mul, "products": self.n_bil, "leaves": self.n_leaves,
+                "redcs": self.n_redc, "linear": self.n_lin,
+                "linear_e": int(b[:, 3].sum()), "registers": self.nreg,
+                "flags": self.nflag, "leaf_rows": self.nx, "wide_rows": self.ng,
+                "record_words_max": self.slot_words, "code_words": int(self.code.shape[0])}
 
 
 def _dce(rec: Recorder, outs: Sequence[int]) -> List[tuple]:
@@ -391,65 +425,103 @@ def _dce(rec: Recorder, outs: Sequence[int]) -> List[tuple]:
     return keep[::-1]
 
 
-def _class_of(name: str) -> int:
-    return 2 if name == "bil" else 1 if name in MULTIPLY else 0
+def _class_of(name: str) -> str:
+    """The op's class in a record: "P" tower product, "M" multiply, "L"
+    linear (its phase, A or E, is the schedule's)."""
+    return "P" if name == "bil" else "M" if name in MULTIPLY else "L"
+
+
+def _schedule(ops: List[tuple]) -> Tuple[List[int], List[str]]:
+    """Each op's bundle and phase class ("A", "M", "P", "E"), as early as
+    its inputs allow: phase times t = NPH * bundle + phase; a linear op
+    runs in phase A or E after its inputs' writes, a multiply reads in B
+    (so a phase-A result feeds it in the same bundle), a tower product's
+    pre-sums read in A (its inputs come from an earlier bundle); products
+    write in D. No op is placed before the bundle of the op LOOKAHEAD
+    ops before it, nor into a bundle whose leaf or wide scratch is full.
+    Bundles are numbered densely."""
+    ready: Dict[int, int] = {}
+    bundle, phase = [0] * len(ops), [""] * len(ops)
+    used_x: Dict[int, int] = {}
+    used_g: Dict[int, int] = {}
+    for i, (name, dsts, srcs, aux) in enumerate(ops):
+        r = max([ready.get(s, -1) for s in srcs] + [-1])
+        lo = bundle[i - LOOKAHEAD] if i >= LOOKAHEAD else 0
+        cls = _class_of(name)
+        if cls == "L":
+            t = max(r + 1, NPH * lo)
+            if t % NPH not in (PH_A, PH_E):
+                t += PH_E - t % NPH
+            b, ph, done = t // NPH, "A" if t % NPH == PH_A else "E", t
+        else:
+            if cls == "P":
+                tab = T.TABLES[aux]
+                need_x, need_g = tab.P, tab.R
+                b = max(lo, r // NPH + 1)
+            else:
+                need_x, need_g = 0, 1
+                b = max(lo, (r - PH_B) // NPH + 1)
+            while (used_x.get(b, 0) + need_x > MAX_LEAVES
+                   or used_g.get(b, 0) + need_g > MAX_WIDE):
+                b += 1
+            used_x[b] = used_x.get(b, 0) + need_x
+            used_g[b] = used_g.get(b, 0) + need_g
+            ph, done = cls, NPH * b + PH_D
+        bundle[i], phase[i] = b, ph
+        for d in dsts:
+            ready[d] = done
+    dense = {b: k for k, b in enumerate(sorted(set(bundle)))}
+    return [dense[b] for b in bundle], phase
+
+
+def _times(name: str, b: int, ph: str, nsrc: int):
+    """(write time, read time of each source) of an op in bundle b."""
+    base = NPH * b
+    if ph in ("A", "E"):
+        t = base + (PH_A if ph == "A" else PH_E)
+        return t, [t] * nsrc
+    if ph == "P":
+        return base + PH_D, [base + PH_A] * nsrc
+    reads = [base + PH_B] * nsrc
+    if name == "isz":          # the q and -q patterns are compared in D
+        reads[2:] = [base + PH_D] * (nsrc - 2)
+    return base + PH_D, reads
 
 
 def _compile(rec: Recorder, outs: List[int], out_flag: Optional[int],
              n_digits: int) -> Program:
     roots = outs + ([] if out_flag is None else [out_flag])
     ops = _dce(rec, roots)
-    n = len(ops)
+    op_bundle, op_phase = _schedule(ops)
+    n_bundles = max(op_bundle) + 1 if ops else 0
 
-    # -- schedule --------------------------------------------------------------
-    level_of: Dict[int, int] = {}       # value -> level of its defining op
-    op_level = [0] * n
-    used_x: List[int] = []
-    used_g: List[int] = []
-    for i, (name, dsts, srcs, aux) in enumerate(ops):
-        e = max([level_of.get(s, -1) + 1 for s in srcs] + [0])
-        if i >= LOOKAHEAD:
-            e = max(e, op_level[i - LOOKAHEAD])
-        if name == "bil":
-            t = T.TABLES[aux]
-            need_x, need_g = t.P, t.R
-        elif name in MULTIPLY:
-            need_x, need_g = 0, 1
-        else:
-            need_x = need_g = 0
-        lv = e
-        while True:
-            while len(used_x) <= lv:
-                used_x.append(0)
-                used_g.append(0)
-            if used_x[lv] + need_x <= MAX_LEAVES and used_g[lv] + need_g <= MAX_WIDE:
-                break
-            lv += 1
-        used_x[lv] += need_x
-        used_g[lv] += need_g
-        op_level[i] = lv
+    # -- registers: a value holds its register from its write to its last
+    # read (phase times, both ends included); a register is free again only
+    # after the phase of its last read
+    written: Dict[int, int] = {}
+    last: Dict[int, int] = {}
+    for (name, dsts, srcs, _), b, ph in zip(ops, op_bundle, op_phase):
+        w, reads = _times(name, b, ph, len(srcs))
         for d in dsts:
-            level_of[d] = lv
-    n_levels = max(op_level) + 1 if n else 0
-
-    last_use: Dict[int, int] = {}
-    for i, (_, _, srcs, _) in enumerate(ops):
-        for s in srcs:
-            last_use[s] = max(last_use.get(s, -1), op_level[i])
-    end = n_levels
+            written[d] = w
+        for s, t in zip(srcs, reads):
+            last[s] = max(last.get(s, -1), t)
+    end = NPH * n_bundles
     for v in roots:
-        last_use[v] = end
+        last[v] = end
+    used = set(last)
 
-    by_level: List[List[int]] = [[] for _ in range(n_levels)]
-    for i in range(n):
-        by_level[op_level[i]].append(i)
-
-    # -- registers -----------------------------------------------------------------
     free = {"r": [], "f": []}
     count = {"r": 0, "f": 0}
     reg: Dict[int, int] = {}
+    busy: List[Tuple[int, int]] = []       # (last read, value)
 
-    def alloc(v: int) -> int:
+    def release_before(t: int) -> None:
+        while busy and busy[0][0] < t:
+            _, v = heapq.heappop(busy)
+            heapq.heappush(free[rec.vkind[v]], reg[v])
+
+    def alloc(v: int, t: int) -> None:
         kind = rec.vkind[v]
         if free[kind]:
             r = heapq.heappop(free[kind])
@@ -457,84 +529,98 @@ def _compile(rec: Recorder, outs: List[int], out_flag: Optional[int],
             r = count[kind]
             count[kind] += 1
         reg[v] = r
-        return r
+        heapq.heappush(busy, (last.get(v, t), v))
 
-    def release(v: int) -> None:
-        heapq.heappush(free[rec.vkind[v]], reg[v])
-
-    used = set(last_use)
     const_rows = [(v, a) for v, a in rec.const_rows if v in used]
     pre = list(rec.inputs[0]) + list(rec.inputs[1]) + [v for v, _ in const_rows]
     pre += [v for v in (rec.lane_flag, rec.uniform_flag) if v is not None]
-    for v in pre:
-        alloc(v)
-    for v in pre:          # staged, never read: the register is free again
-        if v not in used:
-            release(v)
+    for v in pre:                          # staged, unread ones free at time 0
+        alloc(v, -1)
+    order = sorted(range(len(ops)), key=lambda i: (written[ops[i][1][0]], i))
+    for i in order:
+        t = written[ops[i][1][0]]
+        release_before(t)
+        for d in ops[i][1]:
+            alloc(d, t)
 
-    bundles, words, pool = [], [], []
-    n_mul = n_bil = n_lin = n_leaves = n_redc = 0
-    max_items = 1
+    # -- records -----------------------------------------------------------------
+    by_bundle: List[Dict[str, List[int]]] = [{"A": [], "M": [], "P": [], "E": []}
+                                            for _ in range(n_bundles)]
+    for i, (b, ph) in enumerate(zip(op_bundle, op_phase)):
+        by_bundle[b][ph].append(i)
+    records, rows = [], []
     nx = ng = 0
-    for lv in range(n_levels):
-        members = sorted(by_level[lv], key=lambda i: _class_of(ops[i][0]))
-        counts = [0, 0, 0]
-        x_off = g_off = 0
-        items_a = items_b = items_c = items_d = 0
-        for i in members:
+    threads_lane = 1
+    n_mul = n_bil = n_lin = n_leaves = n_redc = 0
+    for members in by_bundle:
+        lin_a, mul, bil, lin_e = (members[k] for k in ("A", "M", "P", "E"))
+        tabs = [T.TABLES[ops[i][3]] for i in bil]
+        n_leaf = sum(t.P for t in tabs)
+        n_out = sum(t.R for t in tabs)
+        n_words = len(lin_a) + len(mul) + len(bil) + len(lin_e)
+        at_pool = HDR + WORDS * n_words + n_leaf + n_out
+        words, leaf_tab, out_tab, pool = [], [], [], []
+
+        def linear_word(i):
             name, dsts, srcs, aux = ops[i]
-            cls = _class_of(name)
-            counts[cls] += 1
-            d = [alloc(v) for v in dsts]
             s = [reg[v] for v in srcs]
             w = [0] * WORDS
-            if cls == 0:
-                n_lin += 1
-                items_a += 1
-                w[0] = LINEAR[name]
-                w[1] = d[0]
-                if name == "load":
-                    w[4], w[5], w[6] = len(s), aux, len(pool)
-                    pool.extend(s)
-                elif name == "sgn":
-                    w[5] = aux
-                elif name == "sel":
-                    w[4], w[2], w[3] = s
-                else:
-                    w[2:2 + len(s)] = s
-            elif cls == 1:
-                n_mul += 1
-                items_b += 1
-                items_d += 1
-                w[0] = MULTIPLY[name]
-                w[1] = d[0]
-                w[2:2 + len(s)] = s          # isz: a, one, q, -q
-                w[6] = g_off
-                g_off += 1
+            w[0], w[1] = LINEAR[name], reg[dsts[0]]
+            if name == "load":
+                w[4], w[5], w[6] = len(s), aux, at_pool + len(pool)
+                pool.extend(s)
+            elif name == "sgn":
+                w[5] = aux
+            elif name == "sel":
+                w[4], w[2], w[3] = s
             else:
-                t = T.TABLES[aux]
-                n_bil += 1
-                n_leaves += t.P
-                n_redc += t.R
-                items_a += 2 * L
-                items_b += t.P
-                items_c += 2 * L
-                items_d += t.R
-                w[0] = BIL + aux
-                w[1] = len(pool)
-                pool.extend(s + d)
-                w[2], w[3] = x_off, g_off
-                x_off += t.P
-                g_off += t.R
+                w[2:2 + len(s)] = s
+            return w
+
+        words += [linear_word(i) for i in lin_a]
+        g_off = x_off = 0
+        for i in mul:
+            name, dsts, srcs, _ = ops[i]
+            w = [0] * WORDS
+            w[0], w[1] = MULTIPLY[name], reg[dsts[0]]
+            w[2:2 + len(srcs)] = [reg[v] for v in srcs]     # isz: a, one, q, -q
+            w[6] = g_off
+            g_off += 1
             words.append(w)
+        for i, t in zip(bil, tabs):
+            _, dsts, srcs, aux = ops[i]
+            w = [0] * WORDS
+            w[0], w[1], w[2], w[3] = BIL + aux, at_pool + len(pool), x_off, g_off
+            pool.extend([reg[v] for v in srcs] + [reg[v] for v in dsts])
+            leaf_tab += [x_off + k for k in range(t.P)]
+            out_tab += [((g_off + r) << 16) | reg[d] for r, d in enumerate(dsts)]
+            x_off += t.P
+            g_off += t.R
+            words.append(w)
+        words += [linear_word(i) for i in lin_e]
+        body = [x for w in words for x in w] + leaf_tab + out_tab + pool
+        size = -(-(HDR + len(body)) // 4) * 4
+        head = [0] * HDR
+        head[1:7] = [len(lin_a), len(mul), len(bil), len(lin_e), n_leaf, n_out]
+        head[0] = size
+        records.append(head + body + [0] * (size - HDR - len(body)))
+        rows.append([len(lin_a), len(mul), len(bil), len(lin_e)])
         nx, ng = max(nx, x_off), max(ng, g_off)
-        max_items = max(max_items, items_a, items_b, items_c, items_d)
-        first = len(words) - len(members)
-        bundles.append([counts[0], counts[1], counts[2], first])
-        done = {v for i in members for v in ops[i][2] if last_use[v] == lv}
-        done |= {v for i in members for v in ops[i][1] if v not in used}
-        for v in sorted(done):
-            release(v)
+        threads_lane = max(threads_lane, len(lin_a) + 2 * L * len(bil),
+                           GROUP * (len(mul) + n_leaf), GROUP * (len(mul) + n_out),
+                           len(lin_e))
+        n_mul += len(mul)
+        n_bil += len(bil)
+        n_lin += len(lin_a) + len(lin_e)
+        n_leaves += n_leaf
+        n_redc += n_out
+    starts = np.cumsum([0] + [len(r) for r in records])
+    for b, r in enumerate(records):        # where the record RING on lies
+        if b + RING < len(records):
+            r[REC_NEXT_OFF], r[REC_NEXT_WORDS] = starts[b + RING], len(records[b + RING])
+    ring0 = [0] * (2 * RING)
+    for b in range(min(RING, len(records))):
+        ring0[2 * b], ring0[2 * b + 1] = starts[b], len(records[b])
 
     def regs_of(vs):
         return [reg[v] for v in vs]
@@ -542,9 +628,8 @@ def _compile(rec: Recorder, outs: List[int], out_flag: Optional[int],
     const_regs = [reg[v] for v, _ in const_rows]
     consts = (np.stack([a for _, a in const_rows]) if const_rows
               else np.zeros((0, L), np.int64))
-    sections = {"bundles": np.asarray(bundles, np.int32).reshape(-1),
-                "ops": np.asarray(words, np.int32).reshape(-1),
-                "pool": np.asarray(pool, np.int32),
+    sections = {"records": np.asarray([x for r in records for x in r], np.int32),
+                "ring0": np.asarray(ring0, np.int32),
                 "const_regs": np.asarray(const_regs, np.int32),
                 "in0": np.asarray(regs_of(rec.inputs[0]), np.int32),
                 "in1": np.asarray(regs_of(rec.inputs[1]), np.int32),
@@ -554,29 +639,87 @@ def _compile(rec: Recorder, outs: List[int], out_flag: Optional[int],
         offsets[k] = at
         parts.append(arr)
         at += arr.shape[0]
-    product_bundles = sum(1 for b in bundles if b[1] or b[2])
+    bundles = np.asarray(rows, np.int64).reshape(-1, 4)
     return Program(
         code=np.concatenate(parts).astype(np.int32), consts=consts, offsets=offsets,
-        n_bundles=len(bundles), n_ops=len(words), nreg=count["r"], nflag=count["f"],
+        n_bundles=n_bundles, n_ops=len(ops), nreg=count["r"], nflag=count["f"],
         nx=nx, ng=ng, n_const=len(const_regs), in_rows=(len(rec.inputs[0]),
                                                          len(rec.inputs[1])),
         out_rows=len(outs), lane_flag=reg.get(rec.lane_flag, -1),
         uniform_flag=reg.get(rec.uniform_flag, -1),
         out_flag=-1 if out_flag is None else reg[out_flag], n_digits=n_digits,
-        max_items=max_items, product_bundles=product_bundles, n_mul=n_mul,
-        n_bil=n_bil, n_lin=n_lin, n_leaves=n_leaves, n_redc=n_redc,
-        bundles=np.asarray(bundles, np.int64).reshape(-1, 4),
-        words=np.asarray(words, np.int64).reshape(-1, WORDS),
-        pool=np.asarray(pool, np.int64))
+        slot_words=max([len(r) for r in records] + [4]), threads_lane=threads_lane,
+        product_bundles=int(((bundles[:, 1] + bundles[:, 2]) > 0).sum()),
+        n_mul=n_mul, n_bil=n_bil, n_lin=n_lin, n_leaves=n_leaves, n_redc=n_redc,
+        bundles=bundles, ops=ops, op_bundle=op_bundle, op_phase=op_phase, reg=reg,
+        staged=pre, roots=roots, vkind=list(rec.vkind))
+
+
+_NAME_OF = {code: name for name, code in {**LINEAR, **MULTIPLY}.items()}
+
+
+def decode(prog: Program) -> List[Dict[str, list]]:
+    """The program's records read back from `code`: per bundle {"A",
+    "M", "P", "E": [(name, dst registers, source registers, aux)]} in
+    record order (aux: a load's or sgn's digit, a product's kind, else
+    None), "leaf_rows" (each leaf's scratch row) and "wide_rows" (each
+    REDC's wide scratch row: the multiplies', then the products'
+    outputs')."""
+    code = prog.code
+    at = prog.offsets["records"]
+    out = []
+    for _ in range(prog.n_bundles):
+        rec = code[at:at + int(code[at + REC_WORDS])]
+        n_a, n_m, n_p, n_e, n_leaf, n_out = (int(x) for x in rec[1:7])
+        words = rec[HDR:HDR + WORDS * (n_a + n_m + n_p + n_e)].reshape(-1, WORDS)
+        tabs_at = HDR + WORDS * len(words)
+        leaf_tab = [int(x) for x in rec[tabs_at:tabs_at + n_leaf]]
+        out_tab = [int(x) for x in rec[tabs_at + n_leaf:tabs_at + n_leaf + n_out]]
+
+        def linear(w):
+            name = _NAME_OF[int(w[0])]
+            if name == "load":
+                return name, (int(w[1]),), tuple(int(x) for x in rec[w[6]:w[6] + w[4]]), int(w[5])
+            if name == "sgn":
+                return name, (int(w[1]),), (), int(w[5])
+            if name == "sel":
+                return name, (int(w[1]),), (int(w[4]), int(w[2]), int(w[3])), None
+            n = 1 if name in ("neg", "norm", "fnot") else 2
+            return name, (int(w[1]),), tuple(int(x) for x in w[2:2 + n]), None
+
+        b = {"A": [linear(w) for w in words[:n_a]], "M": [], "P": [],
+             "E": [linear(w) for w in words[n_a + n_m + n_p:]],
+             "leaf_rows": leaf_tab, "wide_rows": []}
+        for w in words[n_a:n_a + n_m]:
+            name = _NAME_OF[int(w[0])]
+            n = 4 if name == "isz" else 2
+            b["M"].append((name, (int(w[1]),), tuple(int(x) for x in w[2:2 + n]), None))
+            b["wide_rows"].append(int(w[6]))
+        for w in words[n_a + n_m:n_a + n_m + n_p]:
+            kind = int(w[0]) - BIL
+            t = T.TABLES[kind]
+            rows = [int(x) for x in rec[w[1]:w[1] + t.Ca + t.Cb + t.R]]
+            b["P"].append(("bil", tuple(rows[t.Ca + t.Cb:]), tuple(rows[:t.Ca + t.Cb]),
+                           kind))
+        b["wide_rows"] += [e >> 16 for e in out_tab]
+        if [e & 0xFFFF for e in out_tab] != [d for op in b["P"] for d in op[1]]:
+            raise ValueError("a record's REDC table disagrees with its products")
+        out.append(b)
+        at += len(rec)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # The plain interpreter
 # ---------------------------------------------------------------------------
 
+_FLUSH = 0
+
+
 def _plain_plan(prog: Program, dev: torch.device) -> list:
-    """The program's bundles as batched steps of run_program_plain, with
-    their index tensors on `dev` (made once per program and device)."""
+    """The program's decoded bundles as batched steps of
+    run_program_plain, with their index tensors on `dev` (made once per
+    program and device): phase A's linear ops, the products, phase E's."""
     plans = prog.__dict__.setdefault("_plans", {})
     plan = plans.get(dev)
     if plan is not None:
@@ -585,30 +728,43 @@ def _plain_plan(prog: Program, dev: torch.device) -> list:
     def ix(a):
         return torch.as_tensor(np.asarray(a, np.int64), device=dev)
 
-    words, pool, plan = prog.words, prog.pool, []
-    for n_lin, n_mul, n_bil, first in prog.bundles:
-        lin = words[first:first + n_lin]
-        mul = words[first + n_lin:first + n_lin + n_mul]
-        bil = words[first + n_lin + n_mul:first + n_lin + n_mul + n_bil]
+    def linear_steps(lin):
         steps = []
-        for code in (ADD, SUB, NEG, NORM, SEL, FAND, FNOT):
-            sel = lin[lin[:, 0] == code]
-            if len(sel):
-                steps.append((code,) + tuple(ix(sel[:, c]) for c in (1, 2, 3, 4)))
-        for w in lin[(lin[:, 0] == LOAD) | (lin[:, 0] == SGN)]:
-            steps.append((int(w[0]), int(w[1]), int(w[5]), pool[w[6]:w[6] + w[4]]))
-        if n_mul or n_bil:
-            isz = mul[:, 0] == ISZ
+        for name in ("add", "sub", "neg", "norm", "sel", "fand", "fnot"):
+            sel = [op for op in lin if op[0] == name]
+            if not sel:
+                continue
+            d = [op[1][0] for op in sel]
+            if name == "sel":
+                f, a, b = ([op[2][k] for op in sel] for k in range(3))
+            else:
+                f = [0] * len(sel)
+                a = [op[2][0] for op in sel]
+                b = [op[2][-1] for op in sel]
+            steps.append((LINEAR[name], ix(d), ix(a), ix(b), ix(f)))
+        for name, d, s, aux in lin:
+            if name in ("load", "sgn"):
+                steps.append((LINEAR[name], d[0], aux, np.asarray(s, np.int64)))
+        return steps
+
+    plan = []
+    for b in decode(prog):
+        steps = linear_steps(b["A"]) + [(_FLUSH,)]
+        mul, bil = b["M"], b["P"]
+        if mul or bil:
+            isz = np.asarray([op[0] == "isz" for op in mul], bool)
+            a = [op[2][0] for op in mul]
+            bb = [op[2][1] for op in mul]
+            d = np.asarray([op[1][0] for op in mul], np.int64)
             groups = []
-            for kind in sorted(set(int(c) - BIL for c in bil[:, 0])):
+            for kind in sorted({op[3] for op in bil}):
                 t = T.TABLES[kind]
-                sel = bil[bil[:, 0] == BIL + kind]
-                rows = np.stack([pool[w[1]:w[1] + t.Ca + t.Cb + t.R] for w in sel])
+                rows = np.asarray([op[2] + op[1] for op in bil if op[3] == kind])
                 groups.append((t, ix(rows[:, :t.Ca]), ix(rows[:, t.Ca:t.Ca + t.Cb]),
                                ix(rows[:, t.Ca + t.Cb:])))
-            steps.append((MUL, ix(mul[:, 2]), ix(mul[:, 3]), ix(np.nonzero(~isz)[0]),
-                          ix(np.nonzero(isz)[0]), ix(mul[~isz, 1]), ix(mul[isz, 1]),
-                          groups))
+            steps.append((MUL, ix(a), ix(bb), ix(np.nonzero(~isz)[0]),
+                          ix(np.nonzero(isz)[0]), ix(d[~isz]), ix(d[isz]), groups))
+        steps += linear_steps(b["E"]) + [(_FLUSH,)]
         plan.append(steps)
     plans[dev] = plan
     return plan
@@ -620,12 +776,13 @@ def run_program_plain(prog: Program, in0: torch.Tensor,
                       uniform_flag: bool = False,
                       digits: Optional[Tuple[np.ndarray, np.ndarray]] = None):
     """The program on torch tensors over ops/fq.py's plain functions, a
-    bundle at a time (each class of op batched over the bundle's ops):
-    in0 [n, rows0, 14] (in1 [n, rows1, 14]) int64 limbs, lane_flag [n]
-    bool, uniform_flag a bool, digits (idx, sign) host int arrays ->
-    (out [n, out_rows, 14], out_flag [n] bool or None). The kernel's
-    plain twin: the tests and the card's checks hold it against the
-    Python loops and the kernel; no entry point runs it. A bundle's
+    bundle at a time in the kernel's phase order (phase A's linear ops,
+    the products, phase E's linear ops; each class of op batched over the
+    bundle's ops): in0 [n, rows0, 14] (in1 [n, rows1, 14]) int64 limbs,
+    lane_flag [n] bool, uniform_flag a bool, digits (idx, sign) host int
+    arrays -> (out [n, out_rows, 14], out_flag [n] bool or None). The
+    kernel's plain twin: the tests and the card's checks hold it against
+    the Python loops and the kernel; no entry point runs it. A bundle's
     schoolbooks (fq_mul_plain's, Field.is_zero's mul_norm by one, every
     tower product's leaves) go through one fq_mul_wide call and its REDCs
     through one fq_redc_plain call: each row's integers are its own."""
@@ -653,7 +810,7 @@ def run_program_plain(prog: Program, in0: torch.Tensor,
     pats = [F.const(p, dev) for p in (F._ZERO_PAT, F._Q_PAT, F._NEGQ_PAT)]
 
     for steps in _plain_plan(prog, dev):
-        staged = []                     # linear results: sources read first
+        staged = []                     # linear results: a phase's sources read first
         for st in steps:
             op = st[0]
             if op in (ADD, SUB, NEG, NORM, SEL):
@@ -680,10 +837,11 @@ def run_program_plain(prog: Program, in0: torch.Tensor,
             elif op == SGN:
                 _, d, pos, _ = st
                 staged.append((flags, d, bool(d_sign[pos] < 0)))
-            else:
+            elif op == _FLUSH:
                 for dst, i, x in staged:
                     dst[i] = x
                 staged = []
+            else:
                 # every schoolbook of the bundle in one fq_mul_wide call and
                 # every REDC in one fq_redc_plain call: the multiplies'
                 # columns, and each tower product's leaves (wide-normalized)
@@ -717,8 +875,6 @@ def run_program_plain(prog: Program, in0: torch.Tensor,
                     out = red[at:at + k * n * t.R].reshape(k, n, t.R, L)
                     regs[d] = out.permute(0, 2, 1, 3)
                     at += k * n * t.R
-        for dst, i, x in staged:
-            dst[i] = x
     out = regs[ix(code[off["out"]:off["out"] + prog.out_rows])].transpose(0, 1)
     return out.contiguous(), (flags[prog.out_flag].clone() if prog.out_flag >= 0
                               else None)

@@ -2,8 +2,9 @@
 (consensus_specs_tpu_torch/ops/fq_program.py, ops/fq_points.py), whose
 kernels are csrc/fq_points.cu: each program's plain run equals the port's
 Python loop bit for bit, its recorded ops are the JAX package's loops'
-ops in order, and bls_torch routes to the kernels only for CUDA tensors
-under fq_tower.DEVICE.
+ops in order, its packed bundle records decode to the compiled ops and run
+them in an order where every read finds its value, and bls_torch routes to
+the kernels only for CUDA tensors under fq_tower.DEVICE.
 
 Values: points are multiples of the generators by seeded scalars, and
 hash-to-G2 candidates; the ladder's special cases use a point of order 13
@@ -249,18 +250,91 @@ def test_miller_ops_are_the_references(monkeypatch):
 
 def test_programs_are_built_once_and_fit_a_block():
     """One program per (nbits, w) and per P, whatever the scalar; a
-    lane's register file, scratch and flags fit one block's shared
-    memory; the compiled program holds every recorded live op once."""
+    lane's register file, scratch and flags, with the block's record ring,
+    fit one block's shared memory; the compiled program holds every
+    recorded live op once."""
     prog = FPt.ladder_program(256, 4)
     assert FPt.ladder_program(256, 4) is prog and FPt.miller_program(3) is FPt.miller_program(3)
     for p in (prog, FPt.ladder_program(BT._G2_COFACTOR_NBITS, 4), FPt.miller_program(2),
               FPt.miller_program(3)):
         per_lane = 8 * (p.nreg * 14 + 2 * p.nx * 14 + p.ng * 30) + 4 * p.nflag
-        assert per_lane < 96 * 1024
-        assert p.code.dtype == np.int32 and p.bundles[:, :3].sum() == p.n_ops
-        assert p.max_items >= 1 and p.product_bundles <= p.n_bundles
+        tile, threads, nbytes, ring = FPt.launch_shape(p, 1)
+        assert tile == 1 and 64 <= threads <= 512 and per_lane < nbytes < 96 * 1024
+        assert ring == 4 * FP.RING * p.slot_words
+        assert p.code.dtype == np.int32 and p.bundles.sum() == p.n_ops
+        assert p.threads_lane >= 1 and p.product_bundles <= p.n_bundles
     assert prog.n_digits == TSM.n_windows(256, 4) and prog.out_rows == 4
     assert FPt.miller_program(3).in_rows == (6, 12)
+
+
+def _walk_records(prog):
+    """Decode the packed records and walk them in the kernel's phase order
+    (A: linear ops and pre-sums read, linear ops write; B: multiplies
+    read; D: is_zero's patterns read, products write; E: linear ops read
+    and write), checking that decoding gives back the compiled op list,
+    that each read finds the value the compiled op reads (so it was
+    written in an earlier phase or bundle and not overwritten since), that
+    no phase writes a register it reads or writes one twice, and that the
+    outputs end where the program says."""
+    decoded = FP.decode(prog)
+    assert len(decoded) == prog.n_bundles
+    kind, reg = prog.vkind, prog.reg
+    holds = {(kind[v], reg[v]): v for v in prog.staged}
+    members = {}
+    for i, (b, ph) in enumerate(zip(prog.op_bundle, prog.op_phase)):
+        members.setdefault((b, ph), []).append(i)
+
+    def mapped(i):
+        name, dsts, srcs, aux = prog.ops[i]
+        return (name, tuple(reg[v] for v in dsts), tuple(reg[v] for v in srcs),
+                aux if name in ("load", "sgn", "bil") else None)
+
+    for b, rec in enumerate(decoded):
+        ops = {ph: members.get((b, ph), []) for ph in ("A", "M", "P", "E")}
+        for ph in ops:
+            assert rec[ph] == [mapped(i) for i in ops[ph]], (b, ph)
+        leaves, wide = rec["leaf_rows"], rec["wide_rows"]
+        assert len(set(leaves)) == len(leaves) and max(leaves + [-1]) < prog.nx
+        assert len(set(wide)) == len(wide) and max(wide + [-1]) < prog.ng
+        isz = [i for i in ops["M"] if prog.ops[i][0] == "isz"]
+        phases = (
+            ([(i, s) for i in ops["A"] + ops["P"] for s in prog.ops[i][2]], ops["A"]),
+            ([(i, s) for i in ops["M"] for s in prog.ops[i][2][:2]], []),
+            ([(i, s) for i in isz for s in prog.ops[i][2][2:]], ops["M"] + ops["P"]),
+            ([(i, s) for i in ops["E"] for s in prog.ops[i][2]], ops["E"]))
+        for reads, writers in phases:
+            read_keys = set()
+            for i, v in reads:
+                key = (kind[v], reg[v])
+                assert holds.get(key) == v, (b, prog.ops[i][0], v)
+                read_keys.add(key)
+            written = [(kind[d], reg[d]) for i in writers for d in prog.ops[i][1]]
+            assert len(set(written)) == len(written) and not read_keys & set(written), b
+            for i in writers:
+                for d in prog.ops[i][1]:
+                    holds[(kind[d], reg[d])] = d
+    code, off = prog.code, prog.offsets
+    outs = code[off["out"]:off["out"] + prog.out_rows]
+    assert [holds[("r", int(r))] for r in outs] == prog.roots[:prog.out_rows]
+    if prog.out_flag >= 0:
+        assert holds[("f", prog.out_flag)] == prog.roots[-1]
+
+
+@pytest.mark.parametrize("which", ["ladder 509", "ladder 256", "miller 2", "miller 3"])
+def test_packed_records_hold_the_schedule(which):
+    """The packed records of the four programs of the main path decode to
+    the compiled ops and run them in an order where every operand is
+    written before it is read and no register is overwritten while a later
+    reader needs it (_walk_records). The ladder folds its linear ops into
+    the bundles of the products that feed them: 4,651 bundles at 509 bits
+    and 4,619 at the cofactor's width, against 8,819 and 8,755 before
+    phase E."""
+    what, n = which.split()
+    prog = FPt.ladder_program(int(n), 4) if what == "ladder" else FPt.miller_program(int(n))
+    _walk_records(prog)
+    if which == "ladder 509":
+        assert prog.n_bundles == 4651 < 8819
+        assert FPt.ladder_program(BT._G2_COFACTOR_NBITS, 4).n_bundles == 4619 < 8755
 
 
 # ---------------------------------------------------------------------------
