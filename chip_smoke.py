@@ -31,11 +31,15 @@ verify_indexed_batch. Checks:
     Field.is_zero and canon ask for) and fq_redc at 1,048,576 lanes and at
     N = 1, 5, 300; the fused tower product fq_bilinear for each of its
     five tables (Fq2 multiply, Fq12 multiply, square and line multiply,
-    cyclotomic square) at N = 1, 5, 300 and 65,536; the chains of tower
-    products (fq_bilinear_chain: the exponentiation by |z| and |z| + 1,
-    the Miller step's f-update for 2 and 3 pairs) at N = 1, 5, 300, 16
-    and 128, against the plain chain and against the same products
-    launched one at a time, each step's phases clocked at 128 lanes;
+    cyclotomic square) at N = 1, 5, 300 and 65,536; the chains
+    (fq_bilinear_chain: the exponentiation by |z| and |z| + 1, the Miller
+    step's f-update for 2 and 3 pairs, and the fixed-exponent powers: the
+    Fq inversion and square root, the Fq2 square root) at N = 1, 5, 300,
+    16 and 128 (the Fq square root also at stage 1's 16,384), against the
+    plain chain, against the same products launched one at a time
+    (fq_bilinear, fq_mul, the tower's fq2_sqr), and lane 0 against the
+    bignum field's power or product, each step's phases clocked at 128
+    lanes;
   * the valid block gives 16 x True, the block with one signature swapped
     for another committee's gives exactly that item False;
   * one grouped pairing of the block gives bit-identical Fq12 limbs
@@ -239,6 +243,7 @@ from __future__ import annotations
 import argparse
 import collections
 import copy
+import functools
 import hashlib
 import importlib
 import json
@@ -270,6 +275,7 @@ from consensus_specs_tpu_torch.models.phase0.resident import (ResidentColumns,
 from consensus_specs_tpu_torch.ops import _nvcc, sha256, sha256_cuda
 from consensus_specs_tpu_torch.ops import bls_torch, fq_cuda, fq_points, fq_tower
 from consensus_specs_tpu_torch.ops import scalar_mul as scalar_mul_mod
+from consensus_specs_tpu_torch.ops import decompress as decomp_mod
 from consensus_specs_tpu_torch.ops import fq as fq_mod
 from consensus_specs_tpu_torch.ops import shuffle as shuffle_mod
 from consensus_specs_tpu_torch.utils.config import load_preset
@@ -726,34 +732,120 @@ def check_fq_kernels(rng, dev):
 
 
 CHAIN_LANES = RAGGED + (16, FIREHOSE_G)
+G1_SQRT_LANES = 16 * 1024   # stage 1's public keys: 16 committees, each padded to 1,024
 POW_BITS = {68: bls_torch._Z_BITS, 69: bls_torch._ZP1_BITS}   # by steps
+# the fixed-exponent powers, one chain each: label -> (program, accumulator
+# coefficients, exponent)
+POWERS = {"fq inv": (fq_mod.fq_pow_program(fq_mod._INV_EXP_BITS), 1, fq_mod.Q - 2),
+          "fq sqrt": (fq_mod.fq_pow_program(fq_mod._SQRT_EXP_BITS), 1, (fq_mod.Q + 1) // 4),
+          "fq2 sqrt": (fq_tower.fq2_pow_program(decomp_mod._SQRT2_EXP_BITS), 2,
+                       (fq_mod.Q ** 2 + 7) // 16)}
+POWER_STEPS = {len(prog): label for label, (prog, _, _) in POWERS.items()}
+
+
+def chain_kind(steps: int) -> str:
+    """What a chain of `steps` steps on the main path is: "pow_abs", one
+    of POWERS' labels, or "miller" (the f-update's 2-4 steps)."""
+    return "pow_abs" if steps in POW_BITS else POWER_STEPS.get(steps, "miller")
 
 
 def chain_program_of(steps: int, pairs: int):
     """The main path's chain of `steps` steps in a pairing of `pairs`
-    pairs: a pow_abs exponentiation (68 or 69 steps), else the Miller
-    doubling (pairs + 1) or addition (pairs) step."""
+    pairs: a pow_abs exponentiation (68 or 69 steps), a fixed-exponent
+    power (POWERS), else the Miller doubling (pairs + 1) or addition
+    (pairs) step."""
     if steps in POW_BITS:
         return fq_tower.pow_abs_program(POW_BITS[steps])
+    if steps in POWER_STEPS:
+        return POWERS[POWER_STEPS[steps]][0]
     return fq_tower.lines_program(pairs, steps == pairs + 1)
+
+
+def fq12_value(limbs) -> bls_host.Fq12:
+    """[12, 14] or [2, 3, 2, 14] Montgomery limbs -> the bignum Fq12."""
+    a = np.asarray(limbs).reshape(2, 3, 2, 14)
+    return bls_host.Fq12(*(bls_host.Fq6(*(fq_tower.fq2_from_limbs(a[h, c]) for c in range(3)))
+                           for h in range(2)))
+
+
+def fq12_limbs(x: bls_host.Fq12) -> np.ndarray:
+    return np.stack([np.stack([fq_tower.fq2_to_limbs(c) for c in (h.c0, h.c1, h.c2)])
+                     for h in (x.c0, x.c1)]).reshape(12, 14)
+
+
+@functools.lru_cache(maxsize=1)
+def cyclotomic_limbs(seed: int = SEED) -> np.ndarray:
+    """A random element of the cyclotomic subgroup (the easy part
+    f^((q^6-1)(q^2+1)) of a seeded f, in the bignum field), as limbs:
+    pow_abs's squarings are squarings only there."""
+    rng = np.random.default_rng(seed)
+    f = fq12_value(np.stack([fq_mod.to_mont(int(v)) for v in
+                             rng.integers(0, 1 << 62, 12)]))
+    f1 = f.conj() * f.inv()
+    return fq12_limbs((f1 ** (fq_mod.Q ** 2)) * f1)
 
 
 def chain_args(rng, steps, pairs, n, dev):
     """(acc, program, base, operand) of that chain at n lanes, inputs at
     the multiply budget's edges: the exponentiation's base is its
-    accumulator (f), the Miller step's operand its [n, P, 6, 14] lines."""
-    acc = torch.from_numpy(fq_kernel_inputs(rng, n, "mul", (12,))).to(dev)
+    accumulator (f; lane 0 a cyclotomic element), the Miller step's
+    operand its [n, P, 6, 14] lines; an Fq power's accumulator is a, an
+    Fq2 power's one with a as the base."""
     prog = chain_program_of(steps, pairs)
+    if steps in POWER_STEPS:
+        _, ca, _ = POWERS[POWER_STEPS[steps]]
+        a = torch.from_numpy(fq_kernel_inputs(rng, n, "mul", (ca,))).to(dev)
+        if ca == 1:
+            return a, prog, None, None
+        return fq_tower.fq2_ones((n,), dev), prog, a, None
+    acc = fq_kernel_inputs(rng, n, "mul", (12,))
     if steps in POW_BITS:
+        acc[0] = cyclotomic_limbs()
+        acc = torch.from_numpy(acc).to(dev)
         return acc, prog, acc, None
+    acc = torch.from_numpy(acc).to(dev)
     lines = torch.from_numpy(fq_kernel_inputs(rng, n, "mul", (pairs, 6))).to(dev)
     return acc, prog, None, lines
 
 
-# every chain of the main path: (steps, pairs)
+def oracle_lane0(label, steps, acc, base, op):
+    """The chain's function on lane 0 in the bignum field (crypto/
+    bls12_381.py), as a value to compare: a^e for the powers, f^e for
+    pow_abs, (f^2) * l_0 * ... * l_{P-1} for the Miller steps."""
+    a0 = lambda t: t[0].cpu().numpy()  # noqa: E731
+    if label in POWERS:
+        _, ca, e = POWERS[label]
+        if ca == 1:
+            return pow(fq_mod.from_mont(a0(acc)[0]), e, fq_mod.Q)
+        return fq_tower.fq2_from_limbs(a0(base)) ** e
+    f = fq12_value(a0(acc))
+    if steps in POW_BITS:
+        return f ** int("".join(map(str, POW_BITS[steps])), 2)
+    out = f * f if label.startswith("Miller doubling") else f
+    lines = a0(op)
+    zero = bls_host.Fq2(0, 0)
+    for p in range(lines.shape[0]):
+        c_a, c_v, c_vw = (fq_tower.fq2_from_limbs(lines[p, 2 * j:2 * j + 2]) for j in range(3))
+        out = out * bls_host.Fq12(bls_host.Fq6(c_a, c_v, zero), bls_host.Fq6(zero, c_vw, zero))
+    return out
+
+
+def value_lane0(label, out):
+    """Lane 0 of a chain's output as oracle_lane0's kind of value."""
+    v = out[0].cpu().numpy()
+    if label in POWERS:
+        return fq_mod.from_mont(v[0]) if POWERS[label][1] == 1 else fq_tower.fq2_from_limbs(v)
+    return fq12_value(v)
+
+
+# every chain of the main path: (steps, pairs); the powers at CHAIN_LANES
+# and at the lane counts of their own paths
 CHAINS = {"pow_abs |z|": (68, 3), "pow_abs |z|+1": (69, 3),
           "Miller doubling P=3": (4, 3), "Miller addition P=3": (3, 3),
-          "Miller doubling P=2": (3, 2), "Miller addition P=2": (2, 2)}
+          "Miller doubling P=2": (3, 2), "Miller addition P=2": (2, 2),
+          **{label: (len(prog), 3) for label, (prog, _, _) in POWERS.items()}}
+PATH_LANES = {"fq sqrt": (G1_SQRT_LANES,)}
+TIMED = [(label, FIREHOSE_G) for label in CHAINS] + [("fq sqrt", G1_SQRT_LANES)]
 
 
 def chain_bound(prog, base, operand, lanes):
@@ -765,46 +857,57 @@ def chain_bound(prog, base, operand, lanes):
 
 
 def check_chains(rng, dev):
-    """fq_bilinear_chain kernel vs the plain chain and vs the same
-    products launched one at a time (fq_bilinear_cuda), bit-identical,
-    for every chain of the main path at CHAIN_LANES lanes; then, at the
-    firehose's 128 lanes, each chain's kernel, per-product and plain ms
-    beside its bound, and block 0's clock cycles per phase of each step
-    (phases A pre-sums, B leaves, C gamma sums, D REDCs), summed by
-    product kind and scaled to the chain's measured time: clocked once
-    right after the plain chain's torch kernels ran ("cold") and once
-    right after that ("warm", reported by kind). Returns
-    {"max_abs_err": 0, "chains": {label: numbers}}."""
+    """fq_bilinear_chain kernel vs the plain chain, vs the same products
+    launched one at a time on the card (fq_bilinear_cuda, fq_mul_cuda and
+    the tower's fq2_sqr over it), bit-identical, and lane 0 vs the bignum
+    field (crypto/bls12_381.py), for every chain of the main path (pow_abs,
+    the Miller f-updates, the Fq inversion and square root, the Fq2 square
+    root) at CHAIN_LANES lanes and the powers at their paths' lanes; then
+    each chain's kernel, per-product and plain ms beside its bound and
+    the launcher's shape, at the firehose's 128 lanes (the stage-1 square
+    root also at its 16,384), and block 0's clock cycles per phase of each
+    step (A pre-sums or a norm / store / load, B leaves or schoolbooks, C
+    gamma sums, D REDCs), summed by step kind and scaled to the chain's
+    measured time: clocked once right after the plain chain's torch
+    kernels ran ("cold") and once right after that ("warm", reported by
+    kind). Returns {"max_abs_err": 0, "chains": {label: numbers}}."""
     tables = fq_tower.TABLES
-    errs = []
-    for n in CHAIN_LANES:
-        for label, (steps, pairs) in CHAINS.items():
+    errs, checked = [], collections.defaultdict(list)
+    for label, (steps, pairs) in CHAINS.items():
+        for n in CHAIN_LANES + PATH_LANES.get(label, ()):
             acc, prog, base, op = chain_args(rng, steps, pairs, n, dev)
             got = fq_cuda.fq_bilinear_chain_cuda(acc, prog, tables, base, op)
             errs.append(_same(got, fq_mod.fq_bilinear_chain_plain(acc, prog, tables, base, op),
                               f"chain {label} N={n}"))
-            _same(got, fq_mod.chain_by_products(fq_cuda.fq_bilinear_cuda, acc, prog,
-                                                tables, base, op),
+            _same(got, fq_mod.chain_by_products(fq_cuda.fq_bilinear_cuda, acc, prog, tables,
+                                                base, op, mul=fq_cuda.fq_mul_cuda),
                   f"chain {label} N={n} vs the products launched one at a time")
+            if value_lane0(label, got) != oracle_lane0(label, steps, acc, base, op):
+                raise AssertionError(f"chain {label} N={n}: lane 0 != the bignum field's")
+            checked[label].append(n)
+            del acc, base, op, got
     rows = {}
-    for label, (steps, pairs) in CHAINS.items():
-        acc, prog, base, op = chain_args(rng, steps, pairs, FIREHOSE_G, dev)
-        row = {"steps": steps, "lanes": FIREHOSE_G,
+    for label, n in TIMED:
+        steps, pairs = CHAINS[label]
+        acc, prog, base, op = chain_args(rng, steps, pairs, n, dev)
+        reps = max(2, min(20, 4000 // steps))
+        row = {"steps": steps, "lanes": n, "checked_lanes": checked[label],
                "ms": time_cuda(lambda: fq_cuda.fq_bilinear_chain_cuda(
-                   acc, prog, tables, base, op), 20),
+                   acc, prog, tables, base, op), reps),
                "per_product_ms": time_cuda(lambda: fq_mod.chain_by_products(
-                   fq_cuda.fq_bilinear_cuda, acc, prog, tables, base, op), 5),
+                   fq_cuda.fq_bilinear_cuda, acc, prog, tables, base, op,
+                   mul=fq_cuda.fq_mul_cuda), 2 if steps > 100 else 5),
                "plain_ms": time_cuda(lambda: fq_mod.fq_bilinear_chain_plain(
-                   acc, prog, tables, base, op), 1)}
-        row["bound_ms"], row["bound_by"] = chain_bound(prog, base, op, FIREHOSE_G)
+                   acc, prog, tables, base, op), 1),
+               "shape": fq_cuda.chain_launch_shape(acc, prog, tables, base, op)}
+        row["bound_ms"], row["bound_by"] = chain_bound(prog, base, op, n)
         cold = fq_cuda.chain_phase_clocks(acc, prog, tables, base, op)
         cycles = fq_cuda.chain_phase_clocks(acc, prog, tables, base, op)
         row["first_step_cycles"] = {"cold": cold[0].tolist(), "warm": cycles[0].tolist()}
         us_per_cycle = row["ms"] * 1e3 / max(int(cycles.sum()), 1)
         phases = {}
         for code, cyc in zip(prog, cycles):
-            name = tables[int(code) & fq_mod.KIND_MASK].name
-            ph = phases.setdefault(name, {"steps": 0, "cycles": np.zeros(4, np.int64)})
+            ph = phases.setdefault(fq_tower.step_name(code), {"steps": 0, "cycles": np.zeros(4, np.int64)})
             ph["steps"] += 1
             ph["cycles"] += cyc
         row["phases"] = {name: {"steps": ph["steps"],
@@ -812,7 +915,9 @@ def check_chains(rng, dev):
                                 "us_per_step": (ph["cycles"] / ph["steps"]
                                                 * us_per_cycle).tolist()}
                          for name, ph in phases.items()}
-        rows[label] = row
+        rows[label if n == FIREHOSE_G else f"{label} {n}"] = row
+        del acc, base, op
+        torch.cuda.empty_cache()
     return {"max_abs_err": max(errs), "chains": rows}
 
 
@@ -1008,7 +1113,7 @@ def small_launch_times(lanes_seen, dev, rng, pairs):
     for steps, seen in sorted(by_steps.items(), reverse=True):
         n, count = max(seen.items(), key=lambda kv: kv[1])
         acc, prog, base, op = chain_args(rng, steps, pairs, n, dev)
-        key = f"chain {steps} steps"
+        key = f"chain {steps} steps ({chain_kind(steps)})"
         put(key, n, lambda acc=acc, prog=prog, base=base, op=op:
             fq_cuda.fq_bilinear_chain_cuda(acc, prog, fq_tower.TABLES, base, op), count)
         out[key]["bound_ms"], _ = chain_bound(prog, base, op, n)
@@ -1315,10 +1420,10 @@ def drive_firehose(dev, rng):
     out["aggverify_per_s"] = groups / (t2 - t0)
     out["pairings_per_s"] = groups * P / (t2 - t0)
     out["per_batch"] = {k: n / batches for k, n in out["launches"].items()}
-    by_steps = collections.Counter()
+    by_kind = collections.Counter()
     for key, count in out["lanes"]["fq_bilinear_chain"].items():
-        by_steps["pow_abs" if int(key.split(":")[0]) in POW_BITS else "miller"] += count
-    out["chains_per_batch"] = {k: by_steps[k] / batches for k in ("pow_abs", "miller")}
+        by_kind[chain_kind(int(key.split(":")[0]))] += count
+    out["chains_per_batch"] = {k: by_kind[k] / batches for k in by_kind}
     if out["occupancy_min"] < FIREHOSE_G:
         raise AssertionError(f"firehose: occupancy {out['occupancy_min']} < {FIREHOSE_G}")
     if not launched_path(out["launches"]):
@@ -1364,8 +1469,8 @@ def report_firehose(fh) -> None:
     log(f"phase firehose launches: per batch fq_mul {per['fq_mul']:.1f} / fq_redc"
         f" {per['fq_redc']:.1f} / fq_bilinear {per['fq_bilinear']:.1f} /"
         f" miller_grouped {per['miller_grouped']:.1f} / g2_ladder {per['g2_ladder']:.1f} /"
-        f" fq_bilinear_chain {per['fq_bilinear_chain']:.1f} (pow_abs chains"
-        f" {chains['pow_abs']:.1f}, Miller-step chains {chains['miller']:.1f}); the"
+        f" fq_bilinear_chain {per['fq_bilinear_chain']:.1f} (by chain: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(chains.items())) + "); the"
         f" fq_bilinear family {per['fq_bilinear'] + per['fq_bilinear_chain']:.1f}, all"
         f" hand-kernel launches {sum(per.values()):.1f} | lanes per launch: fq_mul"
         f" {hist(fh['lanes']['fq_mul'])}; fq_bilinear {hist(fh['lanes']['fq_bilinear'])};"
@@ -3709,10 +3814,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     fq_ch = check_chains(rng, dev)
     for label, c in fq_ch["chains"].items():
+        sh = c["shape"]
         log(f"phase kernel: fq_bilinear_chain {label} ({c['steps']} steps) bit-identical"
-            f" to the plain chain and to its products launched one at a time at"
-            f" N={list(CHAIN_LANES)} (max_abs_err {fq_ch['max_abs_err']}) |"
-            f" {c['lanes']} lanes: kernel {c['ms']:.4f} ms"
+            f" to the plain chain and to its products launched one at a time, lane 0 =="
+            f" the bignum field's, at N={c['checked_lanes']} (max_abs_err"
+            f" {fq_ch['max_abs_err']}) | {c['lanes']} lanes"
+            f" ({'16-thread groups' if sh['groups'] else 'one thread a product'},"
+            f" {sh['threads']} threads x {sh['blocks']} blocks): kernel {c['ms']:.4f} ms"
             f" ({c['ms'] / c['steps'] * 1e3:.2f} us a step), one launch per product"
             f" {c['per_product_ms']:.4f} ms, plain {c['plain_ms']:.2f} ms, bound"
             f" {c['bound_ms']:.6f} ms by {c['bound_by']} | phases A / B / C / D of a"
@@ -4073,6 +4181,13 @@ def main() -> int:
         "lanes": FIREHOSE_G,
         "chain": "pow_abs |z|",
         "per_product_ms": pow_z["per_product_ms"],
+        # the fixed-exponent powers run on the same kernel
+        "also_replaces": {"fq inv": "consensus_specs_tpu/ops/fq.py:588",
+                          "fq sqrt": "consensus_specs_tpu/ops/fq.py:591",
+                          "fq2 sqrt": "consensus_specs_tpu/ops/decompress.py:147"},
+        "by_chain": {label: {k: c[k] for k in ("steps", "lanes", "ms", "per_product_ms",
+                                               "plain_ms", "bound_ms", "bound_by")}
+                     for label, c in fq_ch["chains"].items()},
         "bit_identical": True,
     })
     def by_path(name):

@@ -1,8 +1,9 @@
 // Device arithmetic shared by csrc/fq_mont.cu and csrc/fq_points.cu: the
 // port's lazy 29-bit x 14 signed int64 limb layout, the carry rounds, the
 // 32-bit narrowing of a multiply operand, the schoolbook into 28 int64
-// columns and the interleaved Montgomery reduction, and the cp.async and
-// 16-byte shared-memory row helpers. See csrc/fq_mont.cu for the ranges
+// columns and the interleaved Montgomery reduction, one thread a product
+// or spread over a 16-thread group, and the cp.async and 16-byte
+// shared-memory row helpers. See csrc/fq_mont.cu for the ranges
 // each step relies on (tests/test_torch_fq_tower.py proves them from the
 // reference's budget). Includes the compiled tower products (Table<K>).
 
@@ -171,6 +172,189 @@ __device__ __forceinline__ void redc(long long (&c)[kW], long long (&out)[kL]) {
   for (int k = 0; k < kL; ++k) out[k] = c[kL + k];
   out[0] += carry;
   carry_rounds(out);
+}
+
+// ---------------------------------------------------------------------------
+// A multiply over a 16-thread group (a half-warp): lane k (k = min(lane,
+// 13)) owns limb k and columns k and k + 14. A warp's two groups always run
+// group code together (a group without an item repeats its partner's and
+// stores nothing), so every shuffle is a full-warp one.
+// ---------------------------------------------------------------------------
+
+constexpr int kGroup = 16;            // threads of a schoolbook or a REDC
+constexpr unsigned kFull = 0xFFFFFFFFu;   // both groups of a warp run group code together
+constexpr int kScrWords = 72;         // a group's exchange (group_schoolbook)
+constexpr int kQWords = 32;           // q's limbs, then zeros (group_redc)
+
+// narrow32 of an operand, limb k of it: the first carry round in int64 cut
+// to int32 (its low 32 bits are narrow32's), then two rounds in int32, the
+// carry from lane k - 1 by a shuffle; the top limb keeps its own overflow.
+__device__ __forceinline__ int narrow_limb(long long v, int k) {
+  const long long h = v >> kB;
+  unsigned t = static_cast<unsigned>(v & kMask);
+  const int c = __shfl_up_sync(kFull, static_cast<int>(h), 1, kGroup);
+  if (k) t += static_cast<unsigned>(c);
+  if (k == kL - 1) t += static_cast<unsigned>(h) << kB;
+  int x = static_cast<int>(t);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int hi = x >> kB;
+    unsigned u = static_cast<unsigned>(x & static_cast<int>(kMask));
+    const int ci = __shfl_up_sync(kFull, hi, 1, kGroup);
+    if (k) u += static_cast<unsigned>(ci);
+    if (k == kL - 1) u += static_cast<unsigned>(hi) << kB;
+    x = static_cast<int>(u);
+  }
+  return x;
+}
+
+// Columns k (lo) and k + 14 (hi) of schoolbook(narrow32(x), narrow32(y)),
+// xk and yk limb k of the two operands: the narrowed limbs go through the
+// group's exchange words: x at 0..13, y
+// at 29..42 behind 13 zeros (so scr[29 + k - i] is y_{k-i}, or 0 for i > k)
+// and at 44..57 ahead of 14 zeros (scr[58 + k - i] is y_{14+k-i}, or 0 for
+// i <= k). Every lane runs the same 28 multiply-adds, the same integer sums
+// as schoolbook().
+__device__ __forceinline__ void group_schoolbook(long long xk, long long yk, int* scr,
+                                                 int lane, int k, long long& lo,
+                                                 long long& hi) {
+  const int x = narrow_limb(xk, k);
+  const int y = narrow_limb(yk, k);
+  __syncwarp();                  // the group's last item has read its exchange
+  if (lane < kL) {
+    scr[lane] = x;
+    scr[29 + lane] = y;
+    scr[44 + lane] = y;
+  }
+  __syncwarp();
+  const int* ylo = scr + 29 + k;
+  const int* yhi = scr + 58 + k;
+  long long l0 = 0, l1 = 0, h0 = 0, h1 = 0;
+#pragma unroll
+  for (int i = 0; i < kL; i += 2) {
+    l0 = mad_wide_s32(scr[i], ylo[-i], l0);
+    h0 = mad_wide_s32(scr[i], yhi[-i], h0);
+    l1 = mad_wide_s32(scr[i + 1], ylo[-i - 1], l1);
+    h1 = mad_wide_s32(scr[i + 1], yhi[-i - 1], h1);
+  }
+  lo = l0 + l1;
+  hi = h0 + h1;
+}
+
+// wide_norm32 of a leaf's columns across the group: column j takes the
+// carry of column j - 1 (lane k - 1's, or lane 13's low column for column
+// 14), column 27 keeps its own overflow; two rounds in int64, one in int32.
+__device__ __forceinline__ void group_wide_norm(long long lo, long long hi, int k, int& wlo,
+                                                int& whi) {
+  const int src = k ? k - 1 : kL - 1;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long hl = lo >> kB, hh = hi >> kB;
+    lo &= kMask;
+    hi &= kMask;
+    const long long pl = __shfl_sync(kFull, hl, src, kGroup);
+    const long long ph = __shfl_sync(kFull, hh, src, kGroup);
+    if (k) {
+      lo += pl;
+      hi += ph;
+    } else {
+      hi += pl;
+    }
+    if (k == kL - 1) hi += hh * kRadix;
+  }
+  int a = static_cast<int>(lo), b = static_cast<int>(hi);
+  const int hl = a >> kB, hh = b >> kB;
+  a &= static_cast<int>(kMask);
+  b &= static_cast<int>(kMask);
+  const int pl = __shfl_sync(kFull, hl, src, kGroup);
+  const int ph = __shfl_sync(kFull, hh, src, kGroup);
+  unsigned ua = static_cast<unsigned>(a), ub = static_cast<unsigned>(b);
+  if (k) {
+    ua += static_cast<unsigned>(pl);
+    ub += static_cast<unsigned>(ph);
+  } else {
+    ub += static_cast<unsigned>(pl);
+  }
+  if (k == kL - 1) ub += static_cast<unsigned>(hh) << kB;
+  wlo = static_cast<int>(ua);
+  whi = static_cast<int>(ub);
+}
+
+// n carry rounds of a row held a limb a lane (int64), as a loop.
+__device__ __forceinline__ long long group_rounds(long long o, int k, int n) {
+#pragma unroll 1
+  for (int r = 0; r < n; ++r) {
+    const long long h = o >> kB;
+    o &= kMask;
+    const long long c = __shfl_up_sync(kFull, h, 1, kGroup);
+    if (k) o += c;
+    if (k == kL - 1) o += h * kRadix;
+  }
+  return o;
+}
+
+// redc() of a wide row c[0..27] (16-byte aligned), limb k of the result.
+// Every lane makes the 14 digits from the low columns (redc()'s low
+// triangle), then adds m_i q_{14+k-i} to its own column 14 + k (the q
+// table is q's limbs then zeros, so the terms with i <= k add 0); lane 0
+// adds the last carry. The columns, digits and carry are redc()'s
+// integers.
+__device__ __forceinline__ long long group_redc(const long long* c, int k, const unsigned* qs) {
+  long long lc[kL];
+  load_row(c, lc);
+  unsigned m[kL];
+  long long carry = 0;
+#pragma unroll
+  for (int i = 0; i < kL; ++i) {
+    const long long v = lc[i] + carry;
+    m[i] = (static_cast<unsigned>(v) * static_cast<unsigned>(kQinvNeg)) &
+           static_cast<unsigned>(kMask);
+    carry = mad_wide_u32(m[i], static_cast<unsigned>(kQ[0]), v) >> kB;
+#pragma unroll
+    for (int j = 1; i + j < kL; ++j)
+      lc[i + j] = mad_wide_u32(m[i], static_cast<unsigned>(kQ[j]), lc[i + j]);
+  }
+  long long o = c[kL + k];
+#pragma unroll
+  for (int i = 0; i < kL; ++i) o = mad_wide_u32(m[i], qs[kL + k - i], o);
+  if (k == 0) o += carry;
+  return group_rounds(o, k, 3);
+}
+
+
+// The q table of group_redc_regs: qz[16 + d] = q_d for d = 1 .. 13, zero
+// for every other index (kQzWords words).
+constexpr int kQzWords = 48;
+__device__ __forceinline__ unsigned qz_word(int i) {
+  const int d = i - 16;
+  return d >= 1 && d < kL ? static_cast<unsigned>(kQ[d]) : 0u;
+}
+
+// redc() of a row held a column pair a lane (lo: column k, hi: column
+// 14 + k; lanes 14 and 15 repeat lane 13), limb k of the result, with no
+// shared-memory row: digit i is made by every lane from column i (lane
+// i's lo, broadcast by a shuffle) plus the carry of digit i - 1, so the
+// digits and carries are redc()'s integers; each lane adds m_i q_{k-i} to
+// its low column (k > i) and m_i q_{14+k-i} to its high column (k < i),
+// the terms redc() adds to columns k and 14 + k, in the same order. Then
+// lane 0 takes the last carry and three carry rounds run across the lanes.
+// The chain of a digit: a 64-bit shuffle, an add, a 32-bit multiply and
+// the next lane's dependent mad.wide (~60 cycles), against group_redc's
+// ~105 mad.wide of issue.
+__device__ __forceinline__ long long group_redc_regs(long long lo, long long hi, int k,
+                                                     const unsigned* qz) {
+  long long carry = 0;
+#pragma unroll
+  for (int i = 0; i < kL; ++i) {
+    const long long v = __shfl_sync(kFull, lo, i, kGroup) + carry;
+    const unsigned m = (static_cast<unsigned>(v) * static_cast<unsigned>(kQinvNeg)) &
+                       static_cast<unsigned>(kMask);
+    carry = mad_wide_u32(m, static_cast<unsigned>(kQ[0]), v) >> kB;
+    lo = mad_wide_u32(m, qz[16 + k - i], lo);
+    hi = mad_wide_u32(m, qz[16 + kL + k - i], hi);
+  }
+  if (k == 0) hi += carry;
+  return group_rounds(hi, k, 3);
 }
 
 }  // namespace

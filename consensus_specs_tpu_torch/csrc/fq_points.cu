@@ -75,7 +75,8 @@
 //   sel, load) take one branch-free path, both source rows loaded before
 //   the store.
 // - The ladder's kernel (few products a bundle: latency first) runs B and D
-//   on 16-thread groups (a half-warp). Lane k (0..13; lanes 14 and 15
+//   on 16-thread groups (a half-warp; the group multiply is csrc/fq_arith.cuh's,
+//   shared with the chain kernel). Lane k (0..13; lanes 14 and 15
 //   follow lane 13 and store nothing) narrows limb k of each operand
 //   (narrow32's three carry rounds, the carry from lane k - 1 by a
 //   shuffle); the group swaps the int32 limbs through 72 words of shared
@@ -127,13 +128,9 @@ constexpr int kAdd = 1, kSub = 2, kNeg = 3, kNorm = 4, kSel = 5, kLoad = 6,
 constexpr int kIsz = 17, kBil = 32;       // 16: mul
 constexpr int kNormFull = kL + 3;     // rounds to the unique signed-top form
 constexpr int kMaxThreads = 256 + 32;  // at most 8 consumer warps, and the producer warp
-constexpr int kGroup = 16;            // threads of a schoolbook or a REDC
-constexpr unsigned kFull = 0xFFFFFFFFu;   // both groups of a warp run group code together
 constexpr int kRing = 8;              // records in flight (ops/fq_program.py RING)
 constexpr int kHdr = 12;              // a record's header words (HDR)
 constexpr int kNextOff = 7, kNextWords = 8;
-constexpr int kScrWords = 72;         // a group's exchange (group_schoolbook)
-constexpr int kQWords = 32;           // q's limbs, then zeros (group_redc)
 
 struct Prog {
   const int* records;        // the bundle records, 16-byte aligned
@@ -325,145 +322,6 @@ __device__ __forceinline__ void gamma_col(const long long* x, long long* g, int 
   }
 static_assert(kNumKinds == 5, "FQ_PROGRAM_KIND names kinds 0 .. 4");
 
-// ---------------------------------------------------------------------------
-// A multiply over a 16-thread group: lane k (k = min(lane, 13)) owns limb k
-// and columns k and k + 14
-// ---------------------------------------------------------------------------
-
-// narrow32 of an operand, limb k of it: the first carry round in int64 cut
-// to int32 (its low 32 bits are narrow32's), then two rounds in int32, the
-// carry from lane k - 1 by a shuffle; the top limb keeps its own overflow.
-__device__ __forceinline__ int narrow_limb(long long v, int k) {
-  const long long h = v >> kB;
-  unsigned t = static_cast<unsigned>(v & kMask);
-  const int c = __shfl_up_sync(kFull, static_cast<int>(h), 1, kGroup);
-  if (k) t += static_cast<unsigned>(c);
-  if (k == kL - 1) t += static_cast<unsigned>(h) << kB;
-  int x = static_cast<int>(t);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int hi = x >> kB;
-    unsigned u = static_cast<unsigned>(x & static_cast<int>(kMask));
-    const int ci = __shfl_up_sync(kFull, hi, 1, kGroup);
-    if (k) u += static_cast<unsigned>(ci);
-    if (k == kL - 1) u += static_cast<unsigned>(hi) << kB;
-    x = static_cast<int>(u);
-  }
-  return x;
-}
-
-// Columns k (lo) and k + 14 (hi) of schoolbook(narrow32(xs), narrow32(ys)):
-// the narrowed limbs go through the group's exchange words: x at 0..13, y
-// at 29..42 behind 13 zeros (so scr[29 + k - i] is y_{k-i}, or 0 for i > k)
-// and at 44..57 ahead of 14 zeros (scr[58 + k - i] is y_{14+k-i}, or 0 for
-// i <= k). Every lane runs the same 28 multiply-adds, the same integer sums
-// as schoolbook().
-__device__ __forceinline__ void group_schoolbook(const long long* xs, const long long* ys,
-                                                 int* scr, int lane, int k, long long& lo,
-                                                 long long& hi) {
-  const int x = narrow_limb(xs[k], k);
-  const int y = narrow_limb(ys[k], k);
-  __syncwarp();                  // the group's last item has read its exchange
-  if (lane < kL) {
-    scr[lane] = x;
-    scr[29 + lane] = y;
-    scr[44 + lane] = y;
-  }
-  __syncwarp();
-  const int* ylo = scr + 29 + k;
-  const int* yhi = scr + 58 + k;
-  long long l0 = 0, l1 = 0, h0 = 0, h1 = 0;
-#pragma unroll
-  for (int i = 0; i < kL; i += 2) {
-    l0 = mad_wide_s32(scr[i], ylo[-i], l0);
-    h0 = mad_wide_s32(scr[i], yhi[-i], h0);
-    l1 = mad_wide_s32(scr[i + 1], ylo[-i - 1], l1);
-    h1 = mad_wide_s32(scr[i + 1], yhi[-i - 1], h1);
-  }
-  lo = l0 + l1;
-  hi = h0 + h1;
-}
-
-// wide_norm32 of a leaf's columns across the group: column j takes the
-// carry of column j - 1 (lane k - 1's, or lane 13's low column for column
-// 14), column 27 keeps its own overflow; two rounds in int64, one in int32.
-__device__ __forceinline__ void group_wide_norm(long long lo, long long hi, int k, int& wlo,
-                                                int& whi) {
-  const int src = k ? k - 1 : kL - 1;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const long long hl = lo >> kB, hh = hi >> kB;
-    lo &= kMask;
-    hi &= kMask;
-    const long long pl = __shfl_sync(kFull, hl, src, kGroup);
-    const long long ph = __shfl_sync(kFull, hh, src, kGroup);
-    if (k) {
-      lo += pl;
-      hi += ph;
-    } else {
-      hi += pl;
-    }
-    if (k == kL - 1) hi += hh * kRadix;
-  }
-  int a = static_cast<int>(lo), b = static_cast<int>(hi);
-  const int hl = a >> kB, hh = b >> kB;
-  a &= static_cast<int>(kMask);
-  b &= static_cast<int>(kMask);
-  const int pl = __shfl_sync(kFull, hl, src, kGroup);
-  const int ph = __shfl_sync(kFull, hh, src, kGroup);
-  unsigned ua = static_cast<unsigned>(a), ub = static_cast<unsigned>(b);
-  if (k) {
-    ua += static_cast<unsigned>(pl);
-    ub += static_cast<unsigned>(ph);
-  } else {
-    ub += static_cast<unsigned>(pl);
-  }
-  if (k == kL - 1) ub += static_cast<unsigned>(hh) << kB;
-  wlo = static_cast<int>(ua);
-  whi = static_cast<int>(ub);
-}
-
-// n carry rounds of a row held a limb a lane (int64), as a loop.
-__device__ __forceinline__ long long group_rounds(long long o, int k, int n) {
-#pragma unroll 1
-  for (int r = 0; r < n; ++r) {
-    const long long h = o >> kB;
-    o &= kMask;
-    const long long c = __shfl_up_sync(kFull, h, 1, kGroup);
-    if (k) o += c;
-    if (k == kL - 1) o += h * kRadix;
-  }
-  return o;
-}
-
-// redc() of a wide row c[0..27] (16-byte aligned), limb k of the result.
-// Every lane makes the 14 digits from the low columns (redc()'s low
-// triangle), then adds m_i q_{14+k-i} to its own column 14 + k (the q
-// table is q's limbs then zeros, so the terms with i <= k add 0); lane 0
-// adds the last carry. The columns, digits and carry are redc()'s
-// integers.
-__device__ __forceinline__ long long group_redc(const long long* c, int k, const unsigned* qs) {
-  long long lc[kL];
-  load_row(c, lc);
-  unsigned m[kL];
-  long long carry = 0;
-#pragma unroll
-  for (int i = 0; i < kL; ++i) {
-    const long long v = lc[i] + carry;
-    m[i] = (static_cast<unsigned>(v) * static_cast<unsigned>(kQinvNeg)) &
-           static_cast<unsigned>(kMask);
-    carry = mad_wide_u32(m[i], static_cast<unsigned>(kQ[0]), v) >> kB;
-#pragma unroll
-    for (int j = 1; i + j < kL; ++j)
-      lc[i + j] = mad_wide_u32(m[i], static_cast<unsigned>(kQ[j]), lc[i + j]);
-  }
-  long long o = c[kL + k];
-#pragma unroll
-  for (int i = 0; i < kL; ++i) o = mad_wide_u32(m[i], qs[kL + k - i], o);
-  if (k == 0) o += carry;
-  return group_rounds(o, k, 3);
-}
-
 // One thread's multiply or leaf (phase B), the Miller kernel's: csrc/
 // fq_arith.cuh's narrow32, schoolbook and wide_norm32, as the chain kernel
 // runs them (its REDC in phase D is fq_arith.cuh's redc).
@@ -619,7 +477,7 @@ __device__ __forceinline__ void bundle(const int* rec, const Smem& s, const Lane
             long long* dst;
             const bool is_mul = b_item(gi, mul_items, mul, leaf_tab, s, ln, xs, ys, dst);
             long long lo, hi;
-            group_schoolbook(xs, ys, scr, lane, k, lo, hi);
+            group_schoolbook(xs[k], ys[k], scr, lane, k, lo, hi);
             int wlo, whi;
             group_wide_norm(lo, hi, k, wlo, whi);
             if (own && lane < kL) {

@@ -141,13 +141,9 @@ _SQRT2_EXP_BITS = F._exp_bits((gt.q ** 2 + 7) // 16)
 
 
 def _fq2_pow_static(a, bits_np: np.ndarray):
-    """a^e, per bit MSB first: square, and multiply on a set bit."""
-    acc = T.fq2_ones(a.shape[:-2], a.device)
-    for bit in bits_np:
-        acc = T.fq2_sqr(acc)
-        if bit:
-            acc = T.fq2_mul(acc, a)
-    return acc
+    """a^e, per bit MSB first: square, and multiply on a set bit; one
+    chain launch for a CUDA tensor (Tower.fq2_pow_static)."""
+    return T.fq2_pow_static(a, bits_np)
 
 
 def _fq2_sign_flip(y, a_flag):

@@ -424,62 +424,143 @@ def fq_bilinear(av: torch.Tensor, bv: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Chains: a program of tower products on one accumulator
+# Chains: a program of products on one accumulator
 # ---------------------------------------------------------------------------
 
-# A program is one int32 array, a code per step: the product's kind in
-# the low KIND_BITS bits, the source of its b above them. SRC_ACC: the
+# A program is one int32 array, a code per step: the step's kind in the
+# low KIND_BITS bits, the source of its b above them. SRC_ACC: the
 # accumulator itself (a square); SRC_BASE: the chain's fixed base;
-# SRC_OPERAND + p: slice p of the operand ([..., S, Cs, L]).
+# SRC_OPERAND + p: slot p ([..., p, :, :] of the operand, [..., S, Cs, L]).
+#
+# Kinds 0 .. KIND_MUL - 1 are the tower products the kernel compiles in
+# (ops/fq_tower.py::TABLES, in that order). The others reproduce the
+# loops that are not tower products, op for op:
+# - KIND_MUL: acc = fq_mul(acc, b), fq_mul's own route (three carry rounds
+#   on each input, schoolbook, REDC; no wide norm), on an Fq accumulator;
+# - KIND_SQR2: Tower.fq2_sqr of an Fq2 accumulator: the two fq_mul-route
+#   products (a0 + a1)(a0 - a1) and a0 a1, then (P0, P1 + P1);
+# - KIND_NORM: acc = fq_norm(acc), three carry rounds on every row;
+# - KIND_STORE / KIND_LOAD: slot p = acc / acc = slot p (a window table).
+# A chain without an operand has slots all the same: as many as its
+# program names, each starting as one of the accumulator's field
+# (Montgomery one in row 0, zero rows after it); its stores fill them.
 KIND_BITS = 4
 KIND_MASK = (1 << KIND_BITS) - 1
 SRC_ACC, SRC_BASE, SRC_OPERAND = 0, 1, 2
+KIND_MUL, KIND_SQR2, KIND_NORM, KIND_STORE, KIND_LOAD = range(5, 10)
+N_KINDS = 10
+STEP_NAMES = {KIND_MUL: "fq_mul", KIND_SQR2: "fq2_sqr", KIND_NORM: "norm",
+              KIND_STORE: "store", KIND_LOAD: "load"}
+STEP_CA = {KIND_MUL: 1, KIND_SQR2: 2}      # the others take any accumulator
 
 
 def chain_program(steps) -> np.ndarray:
-    """[(Bilinear, source)] -> the program's int32 codes. Every product
-    maps the accumulator's coefficients onto themselves (R == Ca), and
-    one that normalizes its inputs or appends Montgomery one squares the
-    accumulator."""
+    """[(Bilinear or one of the KIND_* steps, source)] -> the program's
+    int32 codes. Every tower product maps the accumulator's coefficients
+    onto themselves (R == Ca), and one that normalizes its inputs or
+    appends Montgomery one squares the accumulator; KIND_SQR2 and
+    KIND_NORM read the accumulator alone, KIND_STORE and KIND_LOAD name a
+    slot."""
     codes = []
-    for tables, src in steps:
-        if tables.R != tables.Ca:
-            raise ValueError(f"{tables.name}: R {tables.R} != Ca {tables.Ca}")
-        if (tables.norm_in or tables.one_col) and src != SRC_ACC:
-            raise ValueError(f"{tables.name} squares the accumulator")
-        codes.append(tables.kind | src << KIND_BITS)
+    for step, src in steps:
+        if isinstance(step, Bilinear):
+            if step.R != step.Ca:
+                raise ValueError(f"{step.name}: R {step.R} != Ca {step.Ca}")
+            if (step.norm_in or step.one_col) and src != SRC_ACC:
+                raise ValueError(f"{step.name} squares the accumulator")
+            kind = step.kind
+        else:
+            kind = int(step)
+            if kind not in STEP_NAMES:
+                raise ValueError(f"no chain step of kind {kind}")
+            if kind in (KIND_SQR2, KIND_NORM) and src != SRC_ACC:
+                raise ValueError(f"{STEP_NAMES[kind]} reads the accumulator alone")
+            if kind in (KIND_STORE, KIND_LOAD) and src < SRC_OPERAND:
+                raise ValueError(f"{STEP_NAMES[kind]} names a slot")
+        if src < 0:
+            raise ValueError(f"source {src}")
+        codes.append(kind | src << KIND_BITS)
     if not codes:
         raise ValueError("a chain has at least one step")
     return np.array(codes, dtype=np.int32)
 
 
+def program_slots(program: np.ndarray) -> int:
+    """The slots a program names (the highest slot + 1; 0 for none)."""
+    src = np.asarray(program) >> KIND_BITS
+    return int(max(0, src.max() - SRC_OPERAND + 1))
+
+
+def field_one_like(acc: torch.Tensor) -> torch.Tensor:
+    """One of acc's field ([..., C, L]: Montgomery one in row 0, zero
+    rows after it), broadcast to acc's shape."""
+    one = torch.zeros(acc.shape[-2:], dtype=torch.int64, device=acc.device)
+    one[0] = const(_ONE_MONT, acc.device)
+    return one.expand(acc.shape)
+
+
+def fq2_sqr_by(mul: Callable, a: torch.Tensor) -> torch.Tensor:
+    """Tower.fq2_sqr over a multiply route: (a0 + a1)(a0 - a1) and a0 a1
+    as one fq_mul of stacked pairs, then (P0, P1 + P1)."""
+    a0, a1 = a[..., 0, :], a[..., 1, :]
+    P = mul(torch.stack([a0 + a1, a0], dim=-2), torch.stack([a0 - a1, a1], dim=-2))
+    return torch.stack([P[..., 0, :], P[..., 1, :] + P[..., 1, :]], dim=-2)
+
+
 def chain_by_products(bilinear: Callable, acc: torch.Tensor,
-                      program: np.ndarray, tables: Sequence[Bilinear],
+                      program: np.ndarray, tables: Optional[Sequence[Bilinear]],
                       base: Optional[torch.Tensor] = None,
-                      operand: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The chain one product at a time: for each code, acc =
-    bilinear(acc, b, tables[kind]), b the accumulator, the base or an
-    operand slice. tables: the products by kind."""
+                      operand: Optional[torch.Tensor] = None,
+                      mul: Optional[Callable] = None) -> torch.Tensor:
+    """The chain one step at a time: a tower product is acc =
+    bilinear(acc, b, tables[kind]), b the accumulator, the base or a slot;
+    KIND_MUL and KIND_SQR2 multiply through `mul` (fq_mul's function, as
+    fq_mul and Tower.fq2_sqr do); the norm, store and load steps are the
+    tensor ops they name. tables: the products by kind (None where the
+    program has none)."""
+    slots = None
+    if operand is None and program_slots(program):
+        slots = [field_one_like(acc)] * program_slots(program)
     for code in program:
-        src = int(code) >> KIND_BITS
-        b = (acc if src == SRC_ACC else base if src == SRC_BASE
-             else operand[..., src - SRC_OPERAND, :, :])
-        acc = bilinear(acc, b, tables[int(code) & KIND_MASK])
+        kind, src = int(code) & KIND_MASK, int(code) >> KIND_BITS
+        if src == SRC_ACC:
+            b = acc
+        elif src == SRC_BASE:
+            b = base
+        elif slots is not None:
+            b = slots[src - SRC_OPERAND]
+        else:
+            b = operand[..., src - SRC_OPERAND, :, :]
+        if kind < KIND_MUL:
+            acc = bilinear(acc, b, tables[kind])
+        elif kind == KIND_MUL:
+            acc = mul(acc, b)
+        elif kind == KIND_SQR2:
+            acc = fq2_sqr_by(mul, acc)
+        elif kind == KIND_NORM:
+            acc = fq_norm(acc)
+        elif kind == KIND_STORE:
+            slots[src - SRC_OPERAND] = acc
+        elif kind == KIND_LOAD:
+            acc = b
+        else:
+            raise ValueError(f"no chain step of kind {kind}")
     return acc
 
 
 def fq_bilinear_chain_plain(acc: torch.Tensor, program: np.ndarray,
-                            tables: Sequence[Bilinear],
+                            tables: Optional[Sequence[Bilinear]],
                             base: Optional[torch.Tensor] = None,
                             operand: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """acc [..., Ca, L] through the program's products -> [..., Ca, L],
-    each step fq_bilinear_plain; base [..., Cb, L] and operand
-    [..., S, Cs, L] broadcast with acc over the batch axes."""
-    return chain_by_products(fq_bilinear_plain, acc, program, tables, base, operand)
+    """acc [..., Ca, L] through the program's steps -> [..., Ca, L], each
+    product fq_bilinear_plain or fq_mul_plain; base [..., Cb, L] and
+    operand [..., S, Cs, L] broadcast with acc over the batch axes."""
+    return chain_by_products(fq_bilinear_plain, acc, program, tables, base,
+                             operand, fq_mul_plain)
 
 
 def fq_bilinear_chain(acc: torch.Tensor, program: np.ndarray,
-                      tables: Sequence[Bilinear],
+                      tables: Optional[Sequence[Bilinear]],
                       base: Optional[torch.Tensor] = None,
                       operand: Optional[torch.Tensor] = None) -> torch.Tensor:
     """fq_bilinear_chain_plain's function: the whole program in one launch
@@ -525,6 +606,29 @@ def pow_static_muls(nbits: int, w: int) -> int:
     return ((1 << w) - 2) + (-(-nbits // w) - 1)
 
 
+_FQ_PROGRAMS: Dict[tuple, np.ndarray] = {}
+
+
+def fq_pow_program(bits_np: np.ndarray, w: int = _POW_WINDOW) -> np.ndarray:
+    """Field.pow_static's fixed window as a chain on an Fq accumulator
+    that starts as a: fq_norm(a) into slot 1, table[k] = table[k-1] * a
+    into slot k for k = 2 .. 2^w - 1 (slot 0 stays Montgomery one), the
+    top digit's entry loaded, then per window w squarings and one
+    multiply by slot d. Built once per exponent."""
+    key = (bytes(np.asarray(bits_np, dtype=np.uint8)), w)
+    prog = _FQ_PROGRAMS.get(key)
+    if prog is None:
+        digits = [int(d) for d in _exp_window_digits(bits_np, w)]
+        steps = [(KIND_NORM, SRC_ACC), (KIND_STORE, SRC_OPERAND + 1)]
+        for k in range(2, 1 << w):
+            steps += [(KIND_MUL, SRC_OPERAND + 1), (KIND_STORE, SRC_OPERAND + k)]
+        steps.append((KIND_LOAD, SRC_OPERAND + digits[0]))
+        for d in digits[1:]:
+            steps += [(KIND_MUL, SRC_ACC)] * w + [(KIND_MUL, SRC_OPERAND + d)]
+        prog = _FQ_PROGRAMS[key] = chain_program(steps)
+    return prog
+
+
 # ---------------------------------------------------------------------------
 # The field: everything that multiplies, over one multiply/REDC route
 # ---------------------------------------------------------------------------
@@ -533,19 +637,23 @@ class Field:
     """Fq operations over one route: `mul` ([..., L] x [..., L] ->
     [..., L]), `mul_norm` (mul, then NORM_FULL carry rounds), `redc`
     ([..., 2L] -> [..., L]), `bilinear` (a tower product, (av, bv,
-    Bilinear) -> [..., R, L]) and `bilinear_chain` (a program of them,
+    Bilinear) -> [..., R, L]) and `bilinear_chain` (a program of steps,
     (acc, program, tables, base, operand) -> [..., Ca, L]; by default one
-    `bilinear` per step). The boundary ops and the static-exponent powers
-    are the reference's, written once over the route."""
+    `bilinear` or `mul` per step). The boundary ops and the
+    static-exponent powers are the reference's, written once over the
+    route; with `chain_powers` a power is one `bilinear_chain` of
+    fq_pow_program, else the loop of `mul`s (the same products)."""
 
     def __init__(self, mul: Callable, mul_norm: Callable, redc: Callable,
-                 bilinear: Callable, bilinear_chain: Optional[Callable] = None):
+                 bilinear: Callable, bilinear_chain: Optional[Callable] = None,
+                 chain_powers: bool = False):
         self.mul = mul
         self.mul_norm = mul_norm
         self.redc = redc
         self.bilinear = bilinear
         self.bilinear_chain = bilinear_chain or functools.partial(
-            chain_by_products, bilinear)
+            chain_by_products, bilinear, mul=mul)
+        self.chain_powers = chain_powers
 
     def sqr(self, a):
         return self.mul(a, a)
@@ -579,9 +687,13 @@ class Field:
     def pow_static(self, a, bits_np: np.ndarray, w: Optional[int] = None):
         """a^e, e a static bit array: fixed-window evaluation (table of
         a^0..a^(2^w-1), then per window w squarings and one multiply --
-        by the table's one for a zero digit, as in the reference)."""
+        by the table's one for a zero digit, as in the reference): one
+        chain (fq_pow_program) with chain_powers, else the loop."""
         if w is None:
             w = _POW_WINDOW
+        if self.chain_powers:
+            return self.bilinear_chain(a[..., None, :], fq_pow_program(bits_np, w),
+                                       None)[..., 0, :]
         digits = [int(d) for d in _exp_window_digits(bits_np, w)]
         a = fq_norm(a)
         table = [fq_ones(a.shape[:-1], a.device), a]
@@ -604,7 +716,8 @@ class Field:
         return self.pow_static(a, _SQRT_EXP_BITS)
 
 
-DEVICE = Field(fq_mul, fq_mul_norm, fq_redc, fq_bilinear, fq_bilinear_chain)
+DEVICE = Field(fq_mul, fq_mul_norm, fq_redc, fq_bilinear, fq_bilinear_chain,
+               chain_powers=True)
 PLAIN = Field(fq_mul_plain, fq_mul_norm_plain, fq_redc_plain, fq_bilinear_plain,
               fq_bilinear_chain_plain)
 

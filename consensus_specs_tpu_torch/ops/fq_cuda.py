@@ -5,7 +5,8 @@
 fq_bilinear_plain and fq_bilinear_chain_plain bit for bit; ops.fq's
 routed entry points send CUDA tensors here and CPU tensors to the plain
 versions. A single tower product is a chain of one step of the same
-kernel. Operands may be broadcast views: each is passed with its own
+kernel; a chain's program is uploaded to the device once and has no
+length limit. Operands may be broadcast views: each is passed with its own
 strides over the lane axes (0 where it is broadcast), never copied. Each
 entry point keeps its own launch counter, with a histogram of lanes per
 launch.
@@ -29,7 +30,6 @@ MAX_OPERANDS = 3
 # ndim, sizes, per operand (strides, coefficient stride, vec16), then the
 # operands' slice strides
 _LAYOUT_LEN = 1 + MAX_DIMS + MAX_OPERANDS * (MAX_DIMS + 2) + MAX_OPERANDS
-MAX_STEPS = 128                   # csrc/fq_mont.cu kMaxSteps
 PHASES = 4                        # clock stamps per chain step
 
 # The work of one lane (see the source's header). fq_mul does 196
@@ -49,14 +49,36 @@ def bilinear_work(P: int, R: int, Ca: int, Cb: int):
     return P * L * L + R * L * 15, (Ca + Cb + R) * L * 8
 
 
+def step_products(code, tables) -> int:
+    """Limb products of one chain step: a tower product's P schoolbooks
+    and R REDCs, an fq_mul's one of each (two for an Fq2 squaring), none
+    for norm, store and load."""
+    kind = int(code) & F.KIND_MASK
+    if kind < F.KIND_MUL:
+        t = tables[kind]
+        return t.P * L * L + t.R * L * 15
+    return {F.KIND_MUL: 1, F.KIND_SQR2: 2}.get(kind, 0) * PRODUCTS_PER_LANE["fq_mul"]
+
+
+def program_ca(program, tables) -> int:
+    """The accumulator's coefficients a program multiplies (that of its
+    first product)."""
+    for c in program:
+        kind = int(c) & F.KIND_MASK
+        if kind < F.KIND_MUL:
+            return tables[kind].Ca
+        if kind in F.STEP_CA:
+            return F.STEP_CA[kind]
+    raise ValueError("a program without products")
+
+
 def chain_work(program, tables, Cb: int = 0, S: int = 0, Cs: int = 0):
     """(limb products, bytes) of one lane of a chain: every step's
     products; the accumulator, the base (Cb coefficients) and the operand
-    (S x Cs) read once and the accumulator written once."""
-    steps = [tables[int(c) & F.KIND_MASK] for c in program]
-    products = sum(t.P * L * L + t.R * L * 15 for t in steps)
-    Ca = steps[0].Ca
-    return products, (2 * Ca + Cb + S * Cs) * L * 8
+    (S x Cs; 0 for a table the program fills) read once and the
+    accumulator written once."""
+    products = sum(step_products(c, tables) for c in program)
+    return products, (2 * program_ca(program, tables) + Cb + S * Cs) * L * 8
 
 
 def _bound(products, nbytes, lanes, imad_per_s, bytes_per_s):
@@ -114,8 +136,8 @@ _ARGTYPES = {
     "fq_mul": [_P, _P, _P, ctypes.c_longlong, _LAYOUT, ctypes.c_int, _P],
     "fq_redc": [_P, _P, ctypes.c_longlong, _LAYOUT, _P],
     "fq_chain": [_P, _P, _P, _P, ctypes.c_longlong, _LAYOUT,
-                 ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                 ctypes.POINTER(ctypes.c_int), _P, _P],
+                 ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int,
+                 ctypes.POINTER(ctypes.c_int), _P, ctypes.POINTER(ctypes.c_int), _P],
     "fq_empty": [_P],
 }
 _fns = {}
@@ -265,19 +287,48 @@ def fq_redc_cuda(cols: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_step(code, Ca, Cb, S, Cs, table, tables, what):
+    """A step against the chain's shapes (csrc/fq_mont.cu check_program):
+    raises ValueError where the kernel cannot run it."""
+    kind, src = int(code) & F.KIND_MASK, int(code) >> F.KIND_BITS
+    if code < 0 or kind >= F.N_KINDS:
+        raise ValueError(f"{what}: code {int(code)}: no step of that kind")
+    name = T.step_name(code)
+    slot = F.SRC_OPERAND <= src < F.SRC_OPERAND + S
+    if kind >= F.KIND_NORM:
+        ok = (src == F.SRC_ACC if kind == F.KIND_NORM
+              else slot and Cs == Ca and (table or kind == F.KIND_LOAD))
+    else:
+        if kind < F.KIND_MUL:
+            t = tables[kind]
+            tCa, tR, tCb, squares = t.Ca, t.R, t.Cb, t.norm_in or t.one_col
+        else:
+            tCa = tR = tCb = F.STEP_CA[kind]
+            squares = kind == F.KIND_SQR2
+        ok = tCa == tR == Ca and (
+            (src == F.SRC_ACC and tCb == Ca)
+            or (not squares and ((src == F.SRC_BASE and tCb == Cb)
+                                 or (slot and tCb == Cs))))
+    if not ok:
+        raise ValueError(f"{what}: {name} (kind {kind}) with b from source {src}"
+                         f" (Ca {Ca}, Cb {Cb}, {S} slots of {Cs} rows"
+                         f"{', a table' if table else ''})")
+
+
 def _chain_plan(acc, codes, base, operand):
     """(output shape, lanes, layout, dims, program) of a chain launch: the
     program (int32 codes) and the operands' shapes checked against its
-    steps, the program as the launcher's array."""
-    if codes.ndim != 1 or not 1 <= codes.shape[0] <= MAX_STEPS:
-        raise ValueError(f"a chain takes 1 to {MAX_STEPS} steps, got {codes.shape}")
-    if int(codes.min()) < 0 or int((codes & F.KIND_MASK).max()) >= len(T.TABLES):
-        raise ValueError(f"program {codes.tolist()}: no compiled product of that kind")
-    steps = [(T.TABLES[int(c) & F.KIND_MASK], int(c) >> F.KIND_BITS) for c in codes]
-    Ca = steps[0][0].Ca
-    what = f"chain of {len(steps)} steps"
+    steps, the program as the launcher's array. Without an operand the
+    program's slots are a table of acc's shape."""
+    if codes.ndim != 1 or codes.shape[0] < 1:
+        raise ValueError(f"a chain takes at least one step, got {codes.shape}")
+    if acc.dim() < 2:
+        raise ValueError(f"a chain's accumulator [..., Ca, 14], got {tuple(acc.shape)}")
+    Ca = acc.shape[-2]
+    what = f"chain of {codes.shape[0]} steps"
     _rows(acc, (Ca, L), what)
     Cb = S = Cs = 0
+    table = operand is None
     if base is not None:
         Cb = base.shape[-2]
         _rows(base, (Cb, L), what)
@@ -286,14 +337,11 @@ def _chain_plan(acc, codes, base, operand):
             raise ValueError(f"{what}: operand {tuple(operand.shape)}")
         S, Cs = operand.shape[-3], operand.shape[-2]
         _rows(operand, (S, Cs, L), what)
-    for t, src in steps:
-        ok = t.Ca == t.R == Ca and (
-            (src == F.SRC_ACC and t.Cb == Ca)
-            or (not (t.norm_in or t.one_col) and (
-                (src == F.SRC_BASE and base is not None and t.Cb == Cb)
-                or (F.SRC_OPERAND <= src < F.SRC_OPERAND + S and t.Cb == Cs))))
-        if not ok:
-            raise ValueError(f"{what}: {t.name} with b from source {src}")
+    else:
+        S = F.program_slots(codes)
+        Cs = Ca if S else 0
+    for c in codes:
+        _check_step(c, Ca, Cb, S, Cs, table, T.TABLES, what)
     batches = [acc.shape[:-2]]
     batches += [] if base is None else [base.shape[:-2]]
     batches += [] if operand is None else [operand.shape[:-3]]
@@ -302,7 +350,7 @@ def _chain_plan(acc, codes, base, operand):
              None if base is None else base.expand(batch + (Cb, L)),
              None if operand is None else operand.expand(batch + (S, Cs, L)))
     return (batch + (Ca, L), _lanes_of(batch), _layout(batch, views),
-            (ctypes.c_int * 4)(Ca, Cb, S, Cs),
+            (ctypes.c_int * 5)(Ca, Cb, S, Cs, int(not table)),
             (ctypes.c_int * codes.shape[0])(*codes.tolist()))
 
 
@@ -310,56 +358,88 @@ def _key(t):
     return None if t is None else (t.shape, t.stride(), t.data_ptr() & 15)
 
 
-def _chain(acc, program, tables, base, operand, stamps=None):
-    """One launch of the chain kernel -> (output, lanes). tables must be
-    the products the kernel has compiled in (ops/fq_tower.py::TABLES,
-    csrc/fq_tables.cuh)."""
-    if tables is not T.TABLES and (len(tables) != len(T.TABLES) or any(
-            a is not b for a, b in zip(tables, T.TABLES))):
+# Programs in device memory, keyed by their codes and the device: each is
+# uploaded once (the main path runs a few dozen programs thousands of times).
+_DEVICE_PROGRAMS = {}
+
+
+def _device_program(codes: np.ndarray, dev: torch.device) -> torch.Tensor:
+    key = (codes.tobytes(), dev)
+    prog = _DEVICE_PROGRAMS.get(key)
+    if prog is None:
+        if len(_DEVICE_PROGRAMS) >= _MAX_PLANS:
+            _DEVICE_PROGRAMS.clear()
+        prog = _DEVICE_PROGRAMS[key] = torch.from_numpy(codes.copy()).to(dev)
+    return prog
+
+
+def _chain(acc, program, tables, base, operand, stamps=None, shape=None):
+    """One launch of the chain kernel -> (output, lanes). tables: where
+    the program has tower products, the products the kernel has compiled
+    in (ops/fq_tower.py::TABLES, csrc/fq_tables.cuh). shape: None, or a
+    4-int ctypes array that receives the launch's groups flag, threads,
+    lanes a block and blocks."""
+    codes = np.ascontiguousarray(program, dtype=np.int32)
+    if tables is not T.TABLES and bool(((codes & F.KIND_MASK) < F.KIND_MUL).any()) and (
+            tables is None or len(tables) != len(T.TABLES)
+            or any(a is not b for a, b in zip(tables, T.TABLES))):
         raise ValueError("a chain runs the compiled products, fq_tower.TABLES")
     ts = [t for t in (acc, base, operand) if t is not None]
     acc, base, operand = (None if t is None else _check(t, "fq_chain")
                           for t in (acc, base, operand))
     if any(t.device != acc.device for t in ts):
         raise ValueError(f"fq_chain: operands on {[str(t.device) for t in ts]}")
-    codes = np.ascontiguousarray(program, dtype=np.int32)
-    shape, n, layout, dims, prog = _plan(
+    out_shape, n, layout, dims, prog = _plan(
         ("chain", codes.tobytes(), codes.shape, _key(acc), _key(base), _key(operand)),
         lambda: _chain_plan(acc, codes, base, operand))
-    out = torch.empty(shape, dtype=torch.int64, device=acc.device)
+    out = torch.empty(out_shape, dtype=torch.int64, device=acc.device)
     if n:
+        prog_dev = _device_program(codes, acc.device)
         _call("fq_chain", acc.device, acc.data_ptr(),
               0 if base is None else base.data_ptr(),
               0 if operand is None else operand.data_ptr(), out.data_ptr(), n,
-              layout, prog, len(prog), dims,
-              0 if stamps is None else stamps.data_ptr())
+              layout, prog, prog_dev.data_ptr(), len(prog), dims,
+              0 if stamps is None else stamps.data_ptr(), shape)
     return out, n
 
 
 def fq_bilinear_chain_cuda(acc: torch.Tensor, program, tables,
                            base=None, operand=None) -> torch.Tensor:
-    """A program of tower products in one launch: acc [..., Ca, 14], base
+    """A program of steps in one launch: acc [..., Ca, 14], base
     [..., Cb, 14], operand [..., S, Cs, 14] int64 lazy limbs (batch axes
     broadcast) on one CUDA device -> [..., Ca, 14],
     fq_bilinear_chain_plain's limbs. program: ops.fq.chain_program codes;
-    tables: the compiled products by kind (ops/fq_tower.py::TABLES)."""
+    tables: the compiled products by kind (ops/fq_tower.py::TABLES), or
+    None for a program without tower products."""
     out, n = _chain(acc, program, tables, base, operand)
     if n:
         chain_counter.record((len(program), n))
     return out
 
 
+def chain_launch_shape(acc, program, tables, base=None, operand=None) -> dict:
+    """The launcher's shape of this chain: {"groups", "threads",
+    "lanes_per_block", "blocks"} (one launch, not counted)."""
+    shape = (ctypes.c_int * 4)()
+    _chain(acc, program, tables, base, operand, shape=shape)
+    return {"groups": bool(shape[0]), "threads": shape[1],
+            "lanes_per_block": shape[2], "blocks": shape[3]}
+
+
 def chain_phase_clocks(acc: torch.Tensor, program, tables, base=None,
                        operand=None) -> np.ndarray:
-    """[steps, 4] SM clock cycles of phases A-D (pre-sums, leaves, gamma
-    sums, REDCs) of each step in block 0 of one chain launch (clock64()
-    after each phase's barrier). A measurement: the launch is not
-    counted."""
+    """[steps, 4] SM clock cycles of phases A-D (pre-sums, leaves or
+    schoolbooks, gamma sums, REDCs; a norm, store or load all in A) of
+    each step in block 0 of one chain launch (clock64() after each
+    phase's barrier). A measurement: the launch is not counted."""
     stamps = torch.zeros(1 + PHASES * len(program), dtype=torch.int64,
                          device=acc.device)
     _chain(acc, program, tables, base, operand, stamps)
     s = stamps.cpu().numpy()
     return np.diff(s).reshape(len(program), PHASES)
+
+
+_ONE_STEP = {}                    # a single product's program, by (kind, source)
 
 
 def fq_bilinear_cuda(av: torch.Tensor, bv: torch.Tensor,
@@ -374,7 +454,9 @@ def fq_bilinear_cuda(av: torch.Tensor, bv: torch.Tensor,
     if bv is not av and (tables.norm_in or tables.one_col):
         raise ValueError(f"{tables.name} squares its operand: pass bv is av")
     src = F.SRC_ACC if bv is av else F.SRC_BASE
-    program = np.array([tables.kind | src << F.KIND_BITS], dtype=np.int32)
+    program = _ONE_STEP.get((tables.kind, src))
+    if program is None:
+        program = _ONE_STEP[(tables.kind, src)] = F.chain_program([(tables, src)])
     out, n = _chain(av, program, T.TABLES, None if bv is av else bv, None)
     if n:
         bilinear_counter.record((tables.name, n))

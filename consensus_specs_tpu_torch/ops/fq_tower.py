@@ -301,7 +301,7 @@ _SQR_T = _bilinear_tables(_derive_fq12_sqr_tables, "fq12_sqr", 2)
 _LINE_T = _bilinear_tables(_derive_fq12_line_tables, "fq12_mul_line", 3)
 _CYCLO_T = _bilinear_tables(_derive_cyclo_sqr_tables, "fq12_cyclo_sqr", 4,
                             norm_in=True, one_col=True)
-TABLES = (_FQ2_T, _MUL_T, _SQR_T, _LINE_T, _CYCLO_T)
+TABLES = (_FQ2_T, _MUL_T, _SQR_T, _LINE_T, _CYCLO_T)   # then the chain's own kinds (fq.KIND_MUL ...)
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +332,12 @@ def pow_abs_program(bits_np: np.ndarray) -> np.ndarray:
     return prog
 
 
+def step_name(code) -> str:
+    """A chain step's name: its tower product's, or ops.fq.STEP_NAMES'."""
+    kind = int(code) & F.KIND_MASK
+    return TABLES[kind].name if kind < F.KIND_MUL else F.STEP_NAMES[kind]
+
+
 def lines_program(n_lines: int, square: bool) -> np.ndarray:
     """The Miller loop's f-update over n_lines sparse lines: (with
     `square`, one Fq12 squaring first, the doubling step) then one line
@@ -341,6 +347,23 @@ def lines_program(n_lines: int, square: bool) -> np.ndarray:
     if prog is None:
         steps = [(_SQR_T, F.SRC_ACC)] if square else []
         steps += [(_LINE_T, F.SRC_OPERAND + p) for p in range(n_lines)]
+        prog = _PROGRAMS[key] = F.chain_program(steps)
+    return prog
+
+
+def fq2_pow_program(bits_np: np.ndarray) -> np.ndarray:
+    """a^e on an Fq2 accumulator that starts as one, a the base, per bit
+    MSB first: Tower.fq2_sqr, and fq2_mul by the base on a set bit (the
+    reference's square-and-select walk, decompress.py:147
+    _fq2_pow_static, multiplying only on the set bits)."""
+    key = ("fq2_pow", bytes(np.asarray(bits_np, dtype=np.uint8)))
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        steps = []
+        for bit in bits_np:
+            steps.append((F.KIND_SQR2, F.SRC_ACC))
+            if bit:
+                steps.append((_FQ2_T, F.SRC_BASE))
         prog = _PROGRAMS[key] = F.chain_program(steps)
     return prog
 
@@ -451,10 +474,21 @@ class Tower:
 
     def fq2_sqr(self, a):
         """(a0 + a1 u)^2 = (a0+a1)(a0-a1) + 2 a0 a1 u."""
-        a0, a1 = a[..., 0, :], a[..., 1, :]
-        P = self.F.mul(torch.stack([a0 + a1, a0], dim=-2),
-                       torch.stack([a0 - a1, a1], dim=-2))
-        return fq2(P[..., 0, :], P[..., 1, :] + P[..., 1, :])
+        return F.fq2_sqr_by(self.F.mul, a)
+
+    def fq2_pow_static(self, a, bits_np):
+        """a^e, e a static bit array (MSB first): per bit a squaring, and
+        a multiply by a on a set bit. One chain (fq2_pow_program) where
+        the field chains its powers, else the loop."""
+        one = fq2_ones(a.shape[:-2], a.device)
+        if self.F.chain_powers:
+            return self.F.bilinear_chain(one, fq2_pow_program(bits_np), TABLES, a)
+        acc = one
+        for bit in bits_np:
+            acc = self.fq2_sqr(acc)
+            if bit:
+                acc = self.fq2_mul(acc, a)
+        return acc
 
     def fq2_scale(self, a, s):
         """a * s, s an Fq element [..., L]."""
@@ -586,6 +620,7 @@ fq2_mul = DEVICE.fq2_mul
 fq2_sqr = DEVICE.fq2_sqr
 fq2_scale = DEVICE.fq2_scale
 fq2_inv = DEVICE.fq2_inv
+fq2_pow_static = DEVICE.fq2_pow_static
 fq2_is_zero = DEVICE.fq2_is_zero
 fq2_eq = DEVICE.fq2_eq
 fq6_mul = DEVICE.fq6_mul
