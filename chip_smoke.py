@@ -228,6 +228,20 @@ plain functions on the block's and the firehose's inputs. `phase bls
 sign` times TorchBackend.sign (the host's hash_to_g2, then one ladder
 launch), its signature equal to the bignum oracle's.
 
+The point programs of the final exponentiation and the addition trees
+(ops/fq_points.py: final_exp_program, tree_program), in `phase kernel`:
+each on both point kernels (g2_ladder_kernel's 16-thread multiplies,
+miller_grouped_kernel's thread an item) and through the path's wrappers
+bit-identical to its plain twin, at the main path's shapes (the final
+exponentiation at 128 x 3 and 16 x 2, the G1 tree of a block's 16
+committees padded to 1,024 and G2 trees of 4 and 64), lane 0
+against the bignum oracle (the final power, two pairing verdicts, each
+tree's row-0 sum); each with its ms, its plain twin's, its bound, its
+bundles and block 0's cycles a bundle. On the main path every grouped
+pairing is a miller_grouped launch and a final_exp launch (a firehose
+batch at most FIREHOSE_MAX_LAUNCHES launches), and a verify's stage 1
+makes at most STAGE1_MAX_LAUNCHES launches, its trees point_tree launches.
+
 Kernel times: at 1,048,576 lanes beside each kernel's bound, and at the
 lane count the verify launches most, beside an empty kernel's launch on
 the same stream (per eager call, host included, and per launch replayed
@@ -519,7 +533,9 @@ FQ_COUNTERS = {"fq_mul": fq_cuda.mul_counter, "fq_redc": fq_cuda.redc_counter,
                "fq_bilinear": fq_cuda.bilinear_counter,
                "fq_bilinear_chain": fq_cuda.chain_counter,
                "g2_ladder": fq_points.ladder_counter,
-               "miller_grouped": fq_points.miller_counter}
+               "miller_grouped": fq_points.miller_counter,
+               "final_exp": fq_points.final_exp_counter,
+               "point_tree": fq_points.tree_counter}
 
 
 def aten_ops(fn):
@@ -540,15 +556,26 @@ def aten_ops(fn):
     return Count.n
 
 
-# the kernels every BLS verify launches (fq_redc runs inside the tower
-# products; the final exponentiation's fq12_inv multiplies with fq_mul, its
-# tower products are fq_bilinear launches and its |z| powers chains; the
-# Miller loop is one miller_grouped launch)
-BLS_PATH = ("fq_mul", "fq_bilinear", "fq_bilinear_chain", "miller_grouped")
+# the launches of every pairing: the Miller loop's and the final
+# exponentiation's programs
+PAIRING_PATH = ("miller_grouped", "final_exp")
+# and of every decompression on the card (a block's verify, an aggregate):
+# the lift, curve check and sign by fq_mul, the G2 ones by fq_bilinear too,
+# the square roots and the G2 inversion chains, the addition trees programs
+DECOMPRESS_PATH = ("fq_mul", "fq_bilinear", "fq_bilinear_chain", "point_tree")
+BLS_PATH = PAIRING_PATH + DECOMPRESS_PATH
 
 
-def launched_path(launches) -> bool:
-    return min(launches[k] for k in BLS_PATH) > 0
+def programs(launches) -> str:
+    """The point programs' launch counts, for a phase line."""
+    return " / ".join(f"{k} {launches.get(k, 0)}" for k in
+                      ("miller_grouped", "final_exp", "point_tree"))
+
+
+def launched_path(launches, decompress: bool = True) -> bool:
+    """Whether a path launched every kernel of its pairings and, where it
+    decompresses on the card, of its decompressions."""
+    return min(launches[k] for k in (BLS_PATH if decompress else PAIRING_PATH)) > 0
 
 
 def fq_launches():
@@ -1073,6 +1100,217 @@ def report_point_kernels(pk) -> None:
                 + f" of each): {split(r)}")
 
 
+# the point programs of the final exponentiation and the addition trees
+# at the main path's shapes: a firehose batch (128 groups of 3 pairs) and a
+# block's grouped pairing (16 x 2); the pubkey trees of a block's verify
+# (16 committees of 976, padded to 1,024), and aggregate_signatures'
+# tree (the oracle phase's 4 signatures; 64 for a tree of two launches)
+FINAL_EXP_CASES = {"128 x 3": (FIREHOSE_G, 3), "16 x 2": (16, 2)}
+TREE_CASES = {"g1 16 x 1024": ("g1", 16, 1024), "g2 1 x 4": ("g2", 1, 4),
+              "g2 1 x 64": ("g2", 1, 64)}
+PROGRAM_MODES = ("groups", "threads")
+# the launches a firehose batch and the warm verify's stage 1 may make
+FIREHOSE_MAX_LAUNCHES = 3
+STAGE1_MAX_LAUNCHES = 15
+
+
+def cancelling_groups(G: int, P: int):
+    """(g1, g2) numpy: G groups of P pairs whose pairing product is one,
+    every group but group 1, whose signature is group 2's: P = 3 the
+    firehose's traffic (stage_example_groups), P = 2 pairing_groups."""
+    g1, g2 = (bls_torch.stage_example_groups(G) if P == 3 else pairing_groups(8, G))
+    g2[1, 0] = g2[2, 0]
+    return g1, g2
+
+
+def clocked(prog, fn, dev, ms):
+    """Block 0's mean cycles a bundle of one launch (fn(stamps) launches
+    it), split by what the bundles hold (bundle_split), and the launch's
+    us a bundle."""
+    cycles, phases = fq_points.bundle_clocks(fn, prog, dev)
+    return {"bundles": prog.n_bundles, "cycles_a_bundle": float(cycles.mean()),
+            "us_a_bundle": ms * 1e3 / max(prog.n_bundles, 1),
+            "split": bundle_split(prog, cycles, phases)}
+
+
+def tree_points(curve: str, B: int, C: int, dev):
+    """(Jacobian points [B, C, 3, (2,) 14] on dev, the bignum affine
+    members of row 0): multiples of the generator by 8 seeded scalars,
+    cycled, with infinity members (every 37th from 5), member 3 equal to
+    member 2 (jac_add's doubling branch) and member 5 the negation of
+    member 4 (its infinity branch)."""
+    gen = bls_host.G1_GEN if curve == "g1" else bls_host.G2_GEN
+    base = [bls_host.ec_mul(gen, SEED % 1000 + 7 * j + 3) for j in range(8)]
+    members = [base[j % 8] for j in range(C)]
+    if C >= 6:
+        members[3] = members[2]
+        members[5] = bls_host.ec_neg(members[4])
+    inf = np.zeros((B, C), bool)
+    inf[:, 5::37] = True
+    to_limbs = bls_torch.g1_to_limbs if curve == "g1" else bls_torch.g2_to_limbs
+    aff = torch.from_numpy(np.stack([to_limbs(m) for m in members])).to(dev)
+    aff = aff[None].expand((B,) + tuple(aff.shape))
+    x, y = aff[:, :, 0], aff[:, :, 1]
+    if curve == "g1":
+        sel, one = fq_mod.fq_select, fq_mod.const(fq_mod._ONE_MONT, dev)
+    else:
+        sel, one = fq_tower.fq2_select, fq_mod.const(fq_tower._FQ2_ONE_NP, dev)
+    jac = bls_torch._jacobian_or_infinity(sel, x, y, torch.from_numpy(inf).to(dev), one)
+    pts = torch.stack(jac, dim=2).contiguous()
+    return pts, [m for m, i in zip(members, inf[0]) if not i]
+
+
+def run_on(mode: str, prog, dev, n: int, ins, stamps=None):
+    """One launch of a program on the point kernel of `mode` ("groups" or
+    "threads", fq_points.ENTRY), whatever kernel the path takes for it ->
+    (out rows, out flags or None). A measurement: counted by no wrapper."""
+    flags = torch.empty(n, dtype=torch.uint8, device=dev) if prog.out_flag >= 0 else None
+    out = fq_points._launch(fq_points.ENTRY[mode], prog, dev, n, ins, out_flags=flags,
+                            stamps=stamps)
+    return out, None if flags is None else flags.bool()
+
+
+def check_point_programs(rng, dev):
+    """The final exponentiation's program (fq_points.final_exp_program)
+    and the addition trees' programs (tree_program, in point_tree_cuda's
+    launches) on the point kernels vs
+    their plain twins (the same programs through torch's plain functions
+    on the card), torch.equal on the limbs and flags, on both kernels
+    ("groups": g2_ladder_kernel's 16-thread multiplies, "threads":
+    miller_grouped_kernel's thread an item) and through the path's
+    wrappers, at FINAL_EXP_CASES and TREE_CASES. Lane 0 against the bignum
+    oracle: the final power of f (crypto/bls12_381.py final_exponentiation,
+    cubed) at 128 x 3, the pairing verdicts of groups 0 (True) and 1
+    (False) at 16 x 2 (multi_pairing_is_one), each tree's row-0 sum
+    (ec_add). Then each program's ms on each kernel beside its plain
+    twin's and its bound, bundles and block 0's cycles a bundle. Returns
+    {"final_exp": {case: numbers}, "tree": {case: numbers}}."""
+    out = {"final_exp": {}, "tree": {}}
+    for label, (G, P) in FINAL_EXP_CASES.items():
+        g1n, g2n = cancelling_groups(G, P)
+        g1, g2 = torch.from_numpy(g1n).to(dev), torch.from_numpy(g2n).to(dev)
+        f = fq_points.miller_grouped_cuda(g1, g2)
+        prog = fq_points.final_exp_program()
+        want, plain_ms = fenced_ms(lambda: fq_points.final_exp_plain(f))
+        expect = [g != 1 for g in range(G)]
+        if want[1].tolist() != expect:
+            raise AssertionError(f"final_exp {label}: plain verdicts {want[1].tolist()}")
+        got = fq_points.final_exp_cuda(f)
+        _same(got[0], want[0], f"final_exp {label}")
+        _same(got[1].long(), want[1].long(), f"final_exp {label} verdicts")
+        row = {"groups": G, "pairs": P, "max_abs_err": 0, "plain_ms": plain_ms,
+               "ms": time_cuda(lambda: fq_points.final_exp_cuda(f), 10),
+               "program": prog.describe(), "launch": point_launch(prog, G), "modes": {}}
+        rows = f.reshape(G, 12, fq_mod.L)
+        for mode in PROGRAM_MODES:
+            res, ok = run_on(mode, prog, dev, G, (rows,))
+            _same(res, want[0].reshape(G, 12, fq_mod.L), f"final_exp {label} {mode}")
+            _same(ok.long(), want[1].long(), f"final_exp {label} {mode} verdicts")
+            ms = time_cuda(lambda: run_on(mode, prog, dev, G, (rows,)), 10)
+            row["modes"][mode] = {"ms": ms, **clocked(
+                prog, lambda st: run_on(mode, prog, dev, G, (rows,), st), dev, ms)}
+        row["bound_ms"], row["bound_by"] = fq_points.bound_ms(prog, G, INT32_OPS_PER_S,
+                                                              HBM_BYTES_PER_S)
+        if label == "128 x 3":
+            f0 = fq12_value(f[0].cpu().numpy())
+            if fq12_value(want[0][0].cpu().numpy()) != bls_host.final_exponentiation(f0) ** 3:
+                raise AssertionError(f"final_exp {label}: lane 0 != the bignum field's")
+        else:
+            for g in (0, 1):
+                pairs = [(host_g1(g1n[g, p]), host_g2(g2n[g, p])) for p in range(P)]
+                if bls_host.multi_pairing_is_one(pairs) != expect[g]:
+                    raise AssertionError(f"final_exp {label}: group {g} != the bignum oracle")
+        out["final_exp"][label] = row
+        del f, g1, g2
+    for label, (curve, B, C) in TREE_CASES.items():
+        pts, members = tree_points(curve, B, C, dev)
+        want, plain_ms = fenced_ms(lambda: fq_points.point_tree_plain(curve, pts))
+        acc = None
+        for m in members:
+            acc = bls_host.ec_add(acc, m)
+        x0, y0 = want[0][0].cpu().numpy(), want[1][0].cpu().numpy()
+        host = (None if bool(want[2][0]) else
+                host_g1((x0, y0)) if curve == "g1" else host_g2((x0, y0)))
+        if host != acc:
+            raise AssertionError(f"point tree {label}: row 0 != the bignum sum")
+        plan = fq_points.tree_plan(C.bit_length() - 1)
+        launches, lanes, bound = [], B * C, 0.0
+        for k, affine in plan:
+            lanes >>= k
+            prog = fq_points.tree_program(curve, k, affine)
+            launches.append({"levels": k, "affine": affine, "lanes": lanes,
+                             "mode": fq_points.tree_mode(lanes, dev),
+                             "bundles": prog.n_bundles, "registers": prog.nreg})
+            bound += fq_points.bound_ms(prog, lanes, INT32_OPS_PER_S, HBM_BYTES_PER_S)[0]
+        row = {"curve": curve, "rows": B, "points": C, "max_abs_err": 0,
+               "plain_ms": plain_ms, "launches": launches, "bound_ms": bound,
+               "bound_by": "operations", "modes": {}}
+        for mode in PROGRAM_MODES + ("auto",):
+            def tree(mode=mode):
+                if mode == "auto":
+                    return fq_points.point_tree_cuda(curve, pts)
+                return fq_points._point_tree(curve, pts, lambda n, dev: mode)
+            for g, w, what in zip(tree(), want, ("x", "y", "is_inf")):
+                _same(g.long(), w.long(), f"point tree {label} {mode} {what}")
+            row["modes"][mode] = time_cuda(tree, 10)
+        row["ms"] = row["modes"]["auto"]
+        # the last launch (its levels and jac_to_affine) alone, on points
+        # of the input: the program's work does not depend on the values
+        aff = fq_points.tree_program(curve, plan[-1][0], True)
+        n_aff = launches[-1]["lanes"]
+        last = pts.reshape(-1, (1 << plan[-1][0]) * pts[0, 0].numel() // fq_mod.L,
+                           fq_mod.L)[:n_aff].contiguous()
+        mode = launches[-1]["mode"]
+        aff_ms = time_cuda(lambda: run_on(mode, aff, dev, n_aff, (last,)), 10)
+        row["affine_launch"] = {"ms": aff_ms, **clocked(
+            aff, lambda st: run_on(mode, aff, dev, n_aff, (last,), st), dev, aff_ms)}
+        out["tree"][label] = row
+        del pts
+    return out
+
+
+def host_g1(limbs):
+    return (fq_mod.from_mont(limbs[0]), fq_mod.from_mont(limbs[1]))
+
+
+def host_g2(limbs):
+    return (fq_tower.fq2_from_limbs(limbs[0]), fq_tower.fq2_from_limbs(limbs[1]))
+
+
+def report_point_programs(pp) -> None:
+    for label, r in pp["final_exp"].items():
+        prog = r["program"]
+        log(f"phase kernel: final_exp program {label} bit-identical to its plain twin on"
+            " both kernels (max_abs_err 0), "
+            + ("lane 0 == the bignum field's f^(3 (q^12 - 1) / r)" if label == "128 x 3"
+               else "groups 0 / 1 verdicts == the bignum oracle's (True / False)")
+            + " | " + ", ".join(f"{m} {v['ms']:.4f} ms ({v['cycles_a_bundle']:.0f} cycles,"
+                                f" {v['us_a_bundle']:.3f} us a bundle; multiplies only"
+                                f" {v['split']['multiplies only']['bundles']} x"
+                                f" {v['split']['multiplies only']['mean_cycles']:.0f}, with"
+                                f" tower products"
+                                f" {v['split']['with tower products']['bundles']} x"
+                                f" {v['split']['with tower products']['mean_cycles']:.0f})"
+                                for m, v in r["modes"].items())
+            + f"; the path's wrapper ({fq_points.FINAL_EXP_MODE}) {r['ms']:.4f} ms, plain twin"
+            f" {r['plain_ms']:.1f} ms, bound"
+            f" {r['bound_ms']:.6f} ms by {r['bound_by']} | program: {prog['ops']} ops"
+            f" ({prog['muls']} multiplies, {prog['products']} tower products, {prog['linear']}"
+            f" linear) in {prog['bundles']} bundles, {prog['registers']} registers,"
+            f" shared {r['launch']['smem_block']} B a block")
+    for label, r in pp["tree"].items():
+        al = r["affine_launch"]
+        log(f"phase kernel: point_tree {label} bit-identical to its plain twin on both"
+            f" kernels and with the path's choice, row 0 == the bignum sum | ms "
+            + ", ".join(f"{m} {v:.4f}" for m, v in r["modes"].items())
+            + f", plain twin {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.6f} ms | launches: "
+            + "; ".join(f"{x['levels']} levels{' + affine' if x['affine'] else ''} at"
+                        f" {x['lanes']} lanes ({x['mode']}, {x['bundles']} bundles,"
+                        f" {x['registers']} registers)" for x in r["launches"])
+            + f" | the last launch alone {al['ms']:.4f} ms, {al['bundles']} bundles, block 0"
+            f" {al['cycles_a_bundle']:.0f} cycles a bundle")
+
+
 def small_launch_times(lanes_seen, dev, rng, pairs):
     """Each kernel at the lane count the verify launched it with most
     (for fq_bilinear: each table at its own; for fq_bilinear_chain: each
@@ -1224,6 +1462,11 @@ def drive_bls(block: Block, dev):
 
     for stage in tb.INDEXED_STAGES:
         timed(stage, lambda stage=stage: getattr(tb, stage)(st))
+    s1 = out["stages"]["stage_pubkeys"]
+    out["stage1_launches"] = sum(s1[k] for k in FQ_COUNTERS)
+    if out["stage1_launches"] > STAGE1_MAX_LAUNCHES or not s1["point_tree"]:
+        raise AssertionError(f"stage 1 made {out['stage1_launches']} launches"
+                             f" (at most {STAGE1_MAX_LAUNCHES}, the trees' among them): {s1}")
     # stage 3's host half: the try-and-increment search of each message
     _, out["stage_messages_host_ms"] = fenced_ms(
         lambda: [bls_host.hash_to_g2_candidate(mh, dom) for mh, dom in st.hashed])
@@ -1426,8 +1669,12 @@ def drive_firehose(dev, rng):
     out["chains_per_batch"] = {k: by_kind[k] / batches for k in by_kind}
     if out["occupancy_min"] < FIREHOSE_G:
         raise AssertionError(f"firehose: occupancy {out['occupancy_min']} < {FIREHOSE_G}")
-    if not launched_path(out["launches"]):
+    if not launched_path(out["launches"], decompress=False):
         raise AssertionError(f"firehose launched {out['launches']}")
+    out["launches_per_batch"] = sum(out["per_batch"].values())
+    if out["launches_per_batch"] > FIREHOSE_MAX_LAUNCHES:
+        raise AssertionError(f"firehose: {out['launches_per_batch']} launches a batch"
+                             f" > {FIREHOSE_MAX_LAUNCHES}: {out['per_batch']}")
 
     # the same window traced: device-busy share, synchronizations per range
     out["trace"] = profile_window([("firehose.waves", lambda: waves("traced")),
@@ -1468,11 +1715,14 @@ def report_firehose(fh) -> None:
     chains = fh["chains_per_batch"]
     log(f"phase firehose launches: per batch fq_mul {per['fq_mul']:.1f} / fq_redc"
         f" {per['fq_redc']:.1f} / fq_bilinear {per['fq_bilinear']:.1f} /"
-        f" miller_grouped {per['miller_grouped']:.1f} / g2_ladder {per['g2_ladder']:.1f} /"
+        f" miller_grouped {per['miller_grouped']:.1f} / final_exp {per['final_exp']:.1f} /"
+        f" point_tree {per['point_tree']:.1f} /"
+        f" g2_ladder {per['g2_ladder']:.1f} /"
         f" fq_bilinear_chain {per['fq_bilinear_chain']:.1f} (by chain: "
         + ", ".join(f"{k} {v:.1f}" for k, v in sorted(chains.items())) + "); the"
         f" fq_bilinear family {per['fq_bilinear'] + per['fq_bilinear_chain']:.1f}, all"
-        f" hand-kernel launches {sum(per.values()):.1f} | lanes per launch: fq_mul"
+        f" hand-kernel launches {sum(per.values()):.1f} (at most {FIREHOSE_MAX_LAUNCHES};"
+        f" 57 + 1 while the final exponentiation was tower products) | lanes per launch: fq_mul"
         f" {hist(fh['lanes']['fq_mul'])}; fq_bilinear {hist(fh['lanes']['fq_bilinear'])};"
         f" fq_bilinear_chain (steps:lanes) {hist(fh['lanes']['fq_bilinear_chain'])}")
     log("phase firehose trace: the same window under torch.profiler: wall"
@@ -1966,7 +2216,7 @@ def drive_mesh(spec, data: bytes, want, sync, dev):
     if single.tolist() != expect or sharded.tolist() != expect:
         raise AssertionError(f"mesh pairing: single {single.tolist()}, sharded "
                              f"{sharded.tolist()}, want {expect}")
-    if not launched_path(out["pairing_launches"]):
+    if not launched_path(out["pairing_launches"], decompress=False):
         raise AssertionError(f"mesh pairing launched {out['pairing_launches']}")
 
     # distinct cards, where the machine has more than one
@@ -2005,7 +2255,8 @@ def report_mesh(m, single) -> None:
         f" single-device pairing's, group {MESH_BAD_GROUP} False in both | sharded"
         f" {m['pairing_sharded_ms']:.1f} ms (fq_mul / fq_bilinear / chains"
         f" {m['pairing_launches']['fq_mul']} / {m['pairing_launches']['fq_bilinear']} /"
-        f" {m['pairing_launches']['fq_bilinear_chain']}), single device"
+        f" {m['pairing_launches']['fq_bilinear_chain']}; {programs(m['pairing_launches'])}),"
+        f" single device"
         f" {m['pairing_single_ms']:.1f} ms ({m['pairing_single_launches']['fq_mul']} /"
         f" {m['pairing_single_launches']['fq_bilinear']} /"
         f" {m['pairing_single_launches']['fq_bilinear_chain']})")
@@ -2551,7 +2802,7 @@ def report_slice8(s8) -> None:
     for row in ph["rows"]:
         log(f"phase phase1: {row['kind']}: {row['ms']:.1f} ms | sha256_pairs"
             f" {row['sha256_pairs']} / fq_mul {row['fq_mul']} / fq_bilinear {row['fq_bilinear']}"
-            f" / fq_bilinear_chain {row['fq_bilinear_chain']} launches")
+            f" / fq_bilinear_chain {row['fq_bilinear_chain']} / {programs(row)} launches")
     log(f"phase phase1: Phase1Spec V={ph['validators']:,} mainnet, slots {ph['slots'][0]}-"
         f"{ph['slots'][1]} (state built in {ph['build_s']:.1f} s, untimed), BLS on the torch"
         f" backend, bulk state root installed | launches {s8['phase1_launches']} | final root"
@@ -2566,7 +2817,8 @@ def report_slice8(s8) -> None:
         f" verify_period_data {lc['verify_period_ms']:.1f} ms, a forged seed rejected |"
         f" BlockValidityProof verified through spec.bls {lc['proof_ms']:.1f} ms, fq_mul"
         f" {lc['launches']['fq_mul']} / fq_bilinear {lc['launches']['fq_bilinear']} /"
-        f" fq_bilinear_chain {lc['launches']['fq_bilinear_chain']} launches; the swapped"
+        f" fq_bilinear_chain {lc['launches']['fq_bilinear_chain']} /"
+        f" {programs(lc['launches'])} launches; the swapped"
         f" signature rejected in {lc['reject_ms']:.1f} ms")
 
 
@@ -3088,7 +3340,8 @@ def report_spec_path(sp) -> dict:
         f" (deepcopy {a['publish_deepcopy_ms']:.1f} + transition"
         f" {a['publish_ms'] - a['publish_deepcopy_ms']:.1f}; the block's limit 2,000 ms),"
         f" fq_mul {a['publish_fq']['fq_mul']} / fq_bilinear {a['publish_fq']['fq_bilinear']}"
-        f" / fq_bilinear_chain {a['publish_fq']['fq_bilinear_chain']} / sha256_pairs"
+        f" / fq_bilinear_chain {a['publish_fq']['fq_bilinear_chain']} /"
+        f" {programs(a['publish_fq'])} / sha256_pairs"
         f" {a['publish_sha256']} launches | head root == the block through ResidentCore |"
         f" attestation produced and queued | /metrics {a['metrics_lines']} resilience"
         f" lines, /healthz with firehose and checkpoint")
@@ -3100,7 +3353,7 @@ def report_spec_path(sp) -> dict:
             f" {row['verify_ms']:.1f} ms and {row['single_verifies']} single verifies"
             f" {row['single_verify_ms']:.1f} ms | fq_mul {row['fq_mul']} / fq_bilinear"
             f" {row['fq_bilinear']} / fq_bilinear_chain {row['fq_bilinear_chain']} /"
-            f" sha256_pairs {row['sha256_launches']} launches"
+            f" {programs(row)} / sha256_pairs {row['sha256_launches']} launches"
             + (f" | host signing {row['staging_s']:.1f} s (untimed)"
                if "staging_s" in row else ""))
     shape = b["shape"]
@@ -3124,7 +3377,8 @@ def report_spec_path(sp) -> dict:
             f" pump, the staging {ms['pump_ms']:.1f} / flush {ms['flush_ms']:.1f}),"
             f" fq_mul {g['verify_launches']['fq_mul']} / fq_bilinear"
             f" {g['verify_launches']['fq_bilinear']} / fq_bilinear_chain"
-            f" {g['verify_launches']['fq_bilinear_chain']} launches, False at"
+            f" {g['verify_launches']['fq_bilinear_chain']} / {programs(g['verify_launches'])}"
+            f" launches, False at"
             f" {g['false_at']} |"
             f" block state_transition {g['block_ms']:.1f} ms with {g['cache_hits']} cache"
             f" hits and {g['new_launches']} new pipeline launches")
@@ -3426,7 +3680,7 @@ def report_vectors(v) -> None:
     def kernels(launches):
         return (f"sha256_pairs {launches['sha256_pairs']} / fq_mul {launches['fq_mul']} /"
                 f" fq_bilinear {launches['fq_bilinear']} / chains"
-                f" {launches['fq_bilinear_chain']}")
+                f" {launches['fq_bilinear_chain']} / {programs(launches)}")
 
     for s in v["suites"]:
         log(f"phase vectors suite {s['suite']} (mainnet, --accel, BLS on \"torch\"):"
@@ -3610,8 +3864,8 @@ def drive_networking(spec, chain, dev, sync):
             raise AssertionError(f"node record verdicts {verdicts} != [True, False, False]")
         out["record_ms"] = ms
         out["launches"] = fq_launches()
-        if min(out["launches"][k] for k in BLS_PATH) <= 0:
-            raise AssertionError(f"the node records did not launch the fq kernels: {out['launches']}")
+        if not launched_path(out["launches"], decompress=False):
+            raise AssertionError(f"the node records did not launch the pairing: {out['launches']}")
     finally:
         spec_bls.bls_active = was_active
 
@@ -3710,7 +3964,7 @@ def report_networking(nw) -> None:
         + " / ".join(f"{v:.1f}" for v in nw["record_ms"].values())
         + f" -> True / False / False | launches fq_mul {l['fq_mul']} / fq_bilinear"
         f" {l['fq_bilinear']} / fq_bilinear_chain {l['fq_bilinear_chain']} / fq_redc"
-        f" {l['fq_redc']} | RPC loopback over the block drive's {r['blocks']} blocks"
+        f" {l['fq_redc']} / {programs(l)} | RPC loopback over the block drive's {r['blocks']} blocks"
         f" (slots {r['slots'][0]}..{r['slots'][1]}, {r['attestations']} attestations,"
         f" mainnet types): hello {rm['hello']:.1f} ms (same network: stay, another:"
         f" drop), beacon_block_roots {rm['beacon_block_roots']:.1f} ms,"
@@ -3836,6 +4090,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     pk = check_point_kernels(rng, dev)
     report_point_kernels(pk)
+    pp = check_point_programs(rng, dev)
+    report_point_programs(pp)
+    result["point_programs"] = pp
     result["point_kernels"] = pk
 
     preset = load_preset("mainnet")
@@ -3955,13 +4212,16 @@ def main() -> int:
         log(f"phase bls {STAGE_LABELS[name]}: {st['ms']:.1f} ms, fq_mul"
             f" {st['fq_mul']} / fq_redc {st['fq_redc']} / fq_bilinear"
             f" {st['fq_bilinear']} / fq_bilinear_chain {st['fq_bilinear_chain']} /"
-            f" g2_ladder {st['g2_ladder']} / miller_grouped {st['miller_grouped']}"
-            f" launches, {st['aten_ops']} aten ops (an extra, untimed run) | lanes"
+            f" g2_ladder {st['g2_ladder']} / miller_grouped {st['miller_grouped']} /"
+            f" final_exp {st['final_exp']} / point_tree"
+            f" {st['point_tree']} launches ({sum(st[k] for k in FQ_COUNTERS)} in all),"
+            f" {st['aten_ops']} aten ops (an extra, untimed run) | lanes"
             f" per launch: fq_mul {hist(st['lanes']['fq_mul'])}; fq_bilinear"
             f" {hist(st['lanes']['fq_bilinear'])}; fq_bilinear_chain (steps:lanes)"
             f" {hist(st['lanes']['fq_bilinear_chain'])}; g2_ladder"
             f" {hist(st['lanes']['g2_ladder'])}; miller_grouped (groups:pairs)"
-            f" {hist(st['lanes']['miller_grouped'])}")
+            f" {hist(st['lanes']['miller_grouped'])}; final_exp {hist(st['lanes']['final_exp'])};"
+            f" point_tree (curve:lanes) {hist(st['lanes']['point_tree'])}")
     launches, warm = bls["launches"], bls["warm_launches"]
     log(f"phase bls verify: {shape['attestations']} x {shape['committee']}"
         f" ({shape['pubkeys']} pubkeys, {shape['pairs']} pairs per group) |"
@@ -3974,7 +4234,11 @@ def main() -> int:
         f" {launches['fq_bilinear_chain']} / {warm['fq_bilinear_chain']} (family"
         f" {launches['fq_bilinear'] + launches['fq_bilinear_chain']}), g2_ladder"
         f" {launches['g2_ladder']} / {warm['g2_ladder']}, miller_grouped"
-        f" {launches['miller_grouped']} / {warm['miller_grouped']}, plain wide"
+        f" {launches['miller_grouped']} / {warm['miller_grouped']}, final_exp"
+        f" {launches['final_exp']} / {warm['final_exp']}, point_tree"
+        f" {launches['point_tree']} / {warm['point_tree']}"
+        f" (stage 1: {bls['stage1_launches']} launches, at most {STAGE1_MAX_LAUNCHES}),"
+        f" all {sum(warm[k] for k in FQ_COUNTERS)} warm, plain wide"
         f" products on the card {bls['plain_wide_on_card']},"
         f" aten ops per verify {bls['aten_ops_per_verify']} (an extra, untimed run) |"
         f" peak device memory {bls['peak_device_gib']:.2f} GiB | host staging"
@@ -4006,7 +4270,8 @@ def main() -> int:
             f"{name} {c['verdict']} {c['card_ms']:.1f} / {c['host_ms']:.1f}"
             for name, c in oracle["cases"].items())
         + f" | the card's launches fq_mul {oracle['launches']['fq_mul']} / fq_bilinear"
-          f" {oracle['launches']['fq_bilinear']} / chains {oracle['launches']['fq_bilinear_chain']}")
+          f" {oracle['launches']['fq_bilinear']} / chains {oracle['launches']['fq_bilinear_chain']}"
+          f" / {programs(oracle['launches'])}")
     result["bls_oracle"] = oracle
 
     # -- where a launch of the main path's size stands ---------------------------
@@ -4153,12 +4418,15 @@ def main() -> int:
         "table": "fq12_mul",
         "bit_identical": True,
     })
-    pow_z = fq_ch["chains"]["pow_abs |z|"]
+    # the chains on the path are the decompressions' fixed-exponent powers
+    # (pow_abs runs inside the final exponentiation's program):
+    # the main entry is stage 1's square root at its 16,384 lanes
+    pow_z = fq_ch["chains"][f"fq sqrt {G1_SQRT_LANES}"]
     kernels.append({
         "name": "fq_bilinear_chain",
         "route": "cuda",
         "source": "consensus_specs_tpu_torch/csrc/fq_mont.cu",
-        "replaces": "consensus_specs_tpu/ops/bls_jax.py:201",
+        "replaces": "consensus_specs_tpu/ops/fq.py:591",
         "launches": spec_launches["fq_bilinear_chain"],
         "launches_by_path": {"bls_verify": bls["launches"]["fq_bilinear_chain"],
                              "spec_blocks": spec_launches["fq_bilinear_chain"],
@@ -4178,13 +4446,14 @@ def main() -> int:
         "bound_ms": pow_z["bound_ms"],
         "bound_by": pow_z["bound_by"],
         "library_ms": None,
-        "lanes": FIREHOSE_G,
-        "chain": "pow_abs |z|",
+        "lanes": G1_SQRT_LANES,
+        "chain": "fq sqrt",
         "per_product_ms": pow_z["per_product_ms"],
-        # the fixed-exponent powers run on the same kernel
+        # the other powers run on the same kernel; pow_abs (bls_jax.py:201)
+        # only off the path, the final exponentiation being a program
         "also_replaces": {"fq inv": "consensus_specs_tpu/ops/fq.py:588",
-                          "fq sqrt": "consensus_specs_tpu/ops/fq.py:591",
-                          "fq2 sqrt": "consensus_specs_tpu/ops/decompress.py:147"},
+                          "fq2 sqrt": "consensus_specs_tpu/ops/decompress.py:147",
+                          "pow_abs": "consensus_specs_tpu/ops/bls_jax.py:201"},
         "by_chain": {label: {k: c[k] for k in ("steps", "lanes", "ms", "per_product_ms",
                                                "plain_ms", "bound_ms", "bound_by")}
                      for label, c in fq_ch["chains"].items()},
@@ -4217,6 +4486,44 @@ def main() -> int:
             "name": name,
             "route": "cuda",
             "source": "consensus_specs_tpu_torch/csrc/fq_points.cu",
+            "replaces": replaces,
+            "launches": spec_launches[name],
+            "launches_by_path": {p: paths[p] for p in must},
+            "launches_off_path": {p: n for p, n in paths.items() if p not in must},
+            "max_abs_err": max(x["max_abs_err"] for x in rows.values()),
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            "shape": main_case,
+            "by_shape": {label: {k: x[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                         for label, x in rows.items()},
+            "bit_identical": True,
+        })
+    # the final exponentiation's program runs in every pairing; the trees'
+    # programs where keys or signatures are decompressed and aggregated on
+    # the card, as do fq_mul, fq_bilinear and the chains (the decompressions'
+    # lift, curve checks, square roots and G2 inversion): a path that only
+    # pairs (the firehose, the API's and phase 1's single verifies, the
+    # mesh's pairing, a node record) launches none of those
+    decompress_paths = ("bls_verify", "spec_blocks", "gossip_verify", "bls_oracle", "vectors")
+    for k in kernels:
+        if k["name"] in ("fq_mul", "fq_bilinear", "fq_bilinear_chain"):
+            for p in [p for p in k["launches_by_path"] if p not in decompress_paths]:
+                k["launches_off_path"][p] = k["launches_by_path"].pop(p)
+    for name, rows, main_case, replaces, program, must in (
+            ("final_exp", pp["final_exp"], "128 x 3", "consensus_specs_tpu/ops/bls_jax.py:351",
+             "final_exp_program", tuple(p for p in by_path("final_exp") if p != "deposit")),
+            ("point_tree", pp["tree"], "g1 16 x 1024", "consensus_specs_tpu/ops/bls_jax.py:442",
+             "tree_program", decompress_paths)):
+        paths = by_path(name)
+        r = rows[main_case]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "consensus_specs_tpu_torch/csrc/fq_points.cu",
+            "program": f"consensus_specs_tpu_torch/ops/fq_points.py::{program}",
             "replaces": replaces,
             "launches": spec_launches[name],
             "launches_by_path": {p: paths[p] for p in must},

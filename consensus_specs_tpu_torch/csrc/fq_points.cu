@@ -14,6 +14,13 @@
 //             pair, one Fq12 squaring and P line multiplies, on a set bit the
 //             addition lines and P more line multiplies, then the conjugation
 //
+// Neither kernel knows its program: each runs any compiled program. The
+// final exponentiation of a grouped pairing (f -> f^(3 (q^12 - 1) / r) and
+// the flag "equal to one", the reference's _grouped_verdict,
+// consensus_specs_tpu/ops/bls_jax.py:351) runs on g2_ladder_kernel, and the
+// decompressions' addition trees with jac_to_affine (bls_jax.py:442, :469)
+// on either, by lanes (ops/fq_points.py: final_exp_program, tree_program).
+//
 // The programs (ops/fq_program.py, built by ops/fq_points.py) are the
 // port's own formulas recorded op by op: scalar_mul.jac_double / jac_add /
 // build_odd_multiples / jac_to_affine with the window loop of the

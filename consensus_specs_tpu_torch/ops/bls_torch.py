@@ -28,8 +28,9 @@ compare bit for bit with it. What differs:
   tensors, the plain versions for CPU tensors) or `fq_tower.PLAIN` (the
   plain versions everywhere), which lets a run on the card hold the
   kernel route against the plain one. Under DEVICE on the card the G2
-  ladder of g2_scalar_mul and the grouped Miller loop are one launch each
-  (ops/fq_points.py).
+  ladder of g2_scalar_mul, the grouped Miller loop and the final
+  exponentiation are one launch each, and the decompressions' addition
+  trees a few (programs of ops/fq_points.py).
 
 TorchBackend has JaxBackend's surface and verdicts; it is not registered
 as a backend of the reference.
@@ -178,30 +179,40 @@ def final_exponentiation_3x(f, tower: T.Tower = T.DEVICE):
     """f^(3 (q^12-1)/r): the easy part by conjugation, inversion and
     Frobenius; the hard part through 3 (q^4-q^2+1)/r =
     (z-1)^2 (z+q) (z^2+q^2-1) + 3 (z < 0), with x^z = conj(x^|z|) in the
-    cyclotomic subgroup."""
+    cyclotomic subgroup. `tower` is a Tower, or ops/fq_program.py's
+    Recorder (which records these steps into the final exponentiation's
+    program). For CUDA tensors under fq_tower.DEVICE it is one launch of
+    that program (ops/fq_points.py), with the same limbs."""
+    if tower is T.DEVICE and f.is_cuda:
+        from . import fq_points
+        return fq_points.final_exp_cuda(f)[0]
     tw = tower
-    f1 = tw.fq12_mul(T.fq12_conj(f), tw.fq12_inv(f))       # f^(q^6 - 1)
+    f1 = tw.fq12_mul(tw.fq12_conj(f), tw.fq12_inv(f))      # f^(q^6 - 1)
     f2 = tw.fq12_mul(tw.fq12_frobenius(f1, 2), f1)         # ^(q^2 + 1)
 
     def pow_zm1(x):                                        # x^(z-1)
-        return T.fq12_conj(tw.fq12_pow_abs(x, _ZP1_BITS))
+        return tw.fq12_conj(tw.fq12_pow_abs(x, _ZP1_BITS))
 
     a = pow_zm1(pow_zm1(f2))
-    b = tw.fq12_mul(T.fq12_conj(tw.fq12_pow_abs(a, _Z_BITS)),
+    b = tw.fq12_mul(tw.fq12_conj(tw.fq12_pow_abs(a, _Z_BITS)),
                     tw.fq12_frobenius(a, 1))
     c = tw.fq12_mul(
         tw.fq12_mul(
-            T.fq12_conj(tw.fq12_pow_abs(T.fq12_conj(tw.fq12_pow_abs(b, _Z_BITS)),
-                                        _Z_BITS)),
+            tw.fq12_conj(tw.fq12_pow_abs(tw.fq12_conj(tw.fq12_pow_abs(b, _Z_BITS)),
+                                         _Z_BITS)),
             tw.fq12_frobenius(b, 2)),
-        T.fq12_conj(b))
+        tw.fq12_conj(b))
     f2_cubed = tw.fq12_mul(tw.fq12_cyclo_sqr(f2), f2)
     return tw.fq12_mul(c, f2_cubed)
 
 
 def _grouped_verdict(f, tower: T.Tower = T.DEVICE):
     """[G, 2, 3, 2, L] group Miller values -> [G] bool through one batched
-    final exponentiation."""
+    final exponentiation: one launch of its program for CUDA tensors
+    under fq_tower.DEVICE."""
+    if tower is T.DEVICE and f.is_cuda:
+        from . import fq_points
+        return fq_points.final_exp_cuda(f)[1]
     res = final_exponentiation_3x(f, tower)
     return tower.fq12_eq(res, T.fq12_ones((f.shape[0],), f.device))
 
@@ -220,7 +231,9 @@ def _group_product_is_one(fs, tower: T.Tower = T.DEVICE):
 
 def grouped_pairing_check(g1, g2, tower: T.Tower = T.DEVICE):
     """[G] independent product-of-pairings checks: g1 [G, P, 2, L],
-    g2 [G, P, 2, 2, L]; group g passes iff prod_p e(P_gp, Q_gp) == 1."""
+    g2 [G, P, 2, 2, L]; group g passes iff prod_p e(P_gp, Q_gp) == 1.
+    For CUDA tensors under fq_tower.DEVICE: two launches, the Miller
+    loop's and the final exponentiation's."""
     return _grouped_verdict(miller_loop_grouped(g1, g2, tower), tower)
 
 
@@ -245,11 +258,17 @@ def _g1_decompress_aggregate_grouped(x_raw, a_flag, is_inf):
     """Decompression and one addition tree per group: x_raw [G, C, L]
     (C a power of two), flags [G, C] -> (x_aff [G, L], y_aff [G, L],
     inf [G], all_valid [G]). Infinity members add the identity;
-    all_valid ANDs the range and curve checks of the others."""
+    all_valid ANDs the range and curve checks of the others. For CUDA
+    tensors the tree and jac_to_affine are programs of the point kernels
+    (ops/fq_points.py::point_tree_cuda), a few levels a launch."""
     x, y, valid = decomp._g1_decompress_traced(x_raw, a_flag)
     all_valid = torch.all(valid | is_inf, dim=1)
     cur = _jacobian_or_infinity(F.fq_select, x, y, is_inf,
                                 F.const(F._ONE_MONT, x.device))
+    if x.is_cuda:
+        from . import fq_points
+        x_aff, y_aff, inf = fq_points.point_tree_cuda("g1", torch.stack(cur, dim=-2))
+        return x_aff, y_aff, inf, all_valid
     while cur[0].shape[1] > 1:
         cur = jac_add(G1_OPS, tuple(c[:, 0::2] for c in cur),
                       tuple(c[:, 1::2] for c in cur))
@@ -260,11 +279,16 @@ def _g1_decompress_aggregate_grouped(x_raw, a_flag, is_inf):
 def _g2_decompress_aggregate(x_raw, a_flag, is_inf):
     """G2 decompression (Fq2 square-root ladder) and one addition tree:
     x_raw [N, 2, L] (N a power of two) -> (x_aff, y_aff [2, L], inf,
-    all_valid)."""
+    all_valid). For CUDA tensors the tree and jac_to_affine are programs
+    of the point kernels, as in the G1 tree."""
     x, y, valid = decomp._g2_decompress_traced(x_raw, a_flag)
     all_valid = torch.all(valid | is_inf)
     cur = _jacobian_or_infinity(T.fq2_select, x, y, is_inf,
                                 F.const(T._FQ2_ONE_NP, x.device))
+    if x.is_cuda:
+        from . import fq_points
+        x_aff, y_aff, inf = fq_points.point_tree_cuda("g2", torch.stack(cur, dim=-3)[None])
+        return x_aff[0], y_aff[0], inf[0], all_valid
     while cur[0].shape[0] > 1:
         cur = jac_add(G2_OPS, tuple(c[0::2] for c in cur),
                       tuple(c[1::2] for c in cur))

@@ -1,5 +1,6 @@
-"""The G2 ladder and the grouped Miller loop as programs, and the wrappers
-of their kernels (csrc/fq_points.cu).
+"""The G2 ladder, the grouped Miller loop, the final exponentiation and the
+decompressions' addition trees as programs, and the wrappers of their
+kernels (csrc/fq_points.cu).
 
 `ladder_program(nbits, w)` records, over ops/fq_program.py's Recorder,
 what bls_torch.g2_scalar_mul computes: scalar_mul._lift_affine,
@@ -11,16 +12,30 @@ jac_to_affine with Field.pow_static's inversion. `miller_program(P)`
 records bls_torch.miller_loop_grouped: per tail bit of |z| the port's
 _dbl_lines for each pair and the f-update (one Fq12 squaring, P line
 multiplies), on a set bit _add_lines and P more line multiplies, then the
-conjugation. Both are built once per shape and cached.
+conjugation. `final_exp_program()` records bls_torch._grouped_verdict on
+a group's 12 Miller rows: final_exponentiation_3x (fq12_inv with its Fq
+inversion, the Frobenius maps, the five pow_abs runs of cyclotomic
+squarings, the products) and fq12_eq with one -> the final power and the
+verdict flag.
+`tree_program(curve, levels, affine)` records `levels` levels of the G1 or
+G2 addition tree (scalar_mul.jac_add on neighbouring points) over 2^levels
+points a lane, with jac_to_affine when `affine`. All are built once per
+shape and cached.
 
-`g2_ladder_cuda` / `miller_grouped_cuda` run a program in one launch of
-its kernel; `g2_ladder_plain` / `miller_grouped_plain` run it through
-fq_program.run_program_plain (the plain twin the tests and the card's
-checks hold the kernel against). bls_torch routes CUDA tensors under
-fq_tower.DEVICE to the kernels and keeps its Python loops for CPU
-tensors and fq_tower.PLAIN; a kernel that does not build or launch
-raises. Each wrapper counts its launches (`ladder_counter`,
-`miller_counter`, lanes per launch). `launch_shape` gives a launch's
+`g2_ladder_cuda` / `miller_grouped_cuda` / `final_exp_cuda` run a
+program in one launch of a kernel, and `point_tree_cuda` a tree in one
+launch a TREE_LEVELS levels (`tree_plan`); `*_plain` run the same
+programs through fq_program.run_program_plain (the plain twins the tests
+and the card's checks hold the kernels against).
+Either kernel runs any program (ENTRY: "groups" puts a multiply on a
+16-thread group, "threads" one thread on an item): the ladder and the final
+exponentiation take groups, the Miller loop threads, a tree launch groups
+up to GROUP_LANES_PER_SM lanes an SM and threads beyond. bls_torch routes
+CUDA tensors under fq_tower.DEVICE to the kernels and keeps its Python
+loops for CPU tensors and fq_tower.PLAIN; a program or shape a kernel
+cannot run, or a kernel that does not build or launch, raises. Each
+wrapper counts its launches (`ladder_counter`, `miller_counter`,
+`final_exp_counter`, `tree_counter`). `launch_shape` gives a launch's
 block and shared memory as the kernel sizes them; `bundle_clocks` reads
 block 0's cycles a bundle and phase.
 
@@ -154,6 +169,94 @@ def miller_program(P: int) -> FP.Program:
     return rec.compile(f)
 
 
+def final_exp_recording(rec: FP.Recorder, f):
+    """(result rows, verdict flag): bls_torch._grouped_verdict recorded
+    over `rec` from the 12 rows f: final_exponentiation_3x, then
+    Tower.fq12_eq of the result with one."""
+    from . import bls_torch as BT
+    res = BT.final_exponentiation_3x(f, rec)
+    return res, rec.fq12_eq(res, rec.fq12_ones())
+
+
+@functools.lru_cache(maxsize=None)
+def final_exp_program() -> FP.Program:
+    """The program of _grouped_verdict: input group 0 a group's 12 Miller
+    rows -> the 12 rows of f^(3 (q^12 - 1) / r) and the flag "equal to
+    one"."""
+    rec = FP.Recorder()
+    res, ok = final_exp_recording(rec, rec.input_rows(0, 12))
+    return rec.compile(res, ok.v)
+
+
+TREE_LEVELS = 3        # tree levels a launch: 2^3 points a lane
+
+
+def _rows(v):
+    return [v.v] if isinstance(v, FP.S1) else list(v.r)
+
+
+def tree_inputs(rec: FP.Recorder, curve: str, n: int):
+    """(field ops, n Jacobian points) over input group 0: per point the
+    rows of X, Y, Z (G1: one row each, G2: two)."""
+    if curve == "g1":
+        fo = FP.G1Ops(rec)
+        return fo, [tuple(FP.S1(rec, v) for v in rec.input_rows(0, 3)) for _ in range(n)]
+    fo = FP.FieldOps(rec)
+    return fo, [tuple(rec.input_fq2(0) for _ in range(3)) for _ in range(n)]
+
+
+def tree_walk(fo, pts):
+    """The decompressions' addition tree: each level adds points 2i and
+    2i + 1 (scalar_mul.jac_add), as bls_torch's loop does."""
+    while len(pts) > 1:
+        pts = [SM.jac_add(fo, pts[i], pts[i + 1]) for i in range(0, len(pts), 2)]
+    return pts[0]
+
+
+def tree_recording(curve: str, levels: int, affine: bool):
+    """(recorder, output rows, output flag or None): `levels` levels of
+    the addition tree over 2^levels Jacobian points of `curve` ("g1" over
+    Fq rows, "g2" over Fq2), then with `affine` jac_to_affine."""
+    rec = FP.Recorder()
+    fo, pts = tree_inputs(rec, curve, 1 << levels)
+    acc = tree_walk(fo, pts)
+    if affine:
+        x, y, inf = SM.jac_to_affine(fo, acc)
+        return rec, _rows(x) + _rows(y), inf.v
+    return rec, [r for c in acc for r in _rows(c)], None
+
+
+@functools.lru_cache(maxsize=None)
+def tree_program(curve: str, levels: int, affine: bool) -> FP.Program:
+    """tree_recording's program: input group 0 the points' (X, Y, Z) rows
+    -> the sum's (X, Y, Z) rows, or with `affine` the (x, y) rows and the
+    infinity flag."""
+    rec, rows, flag = tree_recording(curve, levels, affine)
+    return rec.compile(rows, flag)
+
+
+def tree_plan(levels: int):
+    """The launches of a tree of 2^levels points: [(levels, affine)],
+    TREE_LEVELS levels each, jac_to_affine in the last."""
+    plan = []
+    while levels > TREE_LEVELS:
+        plan.append((TREE_LEVELS, False))
+        levels -= TREE_LEVELS
+    return plan + [(levels, True)]
+
+
+def _tree_shape(curve: str, pts: torch.Tensor):
+    """(points a row B, points C, rows a point) of a tree's input."""
+    coord = (L,) if curve == "g1" else (2, L)
+    if curve not in ("g1", "g2") or pts.dim() != 3 + len(coord) \
+            or pts.shape[2:] != (3,) + coord:
+        raise ValueError(f"point tree {curve}: points {tuple(pts.shape)}")
+    B, C = int(pts.shape[0]), int(pts.shape[1])
+    if C < 1 or C & (C - 1):
+        raise ValueError(f"point tree: {C} points a row, not a power of two")
+    return B, C, 3 * len(coord)
+
+
 # ---------------------------------------------------------------------------
 # Work and bounds
 # ---------------------------------------------------------------------------
@@ -226,6 +329,37 @@ def g2_ladder_plain(x: torch.Tensor, y: torch.Tensor, inf: Optional[torch.Tensor
         prog, torch.cat([x, y], dim=-2).reshape(n, 4, L), lane_flag=inf,
         uniform_flag=rec.correction, digits=_digits(rec))
     return out[:, :2], out[:, 2:], flag
+
+
+def final_exp_plain(f: torch.Tensor):
+    """The final exponentiation's program through run_program_plain: f
+    [G, 2, 3, 2, 14] -> (f^(3 (q^12 - 1) / r) [G, 2, 3, 2, 14], [G] bool
+    equal to one)."""
+    G = f.shape[0]
+    out, flag = FP.run_program_plain(final_exp_program(), f.reshape(G, 12, L))
+    return out.reshape(G, 2, 3, 2, L), flag
+
+
+def _tree_out(curve, B, out, flag):
+    coord = (L,) if curve == "g1" else (2, L)
+    k = 1 if curve == "g1" else 2
+    return (out[:, :k].reshape((B,) + coord), out[:, k:].reshape((B,) + coord),
+            flag.bool())
+
+
+def point_tree_plain(curve: str, pts: torch.Tensor):
+    """The tree's launches (tree_plan) through run_program_plain: pts
+    [B, C, 3, 14] (G1) or [B, C, 3, 2, 14] (G2) Jacobian, C a power of
+    two -> affine (x, y, is_inf) of each row's sum, as bls_torch's loop
+    and jac_to_affine give them."""
+    B, C, rows = _tree_shape(curve, pts)
+    cur = pts.reshape(B, C, rows, L)
+    for k, affine in tree_plan(C.bit_length() - 1):
+        n = B * (C >> k)
+        cur, flag = FP.run_program_plain(tree_program(curve, k, affine),
+                                         cur.reshape(n, (1 << k) * rows, L))
+        C >>= k
+    return _tree_out(curve, B, cur, flag)
 
 
 def miller_grouped_plain(g1: torch.Tensor, g2: torch.Tensor):
@@ -358,6 +492,34 @@ def split_bilinear(av: torch.Tensor, bv: torch.Tensor, tables: F.Bilinear) -> to
 
 ladder_counter = _Counter()       # lanes per launch
 miller_counter = _Counter()       # keyed (groups, pairs)
+final_exp_counter = _Counter()    # groups per launch
+tree_counter = _Counter()         # keyed (curve, lanes)
+
+# The two kernels of csrc/fq_points.cu run any program: g2_ladder_kernel
+# puts each multiply on a 16-thread group ("groups"), miller_grouped_kernel
+# one thread on an item ("threads").
+ENTRY = {"groups": "g2_ladder", "threads": "miller_grouped"}
+GROUP_LANES_PER_SM = 8            # tree launches take groups up to this many lanes an SM
+# The final exponentiation's kernel, by measurement (tools/
+# point_program_probe.py, PERF.md section 6): on groups 2.36 ms at 16 and
+# 128 lanes against 2.81-2.89 on threads. A grouped pairing stays two
+# launches, the Miller loop's and this one: the two programs fused into one
+# took 4.58-4.84 ms against 4.13-4.32.
+FINAL_EXP_MODE = "groups"
+_SMS: Dict[torch.device, int] = {}
+
+
+def _sms(dev: torch.device) -> int:
+    n = _SMS.get(dev)
+    if n is None:
+        n = _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
+def tree_mode(lanes: int, dev: torch.device) -> str:
+    """A tree launch's kernel: groups up to GROUP_LANES_PER_SM lanes an SM
+    (latency), threads beyond (throughput), as the chain kernel chooses."""
+    return "groups" if lanes <= GROUP_LANES_PER_SM * _sms(dev) else "threads"
 
 _HEADER = ("code", "consts", "n_bundles", "n_const", "nreg", "nflag", "nx", "ng",
            "n_digits", "slot_words", "threads_lane", "off_records", "off_ring0",
@@ -508,3 +670,53 @@ def bundle_clocks(fn, prog: FP.Program, dev):
     nxt = np.append(marks[1:, 0], st[-1])
     split = np.diff(np.concatenate([marks, nxt[:, None]], axis=1), axis=1)
     return nxt - marks[:, 0], split
+
+
+def _flags_out(n: int, dev: torch.device) -> torch.Tensor:
+    return torch.empty(n, dtype=torch.uint8, device=dev)
+
+
+def final_exp_cuda(f: torch.Tensor, stamps=None):
+    """final_exp_program in one launch on FINAL_EXP_MODE's kernel: f
+    [G, 2, 3, 2, 14] int64 limbs on one CUDA device -> (f^(3 (q^12 - 1) /
+    r) [G, 2, 3, 2, 14], [G] bool equal to one), as final_exp_plain gives
+    them."""
+    dev = f.device
+    f = _operand(f, dev, "final_exp")
+    if f.dim() != 5 or f.shape[1:] != (2, 3, 2, L):
+        raise ValueError(f"final_exp: f {tuple(f.shape)}")
+    G = f.shape[0]
+    flags = _flags_out(G, dev)
+    out = _launch(ENTRY[FINAL_EXP_MODE], final_exp_program(), dev, G, (f,),
+                  out_flags=flags, stamps=stamps)
+    if G:
+        final_exp_counter.record(G)
+    return out.reshape(G, 2, 3, 2, L), flags.bool()
+
+
+def _point_tree(curve: str, pts: torch.Tensor, mode_of):
+    dev = pts.device
+    B, C, rows = _tree_shape(curve, pts)
+    cur = _operand(pts, dev, "point_tree")
+    flags = None
+    for k, affine in tree_plan(C.bit_length() - 1):
+        n = B * (C >> k)
+        flags = _flags_out(n, dev) if affine else None
+        cur = _launch(ENTRY[mode_of(n, dev)], tree_program(curve, k, affine), dev, n,
+                      (cur.reshape(n, (1 << k) * rows, L),), out_flags=flags)
+        if n:
+            tree_counter.record((curve, n))
+        C >>= k
+    return _tree_out(curve, B, cur, flags)
+
+
+def point_tree_cuda(curve: str, pts: torch.Tensor):
+    """The decompressions' addition tree and jac_to_affine on the card:
+    pts [B, C, 3, 14] (G1) or [B, C, 3, 2, 14] (G2) Jacobian int64 limbs
+    on one CUDA device, C a power of two -> affine (x, y, is_inf) of each
+    row's sum, as point_tree_plain gives them: one launch of
+    tree_program per TREE_LEVELS levels (tree_plan), each lane adding
+    2^levels neighbouring points, the last launch with jac_to_affine, each
+    on tree_mode's kernel. A launch's input is the previous one's output
+    as it lies."""
+    return _point_tree(curve, pts, tree_mode)

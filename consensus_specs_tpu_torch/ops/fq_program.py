@@ -3,11 +3,15 @@ recorder that turns the port's own formulas into ops, the scheduler and
 register allocator that turn the ops into one int32 program, and the
 program's plain interpreter (run_program_plain).
 
-The G2 ladder of hash-to-G2 and signing and the grouped Miller loop are
-long loops of small dependent field operations. On the card each is one
+The G2 ladder of hash-to-G2 and signing, the grouped Miller loop, the
+pairing's final exponentiation and the decompressions' addition trees are
+long walks of small dependent field operations. On the card each is one
 launch of a kernel that interprets such a program (csrc/fq_points.cu,
-ops/fq_points.py): the host records the loop once, per shape, and the
-kernel runs every lane's whole loop out of shared memory.
+ops/fq_points.py), or a few for a tree: the host records the walk once,
+per shape, and the kernel runs every lane's whole walk out of shared
+memory. The Recorder speaks Fq (rows), Fq2, Fq6 and Fq12 as the port's
+Tower does, and G1 and G2 as ops/scalar_mul.py's field namespaces
+(G1Ops, FieldOps).
 
 Values are rows: one Fq element, 14 lazy int64 limbs (an Fq2 is two rows,
 an Fq12 twelve), and flags: one bool per lane. An op is one of
@@ -19,9 +23,11 @@ an Fq12 twelve), and flags: one bool per lane. An op is one of
 - `mul` (ops.fq.fq_mul_plain: Montgomery product of two rows) and `isz`
   (ops.fq.Field.is_zero of a row: mul_norm by Montgomery one, then the
   three-pattern compare);
-- `bil`: one tower product of a compiled kind (ops/fq_tower.py::TABLES,
-  no norm_in / one_col), a list of a rows and b rows to R result rows,
-  ops.fq.fq_bilinear_plain's function.
+- `bil`: one tower product of a compiled kind (ops/fq_tower.py::TABLES),
+  a list of a rows and b rows to R result rows, ops.fq.fq_bilinear_plain's
+  function. A table's norm_in is recorded as `norm` ops on the inputs
+  before the product, its one_col as one more b row, the constant
+  Montgomery one.
 
 Each op is an exact integer function of its inputs, so the order of
 mutually independent ops changes no bit: a program computes what the
@@ -96,6 +102,7 @@ class S1:
 
     __slots__ = ("rec", "v")
     shape = (1, 1, L)
+    device = torch.device("cpu")
 
     def __init__(self, rec, v: int):
         self.rec, self.v = rec, v
@@ -248,10 +255,19 @@ class Recorder:
         return Flag(self, self.op("isz", 1, "f", srcs)[0])
 
     def bil(self, tables: F.Bilinear, a_rows, b_rows) -> List[int]:
-        if tables.norm_in or tables.one_col or T.TABLES[tables.kind] is not tables:
+        """fq_bilinear_plain(a, b, tables): with norm_in, a `norm` op on
+        every input row first (one set when b is a); with one_col, the
+        constant Montgomery one as b's last row."""
+        if T.TABLES[tables.kind] is not tables:
             raise ValueError(f"{tables.name}: not a program product")
         if len(a_rows) != tables.Ca or len(b_rows) != tables.Cb:
             raise ValueError(f"{tables.name}: {len(a_rows)} x {len(b_rows)} rows")
+        if tables.norm_in:
+            same = b_rows is a_rows
+            a_rows = [self.op("norm", 1, "r", (r,))[0] for r in a_rows]
+            b_rows = a_rows if same else [self.op("norm", 1, "r", (r,))[0] for r in b_rows]
+        if tables.one_col:
+            b_rows = list(b_rows) + [self.const(F._ONE_MONT)]
         return self.op("bil", tables.R, "r", tuple(a_rows) + tuple(b_rows),
                        aux=tables.kind)
 
@@ -330,10 +346,105 @@ class Recorder:
         return V2(self, *(self.op("load", 1, "r", [v.r[h] for v in values], aux=d.i)[0]
                           for h in range(2)))
 
-    # -- Fq12 (the Miller loop's f) -------------------------------------------
+    def fq2_mul_xi(self, a):
+        """fq_tower.fq2_mul_xi: (a0 - a1, a0 + a1)."""
+        a0, a1 = a.r
+        return V2(self, self.sub(a0, a1), self.add(a0, a1))
+
+    # -- Fq6: a tuple of three V2 (Tower's methods) ----------------------------
+
+    def fq6_mul(self, a, b):
+        """Tower.fq6_mul: Karatsuba over Fq2, six fq2_mul."""
+        m, xi = self.fq2_mul, self.fq2_mul_xi
+        a0, a1, a2 = a
+        b0, b1, b2 = b
+        t0, t1, t2 = m(a0, b0), m(a1, b1), m(a2, b2)
+        c0 = t0 + xi(m(a1 + a2, b1 + b2) - (t1 + t2))
+        c1 = (m(a0 + a1, b0 + b1) - (t0 + t1)) + xi(t2)
+        c2 = (m(a0 + a2, b0 + b2) - (t0 + t2)) + t1
+        return (c0, c1, c2)
+
+    def fq6_mul_by_v(self, a):
+        """fq_tower.fq6_mul_by_v: (c2 xi, c0, c1)."""
+        return (self.fq2_mul_xi(a[2]), a[0], a[1])
+
+    def fq6_inv(self, a):
+        """Tower.fq6_inv: the cofactors, the norm's Fq2 inversion, three
+        products."""
+        m, sq, xi = self.fq2_mul, self.fq2_sqr, self.fq2_mul_xi
+        a0, a1, a2 = a
+        t0 = sq(a0) - xi(m(a1, a2))
+        t1 = xi(sq(a2)) - m(a0, a1)
+        t2 = sq(a1) - m(a0, a2)
+        denom = m(a0, t0) + xi(m(a2, t1) + m(a1, t2))
+        inv_d = self.fq2_inv(denom)
+        return (m(t0, inv_d), m(t1, inv_d), m(t2, inv_d))
+
+    # -- Fq12: 12 rows, flat [w j][v i][u h] (the Miller loop's f) --------------
 
     def fq12_ones(self, batch=(), device=None):
         return [self.const(r) for r in T._FQ12_ONE_NP.reshape(12, L)]
+
+    def _fq6_of(self, f, j: int):
+        return tuple(V2(self, f[6 * j + 2 * i], f[6 * j + 2 * i + 1]) for i in range(3))
+
+    @staticmethod
+    def _rows_of(c0, c1):
+        return [r for c in c0 + c1 for r in c.r]
+
+    def fq12_mul(self, a, b):
+        self.calls.append("fq12_mul")
+        return self.bil(T._MUL_T, a, b)
+
+    def fq12_cyclo_sqr(self, a):
+        """Tower.fq12_cyclo_sqr: the inputs' norm, then the product with
+        Montgomery one as b's thirteenth row."""
+        self.calls.append("fq12_cyclo_sqr")
+        return self.bil(T._CYCLO_T, a, a)
+
+    def fq12_inv(self, f):
+        """Tower.fq12_inv over Fq6: (a0 - a1 w) / (a0^2 - v a1^2)."""
+        self.calls.append("fq12_inv")
+        a0, a1 = self._fq6_of(f, 0), self._fq6_of(f, 1)
+        a0a0 = self.fq6_mul(a0, a0)
+        denom = tuple(x - y for x, y in zip(a0a0, self.fq6_mul_by_v(self.fq6_mul(a1, a1))))
+        inv_d = self.fq6_inv(denom)
+        return self._rows_of(self.fq6_mul(a0, inv_d),
+                             tuple(-c for c in self.fq6_mul(a1, inv_d)))
+
+    def fq12_frobenius(self, f, k: int):
+        """Tower.fq12_frobenius: each Fq2 coefficient conjugated for odd
+        k, then multiplied by its constant of fq_tower._FROB[k]."""
+        self.calls.append("fq12_frobenius")
+        coeffs = T._FROB[k].reshape(6, 2, L)
+        out = []
+        for c in range(6):
+            r0, r1 = f[2 * c], f[2 * c + 1]
+            if k % 2 == 1:
+                r1 = self.neg_row(r1)
+            out += self.bil(T._FQ2_T, (r0, r1),
+                            (self.const(coeffs[c, 0]), self.const(coeffs[c, 1])))
+        return out
+
+    def fq12_pow_abs(self, f, bits_np):
+        """Tower.fq12_pow_abs: the steps of fq_tower.pow_abs_program, as
+        fq.chain_by_products runs them (a product of the accumulator with
+        itself or with the base f)."""
+        self.calls.append("fq12_pow_abs")
+        acc = f
+        for code in T.pow_abs_program(bits_np):
+            kind, src = int(code) & F.KIND_MASK, int(code) >> F.KIND_BITS
+            acc = self.bil(T.TABLES[kind], acc, acc if src == F.SRC_ACC else f)
+        return acc
+
+    def fq12_eq(self, a, b) -> Flag:
+        """Tower.fq12_eq: every row of a - b is zero (is_zero), the flags
+        ANDed."""
+        flags = [self.isz(self.sub(x, y)) for x, y in zip(a, b)]
+        out = flags[0]
+        for fl in flags[1:]:
+            out = out & fl
+        return out
 
     def fq12_conj(self, f):
         """Rows 6..11 (the w coefficient) negated."""
@@ -362,6 +473,50 @@ class Recorder:
     def compile(self, out_rows: Sequence[int], out_flag: Optional[int] = None,
                 n_digits: int = 0) -> "Program":
         return _compile(self, list(out_rows), out_flag, n_digits)
+
+
+class G1Ops:
+    """The G1 field-ops namespace of ops/scalar_mul.py over a Recorder,
+    bls_torch.G1_OPS's twin: Fq rows (S1), mul / sqr a `mul` op, inv
+    Field.inv's window (Recorder.fq_inv), is_zero an `isz` op."""
+
+    val_ndim = 1
+
+    def __init__(self, rec: Recorder):
+        self.rec = rec
+
+    def _s(self, v: int) -> S1:
+        return S1(self.rec, v)
+
+    def mul(self, a, b):
+        return self._s(self.rec.mul_row(a.v, b.v))
+
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def add(self, a, b):
+        return self._s(self.rec.add(a.v, b.v))
+
+    def sub(self, a, b):
+        return self._s(self.rec.sub(a.v, b.v))
+
+    def neg(self, a):
+        return self._s(self.rec.neg_row(a.v))
+
+    def inv(self, a):
+        return self._s(self.rec.fq_inv(a.v))
+
+    def select(self, cond, a, b):
+        return self._s(self.rec.op("sel", 1, "r", (cond.v, a.v, b.v))[0])
+
+    def is_zero(self, a):
+        return self.rec.isz(a.v)
+
+    def zeros(self, batch=(), device=None):
+        return self._s(self.rec.const(np.zeros(L, np.int64)))
+
+    def ones(self, batch=(), device=None):
+        return self._s(self.rec.const(F._ONE_MONT))
 
 
 class FieldOps:
@@ -658,6 +813,12 @@ def _compile(rec: Recorder, outs: List[int], out_flag: Optional[int],
 _NAME_OF = {code: name for name, code in {**LINEAR, **MULTIPLY}.items()}
 
 
+def b_rows(t: F.Bilinear) -> int:
+    """A product's b rows in a program: its Cb, and Montgomery one's row
+    with one_col."""
+    return t.Cb + int(t.one_col)
+
+
 def decode(prog: Program) -> List[Dict[str, list]]:
     """The program's records read back from `code`: per bundle {"A",
     "M", "P", "E": [(name, dst registers, source registers, aux)]} in
@@ -698,9 +859,9 @@ def decode(prog: Program) -> List[Dict[str, list]]:
         for w in words[n_a + n_m:n_a + n_m + n_p]:
             kind = int(w[0]) - BIL
             t = T.TABLES[kind]
-            rows = [int(x) for x in rec[w[1]:w[1] + t.Ca + t.Cb + t.R]]
-            b["P"].append(("bil", tuple(rows[t.Ca + t.Cb:]), tuple(rows[:t.Ca + t.Cb]),
-                           kind))
+            n_in = t.Ca + b_rows(t)
+            rows = [int(x) for x in rec[w[1]:w[1] + n_in + t.R]]
+            b["P"].append(("bil", tuple(rows[n_in:]), tuple(rows[:n_in]), kind))
         b["wide_rows"] += [e >> 16 for e in out_tab]
         if [e & 0xFFFF for e in out_tab] != [d for op in b["P"] for d in op[1]]:
             raise ValueError("a record's REDC table disagrees with its products")
@@ -760,8 +921,9 @@ def _plain_plan(prog: Program, dev: torch.device) -> list:
             for kind in sorted({op[3] for op in bil}):
                 t = T.TABLES[kind]
                 rows = np.asarray([op[2] + op[1] for op in bil if op[3] == kind])
-                groups.append((t, ix(rows[:, :t.Ca]), ix(rows[:, t.Ca:t.Ca + t.Cb]),
-                               ix(rows[:, t.Ca + t.Cb:])))
+                n_in = t.Ca + b_rows(t)
+                groups.append((t, ix(rows[:, :t.Ca]), ix(rows[:, t.Ca:n_in]),
+                               ix(rows[:, n_in:])))
             steps.append((MUL, ix(a), ix(bb), ix(np.nonzero(~isz)[0]),
                           ix(np.nonzero(isz)[0]), ix(d[~isz]), ix(d[isz]), groups))
         steps += linear_steps(b["E"]) + [(_FLUSH,)]

@@ -596,6 +596,8 @@ class Tower:
         return self._fq12_chain(f, lines_program(c_a.shape[-3], False),
                                 operand=torch.cat([c_a, c_v, c_vw], dim=-2))
 
+    fq12_conj = staticmethod(fq12_conj)
+
     def fq12_inv(self, a):
         a0, a1 = _h(a, 0), _h(a, 1)
         denom = self.fq6_mul(a0, a0) - fq6_mul_by_v(self.fq6_mul(a1, a1))
