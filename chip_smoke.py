@@ -965,28 +965,40 @@ PR12_MS = {("g2_ladder", "cofactor 16"): (25.5147, 25.5123),
            ("g2_ladder", "sign 256-bit 1"): (13.5664, 13.5518),
            ("miller_grouped", "16 x 2"): (2.9886, 2.9923),
            ("miller_grouped", "128 x 3"): (3.4638, 3.4521)}
-BUNDLE_CLASSES = ("linear only", "multiplies only", "with tower products", "with a phase E")
+BUNDLE_CLASSES = ("linear only", "multiplies only", "with tower products", "with a phase E",
+                  "runs")
 
 
 def bundle_split(prog, cycles, phases):
-    """The clocked bundles of one launch by what they hold: linear ops
-    only, multiplies without tower products, with tower products, and
-    (across the last two) the product bundles that also run a phase E
-    -> {class: {bundles, mean_cycles, share, phases: {phase: mean
-    cycles}}} (phases: fq_points.PHASES, the split of bundle_clocks)."""
-    b = prog.bundles                     # linear A, multiplies, products, linear E
-    products = (b[:, 1] + b[:, 2]) > 0
-    members = {"linear only": ~products,
-               "multiplies only": (b[:, 1] > 0) & (b[:, 2] == 0),
-               "with tower products": b[:, 2] > 0,
-               "with a phase E": products & (b[:, 3] > 0)}
+    """The clocked records of one launch (fq_points.bundle_clocks: a
+    bundle, or a run record of small bundles) by what they hold: bundles
+    of linear ops only, of multiplies without tower products, with tower
+    products, (across the last two) product bundles that also run a phase
+    E, and run records (counted by their bundles) -> {class: {bundles,
+    mean_cycles a bundle, share, phases: {phase: mean cycles a bundle}}}
+    (phases: fq_points.PHASES; a run is all phase B), and "runs" also
+    {records, multiplies, cycles_a_multiply}."""
+    r = prog.records                 # linear A, multiplies, products, linear E, run bundles
+    run = r[:, 4] > 0
+    products = (r[:, 1] + r[:, 2]) > 0
+    weight = np.where(run, r[:, 4], 1)
+    members = {"linear only": ~run & ~products,
+               "multiplies only": ~run & (r[:, 1] > 0) & (r[:, 2] == 0),
+               "with tower products": r[:, 2] > 0,
+               "with a phase E": products & ~run & (r[:, 3] > 0),
+               "runs": run}
     total = max(int(cycles.sum()), 1)
-    return {c: {"bundles": int(m.sum()),
-                "mean_cycles": float(cycles[m].mean()) if m.any() else 0.0,
-                "share": float(cycles[m].sum()) / total,
-                "phases": {ph: float(phases[m, j].mean()) if m.any() else 0.0
-                           for j, ph in enumerate(fq_points.PHASES)}}
-            for c, m in members.items()}
+    out = {}
+    for c, m in members.items():
+        n = int(weight[m].sum())
+        out[c] = {"bundles": n, "mean_cycles": float(cycles[m].sum()) / n if n else 0.0,
+                  "share": float(cycles[m].sum()) / total,
+                  "phases": {ph: float(phases[m, j].sum()) / n if n else 0.0
+                             for j, ph in enumerate(fq_points.PHASES)}}
+    muls = int(r[run, 1].sum())
+    out["runs"].update({"records": int(run.sum()), "multiplies": muls,
+                        "cycles_a_multiply": float(cycles[run].sum()) / muls if muls else 0.0})
+    return out
 
 
 def point_launch(prog, lanes):
@@ -1075,10 +1087,14 @@ def check_point_kernels(rng, dev):
 
 def report_point_kernels(pk) -> None:
     def split(row):
-        return "; ".join(f"{c} {v['bundles']} x {v['mean_cycles']:.0f} cycles"
-                         f" ({100 * v['share']:.1f}%: " + " / ".join(
-                             f"{u:.0f}" for u in v["phases"].values()) + ")"
-                         for c, v in row["bundle_cycles"].items())
+        split_ = row["bundle_cycles"]
+        return "; ".join(f"{c} {split_[c]['bundles']} x {split_[c]['mean_cycles']:.0f} cycles"
+                         f" ({100 * split_[c]['share']:.1f}%: " + " / ".join(
+                             f"{u:.0f}" for u in split_[c]["phases"].values()) + ")"
+                         for c in BUNDLE_CLASSES) + (
+            f"; the runs: {split_['runs']['records']} records,"
+            f" {split_['runs']['multiplies']} multiplies,"
+            f" {split_['runs']['cycles_a_multiply']:.0f} cycles a multiply")
 
     for name, rows in (("g2_ladder", pk["ladder"]), ("miller_grouped", pk["miller"])):
         for label, r in rows.items():
@@ -1125,10 +1141,11 @@ def cancelling_groups(G: int, P: int):
 
 def clocked(prog, fn, dev, ms):
     """Block 0's mean cycles a bundle of one launch (fn(stamps) launches
-    it), split by what the bundles hold (bundle_split), and the launch's
-    us a bundle."""
+    it; a run record's cycles spread over its bundles), split by what the
+    bundles hold (bundle_split), and the launch's us a bundle."""
     cycles, phases = fq_points.bundle_clocks(fn, prog, dev)
-    return {"bundles": prog.n_bundles, "cycles_a_bundle": float(cycles.mean()),
+    return {"bundles": prog.n_bundles, "records": prog.n_records,
+            "cycles_a_bundle": float(cycles.sum()) / max(prog.n_bundles, 1),
             "us_a_bundle": ms * 1e3 / max(prog.n_bundles, 1),
             "split": bundle_split(prog, cycles, phases)}
 
@@ -1277,7 +1294,31 @@ def host_g2(limbs):
     return (fq_tower.fq2_from_limbs(limbs[0]), fq_tower.fq2_from_limbs(limbs[1]))
 
 
-def report_point_programs(pp) -> None:
+def chain_step_cycles(fq_ch) -> dict:
+    """The chain kernel's cycles a step from check_chains' clocks of this
+    run (phases A to D summed): an Fq multiply (the Fq inversion's chain)
+    and the Fq12 products (pow_abs |z|'s cyclotomic squares and multiplies)
+    -> {step name: cycles}; {} where the chains were not clocked."""
+    out = {}
+    for label in ("fq inv", "pow_abs |z|"):
+        for name, ph in fq_ch.get("chains", {}).get(label, {}).get("phases", {}).items():
+            if name in ("fq_mul", "fq12_cyclo_sqr", "fq12_mul"):
+                out[name] = float(sum(ph["cycles_per_step"]))
+    return out
+
+
+def _phase_split(split, kinds=("multiplies only", "runs", "with tower products")) -> str:
+    return "; ".join(f"{k} {split[k]['bundles']} x {split[k]['mean_cycles']:.0f} ("
+                     + " / ".join(f"{v:.0f}" for v in split[k]["phases"].values()) + ")"
+                     for k in kinds if split[k]["bundles"]) + (
+        f"; runs {split['runs']['cycles_a_multiply']:.0f} cycles a multiply"
+        if split["runs"]["multiplies"] else "")
+
+
+def report_point_programs(pp, fq_ch=None) -> None:
+    chain = chain_step_cycles(fq_ch or {})
+    beside = (" | the chain kernel's steps in this run, cycles: " + ", ".join(
+        f"{k} {v:.0f}" for k, v in chain.items())) if chain else ""
     for label, r in pp["final_exp"].items():
         prog = r["program"]
         log(f"phase kernel: final_exp program {label} bit-identical to its plain twin on"
@@ -1285,19 +1326,18 @@ def report_point_programs(pp) -> None:
             + ("lane 0 == the bignum field's f^(3 (q^12 - 1) / r)" if label == "128 x 3"
                else "groups 0 / 1 verdicts == the bignum oracle's (True / False)")
             + " | " + ", ".join(f"{m} {v['ms']:.4f} ms ({v['cycles_a_bundle']:.0f} cycles,"
-                                f" {v['us_a_bundle']:.3f} us a bundle; multiplies only"
-                                f" {v['split']['multiplies only']['bundles']} x"
-                                f" {v['split']['multiplies only']['mean_cycles']:.0f}, with"
-                                f" tower products"
-                                f" {v['split']['with tower products']['bundles']} x"
-                                f" {v['split']['with tower products']['mean_cycles']:.0f})"
+                                f" {v['us_a_bundle']:.3f} us a bundle)"
                                 for m, v in r["modes"].items())
             + f"; the path's wrapper ({fq_points.FINAL_EXP_MODE}) {r['ms']:.4f} ms, plain twin"
             f" {r['plain_ms']:.1f} ms, bound"
             f" {r['bound_ms']:.6f} ms by {r['bound_by']} | program: {prog['ops']} ops"
             f" ({prog['muls']} multiplies, {prog['products']} tower products, {prog['linear']}"
-            f" linear) in {prog['bundles']} bundles, {prog['registers']} registers,"
-            f" shared {r['launch']['smem_block']} B a block")
+            f" linear) in {prog['bundles']} bundles, {prog['records']} records,"
+            f" {prog['registers']} registers, shared {r['launch']['smem_block']} B a block")
+        for m, v in r["modes"].items():
+            log(f"phase kernel: final_exp program {label} on {m}: block 0's cycles a bundle"
+                f" by kind (" + " / ".join(fq_points.PHASES) + f"): {_phase_split(v['split'])}"
+                + beside)
     for label, r in pp["tree"].items():
         al = r["affine_launch"]
         log(f"phase kernel: point_tree {label} bit-identical to its plain twin on both"
@@ -1307,8 +1347,9 @@ def report_point_programs(pp) -> None:
             + "; ".join(f"{x['levels']} levels{' + affine' if x['affine'] else ''} at"
                         f" {x['lanes']} lanes ({x['mode']}, {x['bundles']} bundles,"
                         f" {x['registers']} registers)" for x in r["launches"])
-            + f" | the last launch alone {al['ms']:.4f} ms, {al['bundles']} bundles, block 0"
-            f" {al['cycles_a_bundle']:.0f} cycles a bundle")
+            + f" | the last launch alone {al['ms']:.4f} ms, {al['bundles']} bundles in"
+            f" {al['records']} records, block 0 {al['cycles_a_bundle']:.0f} cycles a bundle ("
+            + " / ".join(fq_points.PHASES) + f"): {_phase_split(al['split'])}" + beside)
 
 
 def small_launch_times(lanes_seen, dev, rng, pairs):
@@ -4091,7 +4132,7 @@ def main() -> int:
     pk = check_point_kernels(rng, dev)
     report_point_kernels(pk)
     pp = check_point_programs(rng, dev)
-    report_point_programs(pp)
+    report_point_programs(pp, fq_ch)
     result["point_programs"] = pp
     result["point_kernels"] = pk
 

@@ -184,7 +184,6 @@ __device__ __forceinline__ void redc(long long (&c)[kW], long long (&out)[kL]) {
 constexpr int kGroup = 16;            // threads of a schoolbook or a REDC
 constexpr unsigned kFull = 0xFFFFFFFFu;   // both groups of a warp run group code together
 constexpr int kScrWords = 72;         // a group's exchange (group_schoolbook)
-constexpr int kQWords = 32;           // q's limbs, then zeros (group_redc)
 
 // narrow32 of an operand, limb k of it: the first carry round in int64 cut
 // to int32 (its low 32 bits are narrow32's), then two rounds in int32, the
@@ -241,6 +240,45 @@ __device__ __forceinline__ void group_schoolbook(long long xk, long long yk, int
   hi = h0 + h1;
 }
 
+// group_schoolbook of two products at once (a and b), their exchange
+// words 72 apart: the two dependency chains interleave.
+__device__ __forceinline__ void group_schoolbook2(long long xa, long long ya, long long xb,
+                                                  long long yb, int* scr, int lane, int k,
+                                                  long long& loa, long long& hia,
+                                                  long long& lob, long long& hib) {
+  const int x0 = narrow_limb(xa, k);
+  const int y0 = narrow_limb(ya, k);
+  const int x1 = narrow_limb(xb, k);
+  const int y1 = narrow_limb(yb, k);
+  __syncwarp();                  // the group's last item has read its exchange
+  if (lane < kL) {
+    scr[lane] = x0;
+    scr[29 + lane] = y0;
+    scr[44 + lane] = y0;
+    scr[kScrWords + lane] = x1;
+    scr[kScrWords + 29 + lane] = y1;
+    scr[kScrWords + 44 + lane] = y1;
+  }
+  __syncwarp();
+  const int* s1 = scr + kScrWords;
+  long long a0 = 0, a1 = 0, a2 = 0, a3 = 0, b0 = 0, b1 = 0, b2 = 0, b3 = 0;
+#pragma unroll
+  for (int i = 0; i < kL; i += 2) {
+    a0 = mad_wide_s32(scr[i], scr[29 + k - i], a0);
+    a1 = mad_wide_s32(scr[i], scr[58 + k - i], a1);
+    b0 = mad_wide_s32(s1[i], s1[29 + k - i], b0);
+    b1 = mad_wide_s32(s1[i], s1[58 + k - i], b1);
+    a2 = mad_wide_s32(scr[i + 1], scr[28 + k - i], a2);
+    a3 = mad_wide_s32(scr[i + 1], scr[57 + k - i], a3);
+    b2 = mad_wide_s32(s1[i + 1], s1[28 + k - i], b2);
+    b3 = mad_wide_s32(s1[i + 1], s1[57 + k - i], b3);
+  }
+  loa = a0 + a2;
+  hia = a1 + a3;
+  lob = b0 + b2;
+  hib = b1 + b3;
+}
+
 // wide_norm32 of a leaf's columns across the group: column j takes the
 // carry of column j - 1 (lane k - 1's, or lane 13's low column for column
 // 14), column 27 keeps its own overflow; two rounds in int64, one in int32.
@@ -293,36 +331,7 @@ __device__ __forceinline__ long long group_rounds(long long o, int k, int n) {
   return o;
 }
 
-// redc() of a wide row c[0..27] (16-byte aligned), limb k of the result.
-// Every lane makes the 14 digits from the low columns (redc()'s low
-// triangle), then adds m_i q_{14+k-i} to its own column 14 + k (the q
-// table is q's limbs then zeros, so the terms with i <= k add 0); lane 0
-// adds the last carry. The columns, digits and carry are redc()'s
-// integers.
-__device__ __forceinline__ long long group_redc(const long long* c, int k, const unsigned* qs) {
-  long long lc[kL];
-  load_row(c, lc);
-  unsigned m[kL];
-  long long carry = 0;
-#pragma unroll
-  for (int i = 0; i < kL; ++i) {
-    const long long v = lc[i] + carry;
-    m[i] = (static_cast<unsigned>(v) * static_cast<unsigned>(kQinvNeg)) &
-           static_cast<unsigned>(kMask);
-    carry = mad_wide_u32(m[i], static_cast<unsigned>(kQ[0]), v) >> kB;
-#pragma unroll
-    for (int j = 1; i + j < kL; ++j)
-      lc[i + j] = mad_wide_u32(m[i], static_cast<unsigned>(kQ[j]), lc[i + j]);
-  }
-  long long o = c[kL + k];
-#pragma unroll
-  for (int i = 0; i < kL; ++i) o = mad_wide_u32(m[i], qs[kL + k - i], o);
-  if (k == 0) o += carry;
-  return group_rounds(o, k, 3);
-}
-
-
-// The q table of group_redc_regs: qz[16 + d] = q_d for d = 1 .. 13, zero
+// The q table of the group REDCs: qz[16 + d] = q_d for d = 1 .. 13, zero
 // for every other index (kQzWords words).
 constexpr int kQzWords = 48;
 __device__ __forceinline__ unsigned qz_word(int i) {
@@ -339,8 +348,7 @@ __device__ __forceinline__ unsigned qz_word(int i) {
 // the terms redc() adds to columns k and 14 + k, in the same order. Then
 // lane 0 takes the last carry and three carry rounds run across the lanes.
 // The chain of a digit: a 64-bit shuffle, an add, a 32-bit multiply and
-// the next lane's dependent mad.wide (~60 cycles), against group_redc's
-// ~105 mad.wide of issue.
+// the next lane's dependent mad.wide (~60 cycles).
 __device__ __forceinline__ long long group_redc_regs(long long lo, long long hi, int k,
                                                      const unsigned* qz) {
   long long carry = 0;

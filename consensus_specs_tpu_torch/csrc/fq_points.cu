@@ -19,7 +19,8 @@
 // the flag "equal to one", the reference's _grouped_verdict,
 // consensus_specs_tpu/ops/bls_jax.py:351) runs on g2_ladder_kernel, and the
 // decompressions' addition trees with jac_to_affine (bls_jax.py:442, :469)
-// on either, by lanes (ops/fq_points.py: final_exp_program, tree_program).
+// on either, by lanes (ops/fq_points.py: final_exp_program, tree_program,
+// FINAL_EXP_MODE, tree_mode).
 //
 // The programs (ops/fq_program.py, built by ops/fq_points.py) are the
 // port's own formulas recorded op by op: scalar_mul.jac_double / jac_add /
@@ -37,12 +38,14 @@
 //
 // What bounds them on this card. At the main path's sizes (1-16 ladder
 // lanes in a block verify or a signature, 128 in a firehose stage; 16 or
-// 128 Miller groups) neither bytes nor multiply-adds: a cofactor ladder
-// lane is about 50,000 dependent field operations (4,619 bundles deep),
-// against a few kilobytes of input and output. The time is the latency of
-// the dependency chain: what one SM takes to get through a bundle's phases
-// and barriers (chip_smoke.py's `phase kernel` prints block 0's cycles a
-// bundle, phase by phase).
+// 128 groups for the Miller loop and the final exponentiation) neither
+// bytes nor multiply-adds: a cofactor ladder lane is about 50,000
+// dependent field operations (4,619 bundles deep), against a few
+// kilobytes of input and output. The time is the latency of the
+// dependency chain: what one SM takes to get through a record's phases
+// and barriers (chip_smoke.py's `phase kernel` and
+// tools/point_program_probe.py print block 0's cycles a bundle, phase by
+// phase).
 //
 // Design:
 // - One program for the whole loop. The host schedules the ops into
@@ -55,71 +58,91 @@
 //   scratch (leaf operand rows, wide rows) live in dynamic shared memory
 //   (above 48 KB through cudaFuncSetAttribute); inputs are staged once with
 //   cp.async and the outputs leave in one coalesced store. The window
-//   digits and signs (at most 128 each) and q's limbs are staged once too.
-// - The program streamed into shared memory. Each bundle is one
-//   self-contained record (header, op words, each leaf's and each REDC's
-//   scratch row, the register lists of loads and products inline), 16-byte
-//   aligned in device memory. The block's last warp is the producer: its
-//   lane 0 keeps kRing records in flight in a ring of shared-memory slots,
-//   each fetched by one TMA bulk copy (cp.async.bulk) that completes on the
-//   slot's "full" mbarrier. It requests records 0 .. kRing - 1 first; then,
-//   for each bundle, it reads from the record's header where the record
-//   kRing on lies, waits on the slot's "empty" mbarrier (the consumers
-//   arrive there once past the bundle's last barrier) and requests that
-//   record into the same slot. The consumer warps wait on "full" (parity:
-//   the slot's round) and then read only shared memory: no record, op word
-//   or register list comes from device memory on their path.
-// - A bundle in five phases, each skipped with its barrier when empty: (A)
+//   digits and signs (at most 128 each) and q's table are staged once too.
+// - The program streamed into shared memory. Each record is
+//   self-contained (header, op words, scratch tables, the register lists
+//   of loads and products inline), 16-byte aligned in device memory. The
+//   block's last warp is the producer: its lane 0 keeps kRing records in
+//   flight in a ring of shared-memory slots, each fetched by one TMA bulk
+//   copy (cp.async.bulk) that completes on the slot's "full" mbarrier. It
+//   requests records 0 .. kRing - 1 first; then, for each record, it reads
+//   from the record's header where the record kRing on lies, waits on the
+//   slot's "empty" mbarrier (the consumers arrive there once past the
+//   record's last barrier) and requests that record into the same slot.
+//   It naps (__nanosleep) between polls, so that its waiting takes no
+//   issue slots from the consumer warp on its SM sub-partition. The
+//   consumer warps wait on "full" (parity: the slot's round) and then read
+//   only shared memory.
+// - Two kinds of record. A run record packs up to 48 consecutive bundles
+//   that hold one multiply each and nothing else (the Fq inversion's window
+//   of squarings and table multiplies, in jac_to_affine and fq12_inv): each
+//   lane's group (or thread) runs the multiplies one after another, from
+//   operands to stored result, with no barrier and no record between them;
+//   lane k of a group reads and stores only limb k of the lane's rows, so
+//   each multiply sees the one before. Every other bundle is a record of
+//   its own.
+// - A bundle in seven phases, each skipped with its barrier when empty: (A)
 //   linear ops (one thread per row) and the tower products' pre-sums (one
 //   thread per operand limb, the compiled Table<K> code reading the
-//   register file through a gather); (B) every multiply's schoolbook and
-//   every tower-product leaf; (C) the tower products' gamma sums (one
-//   thread per column); (D) every REDC; (E) the linear ops that read the
-//   bundle's own results (the lazy add, sub, neg, select and load after a
-//   REDC, so they do not open a bundle of their own). A multiply reads
-//   phase A's results of its bundle. Phases A and E share one copy of the
-//   linear code (the pass loop of bundle()). The row ops (add, sub, neg,
-//   sel, load) take one branch-free path, both source rows loaded before
-//   the store.
-// - The ladder's kernel (few products a bundle: latency first) runs B and D
-//   on 16-thread groups (a half-warp; the group multiply is csrc/fq_arith.cuh's,
-//   shared with the chain kernel). Lane k (0..13; lanes 14 and 15
-//   follow lane 13 and store nothing) narrows limb k of each operand
-//   (narrow32's three carry rounds, the carry from lane k - 1 by a
-//   shuffle); the group swaps the int32 limbs through 72 words of shared
-//   memory; lane k sums columns k and k + 14 of the schoolbook (the same
-//   integer sums as schoolbook()); a leaf's columns are wide-normalized
-//   across the lanes (wide_norm32). REDC: every lane makes the 14 digits
-//   from the low columns (redc()'s low triangle), so the digits and the
-//   last carry are redc()'s integers; lane k then adds m_i q_{14+k-i} to
-//   its own column 14 + k, lane 0 the carry, and the closing carry rounds
-//   (and is_zero's seventeen) run across the lanes. A warp's two groups
-//   always run group code together (a group without an item repeats its
-//   partner's and stores nothing), so every shuffle is a full-warp one.
-// - The Miller kernel (dozens of leaves and REDCs a bundle: each phase is
-//   bound by the SM's throughput, and a 16-thread group costs a warp's
-//   instructions for two items) runs B and D one thread an item, with
-//   csrc/fq_arith.cuh's narrow32, schoolbook, wide_norm32 and redc.
+//   register file through a gather; the b pre-sums from the next warp
+//   boundary, so that the a and b code run on different warps); (B) every
+//   multiply's schoolbook (its raw columns into its wide row) and every
+//   tower-product leaf (wide-normalized, its int32 columns over its own x
+//   row); (C) the tower products' gamma sums (one thread per column); (D)
+//   every REDC, then the phase-E norms folded into it (the three carry
+//   rounds of a norm_in on a product output, run on the output's own
+//   limbs by the group or thread that made it, into the norm's register;
+//   the compiler folds one only where that register's previous value is
+//   last read before phase D, and such a norm leaves phase E); (E) the
+//   linear ops that read the bundle's own results, then (E2, E3) those that
+//   read E's and E2's, so a chain of up to three linear ops after a REDC
+//   stays in the bundle instead of opening bundles of linear ops only. A
+//   multiply reads phase A's results of its bundle. The row ops (add, sub,
+//   neg, sel, load) take one branch-free path, both source rows loaded
+//   before the store.
+// - The ladder's kernel (g2_ladder_kernel: few products a bundle, latency
+//   first) runs B and D on 16-thread groups (a half-warp; csrc/
+//   fq_arith.cuh's group multiply, shared with the chain kernel). Lane k
+//   (0..13; lanes 14 and 15 follow lane 13 and store nothing) narrows limb
+//   k of each operand (narrow32's three carry rounds, the carry from lane
+//   k - 1 by a shuffle); the group swaps the int32 limbs through its
+//   exchange words; lane k sums columns k and k + 14 of the schoolbook.
+//   Where the leaves would take more than one round of the block's groups,
+//   each group runs two leaves at once (group_schoolbook2: two chains to
+//   interleave), and the multiplies' items are padded to even so that a
+//   warp's two groups run one code. REDC (group_redc_regs): lane k holds
+//   columns k and 14 + k in registers; digit i is made by every lane from
+//   lane i's low column (a shuffle) and the previous digit's carry, so the
+//   digits and carries are redc()'s integers, and each lane adds its own
+//   terms to its two columns; then three carry rounds across the lanes.
+//   A warp's two groups always run group code together (a group without an
+//   item repeats its partner's and stores nothing), so every shuffle is a
+//   full-warp one.
+// - The Miller kernel (miller_grouped_kernel: dozens of leaves and REDCs a
+//   bundle; each phase is bound by the SM's throughput, and a 16-thread
+//   group costs a warp's instructions for two items) runs B and D one
+//   thread an item, with csrc/fq_arith.cuh's narrow32, schoolbook,
+//   wide_norm32 and redc.
 // - Barriers. A bundle needs nw consumer warps (its widest phase, in
-//   threads or groups); the others go straight to the bundle's end. A phase
-//   ends with __syncwarp when nw is 1 and with the named barrier 1 over the
-//   nw warps otherwise; the bundle ends with the named barrier 2 over all
-//   consumer warps.
+//   threads or groups); the others go straight to the record's end. A
+//   phase ends with __syncwarp when nw is 1 and with the named barrier 1
+//   over the nw warps otherwise; every record ends with the named barrier 2
+//   over all consumer warps. A run has no phase barrier.
 // - One lane (ladder) or one group (Miller) per block while the launch has
 //   fewer lanes than the card has SMs; more lanes per block only beyond.
 //   Threads: 32 x the consumer warps of the program's widest phase (2 to
-//   8), and the producer warp. More consumer warps were slower on both
-//   kernels (register spills at 544 threads; longer phases at 160).
+//   8), and the producer warp.
 //
 // Shared memory (ops/fq_points.py::launch_shape computes the same): the
 // ring is kRing slots of the program's largest record (cofactor and
-// 256-bit ladders 368 words: 11,776 bytes; Miller P = 2 440 words: 14,080;
-// P = 3 660 words: 21,120), the mbarriers, a 32-word q table, the digits,
-// 288 bytes a 16-thread group (4,608 for 256 consumer threads), and per
-// lane the file: the ladder 16,192 bytes (98 rows, 9 leaf rows, 13 wide
-// rows, 19 flags), Miller P = 3 50,176 (127 rows, 93 leaf rows, 63 wide
-// rows). A cofactor-ladder block of one lane takes 33,856 bytes, a Miller
-// block of one group at P = 3 76,160: inside the 227 KB of an SM.
+// 256-bit ladders 488 words: 15,616 bytes; the final exponentiation 564:
+// 18,048; Miller P = 3 640: 20,480), the mbarriers, a 48-word q table, the
+// digits, 576 bytes of exchange words a 16-thread group (9,216 for 256
+// consumer threads), and per lane the file: the ladder 18,160 bytes (95
+// rows, 15 leaf rows, 17 wide rows, 19 flags), the final exponentiation
+// 34,048, Miller P = 3 47,664. A cofactor-ladder block of one lane takes
+// 44,336 bytes, a Miller block of one group at P = 3 77,680: inside the
+// 227 KB of an SM.
 //
 // Ranges: the ops see exactly the values the plain loops see, so every
 // intermediate stays in the reference's proven budget (csrc/fq_mont.cu's
@@ -136,8 +159,12 @@ constexpr int kIsz = 17, kBil = 32;       // 16: mul
 constexpr int kNormFull = kL + 3;     // rounds to the unique signed-top form
 constexpr int kMaxThreads = 256 + 32;  // at most 8 consumer warps, and the producer warp
 constexpr int kRing = 8;              // records in flight (ops/fq_program.py RING)
-constexpr int kHdr = 12;              // a record's header words (HDR)
+constexpr int kScrPoint = 2 * kScrWords;   // a group's exchange words (two products)
+constexpr int kHdr = 16;              // a record's header words (HDR)
 constexpr int kNextOff = 7, kNextWords = 8;
+constexpr int kRun = 9;               // 1: a run record (ops/fq_program.py REC_RUN)
+constexpr int kFoldTab = 10;          // where the fold table lies (0: none)
+constexpr int kE2 = 11, kE3 = 12;     // linear ops in phases E2 and E3
 
 struct Prog {
   const int* records;        // the bundle records, 16-byte aligned
@@ -148,7 +175,7 @@ struct Prog {
   const long long* consts;   // [n_const][kL]
   const int* d_idx;          // [n_digits] table index of each window digit
   const int* d_sign;         // [n_digits] its sign
-  int n_bundles, n_const, nreg, nflag, nx, ng, n_digits, slot_words;
+  int n_records, n_const, nreg, nflag, nx, ng, n_digits, slot_words;
   int in_rows[2], out_rows;
   int lane_flag, uniform_flag, uniform_val, out_flag;
 };
@@ -160,13 +187,13 @@ struct Io {
   unsigned char* out_flags;        // [n] or null
   unsigned n;
   int tile;                        // lanes per block
-  long long* stamps;               // null, or [n_bundles][kMarks] + 1 clock64() values
+  long long* stamps;               // null, or [n_records][kMarks] + 1 clock64() values
 };
 
-// Block 0's clock stamps of a bundle (thread 0): before the record's wait,
+// Block 0's clock stamps of a record (thread 0): before the record's wait,
 // after it, after phases A, B, C, D and E (each with its barrier; a
-// skipped phase stamps at once), after the bundle's last barrier. The
-// next bundle's first stamp closes the producer's fetch.
+// skipped phase stamps at once; a run is all phase B), after the record's
+// last barrier. The next record's first stamp closes the producer's fetch.
 constexpr int kMarks = 8;
 
 // The block's shared memory: the ring and its mbarriers, the q table, the
@@ -176,7 +203,7 @@ constexpr int kMarks = 8;
 struct Smem {
   int* ring;
   unsigned long long *full, *empty;   // a slot's record is in / has been read
-  unsigned* qs;
+  unsigned* qz;                        // the q table of the group REDCs
   int *d_idx, *d_sign;
   int* scr;
   long long *regs, *x, *y, *g;
@@ -191,8 +218,8 @@ __device__ __forceinline__ Smem smem_of(char* base, const Prog& p, int tile, int
   s.full = reinterpret_cast<unsigned long long*>(base);
   s.empty = s.full + kRing;
   base += 16 * kRing;
-  s.qs = reinterpret_cast<unsigned*>(base);
-  base += 4 * kQWords;
+  s.qz = reinterpret_cast<unsigned*>(base);
+  base += 4 * kQzWords;
   const int dpad = (p.n_digits + 3) & ~3;
   s.d_idx = reinterpret_cast<int*>(base);
   s.d_sign = s.d_idx + dpad;
@@ -239,17 +266,29 @@ __device__ __forceinline__ void bar_arrive(unsigned long long* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
+__device__ __forceinline__ bool try_bar(unsigned long long* bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// A consumer's wait for a record (normally in long before).
 __device__ __forceinline__ void wait_bar(unsigned long long* bar, unsigned parity) {
-  const unsigned a = smem_addr(bar);
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
+  while (!try_bar(bar, parity)) {
   }
+}
+
+// The producer's wait, mostly for the consumers to release a slot: a nap
+// between tries, so that its polling takes no issue slots from the
+// consumer warp that shares its SM sub-partition.
+constexpr unsigned kNapNs = 256;
+__device__ __forceinline__ void wait_bar_napping(unsigned long long* bar, unsigned parity) {
+  while (!try_bar(bar, parity)) __nanosleep(kNapNs);
 }
 
 // ---------------------------------------------------------------------------
@@ -379,7 +418,7 @@ struct Div {
 // The block's lanes: their count, and division by it and by 28 times it.
 struct Lanes {
   int n;
-  Div by_n, by_row;
+  Div by_n, by_limb, by_row;      // by n, 14 n, 28 n
 };
 
 // Phase B's item gi (multiplies first, then leaves): its operand rows and
@@ -407,12 +446,13 @@ __device__ __forceinline__ bool b_item(int gi, int mul_items, const int* mul,
 }
 
 // Phase D's item gi (the multiplies' REDCs, then the products' outputs):
-// its wide row, the lane's register file, the output row and the lane;
-// for a multiply its op words too (true).
+// its wide row, the lane's register file, the output row, the lane and the
+// output's slot (-1 for a multiply); for a multiply its op words too
+// (true).
 __device__ __forceinline__ bool d_item(int gi, int mul_items, const int* mul,
                                        const int* out_tab, const Smem& s, const Lanes& ln,
                                        const long long*& src, long long*& R, const int*& w,
-                                       int& out_row, int& l) {
+                                       int& out_row, int& l, int& q) {
   const int nl = ln.n;
   if (gi < mul_items) {
     const int o = ln.by_n(gi);
@@ -421,9 +461,11 @@ __device__ __forceinline__ bool d_item(int gi, int mul_items, const int* mul,
     src = s.g + l * s.g_r + w[6] * kWPitch;
     out_row = w[1];
     R = s.regs + l * s.reg_r;
+    q = -1;
     return true;
   }
-  const int j = gi - mul_items, q = ln.by_n(j);
+  const int j = gi - mul_items;
+  q = ln.by_n(j);
   l = j - q * nl;
   const int e = out_tab[q];
   w = mul;
@@ -433,34 +475,67 @@ __device__ __forceinline__ bool d_item(int gi, int mul_items, const int* mul,
   return false;
 }
 
+// is_zero of a group's REDC result (limb k on lane k): NORM_FULL carry
+// rounds more, then the three patterns (zero, q, -q), each group's vote
+// read from its half of the ballot, into the flag. Both groups of the warp
+// call it; isz says whether this group's item is an is_zero.
+__device__ __forceinline__ void group_is_zero(long long r, int k, int lane, bool isz,
+                                              const long long* qp, const long long* qn,
+                                              int* flag) {
+  const long long y = group_rounds(r, k, kNormFull);
+  const bool in = lane < kL;
+  const int sh = threadIdx.x & 16;
+  const unsigned z = __ballot_sync(kFull, !in || y == 0) >> sh & 0xFFFFu;
+  const unsigned eq = __ballot_sync(kFull, !in || y == qp[k]) >> sh & 0xFFFFu;
+  const unsigned en = __ballot_sync(kFull, !in || y == qn[k]) >> sh & 0xFFFFu;
+  if (isz && lane == 0) *flag = z == 0xFFFFu || eq == 0xFFFFu || en == 0xFFFFu;
+}
+
 // One bundle (its record in shared memory) over the block's lanes, on
 // the consumer warps. Thread items, i = tid, tid + threads, ...: an op's
-// lanes side by side; group items likewise by group. Phases A and E run
-// the same code (the pass loop), so the linear ops' instructions are
-// fetched once a bundle.
+// lanes side by side; group items likewise by group, a warp's two groups
+// on items base and base + 1 (where base + 1 is past the end the second
+// repeats the first's item and stores nothing, so both always run group
+// code together: full-warp shuffles). Phases A and E run the same code
+// (the pass loop), so the linear ops' instructions are fetched once a
+// bundle.
 template <bool kGroups>
 __device__ __forceinline__ void bundle(const int* rec, const Smem& s, const Lanes& ln,
                                        int warps, long long* st) {
   const int nl = ln.n;
   const int n_a = rec[1], n_m = rec[2], n_p = rec[3], n_e = rec[4];
-  const int n_leaf = rec[5], n_out = rec[6];
+  const int n_leaf = rec[5], n_out = rec[6], n_e2 = rec[kE2], n_e3 = rec[kE3];
   const int* lin = rec + kHdr;
   const int* mul = lin + n_a * kWords;
   const int* bil = mul + n_m * kWords;
   const int* lin_e = bil + n_p * kWords;
-  const int* leaf_tab = lin_e + n_e * kWords;
+  const int* leaf_tab = lin_e + (n_e + n_e2 + n_e3) * kWords;
   const int* out_tab = leaf_tab + n_leaf;
-  const int items_a = (n_a + n_p * 2 * kL) * nl, items_b = (n_m + n_leaf) * nl;
-  const int items_c = n_p * kW * nl, items_d = (n_m + n_out) * nl, items_e = n_e * nl;
+  const int mul_items = n_m * nl;
+  // phase B on groups: where one leaf a group would take more than one
+  // round of the block's groups, the leaves go two a group (their pairs)
+  // and the multiplies' items are padded to even, so that a warp's two
+  // groups run one code; otherwise the multiplies and the leaves are dealt
+  // one a group, as they come
+  const bool pairs = kGroups && mul_items + n_leaf * nl > 2 * warps;
+  const int mul_slots = pairs ? (mul_items + 1) & ~1 : mul_items;
+  const int leaf_items = pairs ? (n_leaf * nl + 1) >> 1 : n_leaf * nl;
+  // phase A: the linear ops, the products' a pre-sums (one per product,
+  // limb and lane), and from the next warp boundary their b pre-sums
+  const int pre = n_p * kL * nl;
+  const int b_pre = (n_a * nl + pre + 31) & ~31;
+  const int items_a = n_p ? b_pre + pre : n_a * nl, items_b = mul_slots + leaf_items;
+  const int items_c = n_p * kW * nl, items_e = n_e * nl;
+  const int items_d = (n_m + n_out) * nl;
   const int per_item = kGroups ? kGroup : 1;   // threads of a schoolbook or REDC
-  const int need = max(max(items_a, items_c), max(items_e, per_item * max(items_b, items_d)));
+  const int need = max(max(max(items_a, items_c), max(items_e, max(n_e2, n_e3) * nl)),
+                       per_item * max(items_b, items_d));
   const int nw = max(1, min(warps, (need + 31) >> 5));
   const int tid = threadIdx.x;
   if ((tid >> 5) >= nw) return;
-  const int nt = nw * 32, groups = nw * 2;
+  const int nt = nw * 32;
   const int warp = tid >> 5, half = (tid >> 4) & 1, lane = tid & 15, k = min(lane, kL - 1);
-  int* scr = s.scr + (tid >> 4) * kScrWords;
-  const int mul_items = n_m * nl;
+  int* scr = s.scr + (tid >> 4) * kScrPoint;
 
 #pragma unroll 1
   for (int pass = 0; pass < 2; ++pass) {
@@ -469,35 +544,66 @@ __device__ __forceinline__ void bundle(const int* rec, const Smem& s, const Lane
       bool open = items_a > 0;       // a phase ran since the last barrier
       if (n_m + n_p) {
         if (open) phase_sync(nw);
-        // (B) a multiply's schoolbook into its wide row, a leaf's
-        // wide-normalized int32 columns over its own x row. Groups (the
-        // ladder): one per (item, lane); a warp's two groups take items base
-        // and base + 1, and where base + 1 is past the end the second repeats
-        // the first's item and stores nothing, so both always run group code
-        // together (full-warp shuffles). Threads (the Miller loop): one per
-        // (item, lane).
         if constexpr (kGroups) {
+          // (B) on groups (the ladder kernel): a multiply's schoolbook, its
+          // raw columns into its wide row; a leaf's schoolbook
+          // wide-normalized, its int32 columns over its own x row. Items
+          // one a group: a warp whose other item is a leaf wide-normalizes
+          // a multiply's columns too (one code), and stores them raw.
+          const int singles = pairs ? mul_items : items_b;
           for (int base = warp * 2; base < items_b; base += nw * 2) {
-            const bool own = base + half < items_b;
-            const int gi = own ? base + half : base;
-            const long long *xs, *ys;
-            long long* dst;
-            const bool is_mul = b_item(gi, mul_items, mul, leaf_tab, s, ln, xs, ys, dst);
-            long long lo, hi;
-            group_schoolbook(xs[k], ys[k], scr, lane, k, lo, hi);
-            int wlo, whi;
-            group_wide_norm(lo, hi, k, wlo, whi);
-            if (own && lane < kL) {
-              if (is_mul) {
-                dst[lane] = lo;
-                dst[kL + lane] = hi;
-              } else {
-                reinterpret_cast<int*>(dst)[lane] = wlo;
-                reinterpret_cast<int*>(dst)[kL + lane] = whi;
+            if (base < (pairs ? mul_slots : items_b)) {
+              const bool own = base + half < singles;
+              const long long *xs, *ys;
+              long long* dst;
+              const bool is_mul =
+                  b_item(own ? base + half : base, mul_items, mul, leaf_tab, s, ln, xs, ys, dst);
+              long long lo, hi;
+              group_schoolbook(xs[k], ys[k], scr, lane, k, lo, hi);
+              const int partner = base + 1 < singles ? base + 1 : base;
+              int wlo = 0, whi = 0;
+              if (partner >= mul_items) group_wide_norm(lo, hi, k, wlo, whi);
+              if (own && lane < kL) {
+                if (is_mul) {
+                  dst[lane] = lo;
+                  dst[kL + lane] = hi;
+                } else {
+                  reinterpret_cast<int*>(dst)[lane] = wlo;
+                  reinterpret_cast<int*>(dst)[kL + lane] = whi;
+                }
+              }
+            } else {
+              // pairs: leaves 2p and 2p + 1 of pair p (past the end the
+              // second repeats the first and stores nothing), interleaved
+              const int p0 = base - mul_slots, leaves = n_leaf * nl;
+              const bool own = p0 + half < leaf_items;
+              const int pr = own ? p0 + half : p0;
+              const int ja = 2 * pr, jb = min(ja + 1, leaves - 1);
+              const bool own_b = own && ja + 1 < leaves;
+              const int qa = ln.by_n(ja), la = ja - qa * nl, qb = ln.by_n(jb), lb = jb - qb * nl;
+              long long* xa = s.x + la * s.x_r + leaf_tab[qa] * kL;
+              const long long* ya = s.y + la * s.x_r + leaf_tab[qa] * kL;
+              long long* xb = s.x + lb * s.x_r + leaf_tab[qb] * kL;
+              const long long* yb = s.y + lb * s.x_r + leaf_tab[qb] * kL;
+              long long loa, hia, lob, hib;
+              group_schoolbook2(xa[k], ya[k], xb[k], yb[k], scr, lane, k, loa, hia, lob, hib);
+              int wla, wha, wlb, whb;
+              group_wide_norm(loa, hia, k, wla, wha);
+              group_wide_norm(lob, hib, k, wlb, whb);
+              if (own && lane < kL) {
+                reinterpret_cast<int*>(xa)[lane] = wla;
+                reinterpret_cast<int*>(xa)[kL + lane] = wha;
+              }
+              if (own_b && lane < kL) {
+                reinterpret_cast<int*>(xb)[lane] = wlb;
+                reinterpret_cast<int*>(xb)[kL + lane] = whb;
               }
             }
           }
         } else {
+          // (B) on threads (the Miller kernel): one thread a multiply's
+          // schoolbook into its wide row, or a leaf's wide-normalized
+          // columns over its own x row
           for (int gi = tid; gi < items_b; gi += nt) {
             const long long *xs, *ys;
             long long* dst;
@@ -520,8 +626,10 @@ __device__ __forceinline__ void bundle(const int* rec, const Smem& s, const Lane
         }
         if (st) st[4] = clock64();
 
-        // (D) REDCs: a multiply's row (and is_zero's compare), a product's
-        // output rows; by groups (items dealt as in (B)) or by threads
+        // (D) every REDC (and is_zero's compare): the multiplies', then the
+        // products' outputs, each with the folded norm of its phase E where
+        // it has one; on groups each wide row's column pair read into
+        // registers (group_redc_regs), on threads one thread a row
         if constexpr (kGroups) {
           for (int base = warp * 2; base < items_d; base += nw * 2) {
             const bool own = base + half < items_d;
@@ -529,33 +637,24 @@ __device__ __forceinline__ void bundle(const int* rec, const Smem& s, const Lane
             const long long* src;
             long long* R;
             const int* w;
-            int out_row, l;
-            const bool is_mul = d_item(gi, mul_items, mul, out_tab, s, ln, src, R, w, out_row, l);
+            int out_row, l, q;
+            const bool is_mul =
+                d_item(gi, mul_items, mul, out_tab, s, ln, src, R, w, out_row, l, q);
+            const long long o = group_redc_regs(src[k], src[kL + k], k, s.qz);
             const bool isz = own && is_mul && w[0] == kIsz;
-            const long long o = group_redc(src, k, s.qs);
+            if (__any_sync(kFull, isz))
+              group_is_zero(o, k, lane, isz, R + (isz ? w[4] : 0) * kL,
+                            R + (isz ? w[5] : 0) * kL, s.flags + l * s.flag_r + out_row);
             if (own && !isz && lane < kL) R[out_row * kL + lane] = o;
-            if (__any_sync(kFull, isz)) {
-              // is_zero: NORM_FULL rounds more, then the three patterns, each
-              // group's vote read from its half of the ballot
-              const long long y = group_rounds(o, k, kNormFull);
-              const long long* qp = R + (isz ? w[4] : 0) * kL;
-              const long long* qn = R + (isz ? w[5] : 0) * kL;
-              const bool in = lane < kL;
-              const int sh = tid & 16;
-              const unsigned z = __ballot_sync(kFull, !in || y == 0) >> sh & 0xFFFFu;
-              const unsigned eq = __ballot_sync(kFull, !in || y == qp[k]) >> sh & 0xFFFFu;
-              const unsigned en = __ballot_sync(kFull, !in || y == qn[k]) >> sh & 0xFFFFu;
-              if (isz && lane == 0)
-                s.flags[l * s.flag_r + out_row] = z == 0xFFFFu || eq == 0xFFFFu || en == 0xFFFFu;
-            }
           }
         } else {
           for (int gi = tid; gi < items_d; gi += nt) {
             const long long* src;
             long long* R;
             const int* w;
-            int out_row, l;
-            const bool is_mul = d_item(gi, mul_items, mul, out_tab, s, ln, src, R, w, out_row, l);
+            int out_row, l, q;
+            const bool is_mul =
+                d_item(gi, mul_items, mul, out_tab, s, ln, src, R, w, out_row, l, q);
             long long c[kW];
             load_row(src, c);
             long long res[kL];
@@ -578,6 +677,43 @@ __device__ __forceinline__ void bundle(const int* rec, const Smem& s, const Lane
             }
           }
         }
+        // the folded norms: each output's item again, on the group or
+        // thread that stored it (its own limbs: no barrier), three more
+        // carry rounds into the norm's register
+        if (rec[kFoldTab]) {
+          const int* fold = rec + rec[kFoldTab];
+          if constexpr (kGroups) {
+            for (int base = warp * 2; base < items_d; base += nw * 2) {
+              const bool own = base + half < items_d;
+              const int gi = own ? base + half : base;
+              const long long* src;
+              long long* R;
+              const int* w;
+              int out_row, l, q;
+              d_item(gi, mul_items, mul, out_tab, s, ln, src, R, w, out_row, l, q);
+              const int f = q >= 0 ? fold[q] : 0;
+              if (__any_sync(kFull, f != 0)) {
+                const long long v = group_rounds(R[out_row * kL + k], k, 3);
+                if (own && f && lane < kL) R[(f - 1) * kL + lane] = v;
+              }
+            }
+          } else {
+            for (int gi = tid; gi < items_d; gi += nt) {
+              const long long* src;
+              long long* R;
+              const int* w;
+              int out_row, l, q;
+              d_item(gi, mul_items, mul, out_tab, s, ln, src, R, w, out_row, l, q);
+              const int f = q >= 0 ? fold[q] : 0;
+              if (f) {
+                long long x[kL];
+                load_row(R + out_row * kL, x);
+                carry_rounds(x);
+                store_row(R + (f - 1) * kL, x);
+              }
+            }
+          }
+        }
         open = true;
       } else if (st) {
         st[3] = st[4] = clock64();
@@ -586,8 +722,8 @@ __device__ __forceinline__ void bundle(const int* rec, const Smem& s, const Lane
       if (st) st[5] = clock64();
     }
     // (A) linear ops, one item per (op, lane), and the products' pre-sums,
-    // one per (product, operand, limb, lane); (E) linear ops on the
-    // bundle's own results
+    // one per (product, operand, limb, lane), the a and the b pre-sums on
+    // different warps; (E) linear ops on the bundle's own results
     const int* ops = pass ? lin_e : lin;
     const int lin_items = (pass ? n_e : n_a) * nl;
     const int items = pass ? items_e : items_a;
@@ -595,20 +731,88 @@ __device__ __forceinline__ void bundle(const int* rec, const Smem& s, const Lane
       if (i < lin_items) {
         const int o = ln.by_n(i), l = i - o * nl;
         linear(ops + o * kWords, rec, s, s.regs + l * s.reg_r, s.flags + l * s.flag_r);
-      } else {
-        const int j = i - lin_items;
-        const int o = ln.by_row(j), r = j - o * nl * 2 * kL, l = r / (2 * kL);
-        const int lt = r - l * 2 * kL;
+      } else if (i < lin_items + pre || i >= b_pre) {
+        const bool is_b = i >= b_pre;
+        const int j = is_b ? i - b_pre : i - lin_items;
+        const int o = ln.by_limb(j), r = j - o * nl * kL, l = r / kL, t = r - l * kL;
         const int* w = bil + o * kWords;
-        const bool is_b = lt >= kL;
-        const int t = is_b ? lt - kL : lt;
         long long* x = s.x + l * s.x_r + w[2] * kL;
         long long* y = s.y + l * s.x_r + w[2] * kL;
         FQ_PROGRAM_KIND(w[0] - kBil, presum, (is_b, s.regs + l * s.reg_r, rec + w[1], t, x, y))
       }
     }
   }
+  // (E2, E3) linear ops that read E's and then E2's results
+  const int* ops = lin_e + n_e * kWords;
+#pragma unroll 1
+  for (int level = 0; level < 2; ++level) {
+    const int n_lv = level ? n_e3 : n_e2;
+    if (!n_lv) break;
+    phase_sync(nw);
+    for (int i = tid; i < n_lv * nl; i += nt) {
+      const int o = ln.by_n(i), l = i - o * nl;
+      linear(ops + o * kWords, rec, s, s.regs + l * s.reg_r, s.flags + l * s.flag_r);
+    }
+    ops += n_lv * kWords;
+  }
   if (st) st[6] = clock64();
+}
+
+// A run record: its multiplies one after another on each lane, from
+// operands to stored result, with no barrier between them. Lane k of a
+// group reads and stores only limb k of the lane's rows, so each multiply
+// sees the one before (the exchange words are fenced by group_schoolbook's
+// own __syncwarp). Groups: a group a lane, the column pair in registers
+// from schoolbook to REDC (a warp's second group, where it has no lane,
+// repeats the first's and stores nothing); threads: a thread a lane,
+// narrow32, schoolbook and redc. Stamps: the run is phase B.
+template <bool kGroups>
+__device__ __forceinline__ void run(const int* rec, const Smem& s, const Lanes& ln, int warps,
+                                    long long* st) {
+  if (st) st[2] = clock64();
+  const int nl = ln.n, n = rec[2];
+  const int4* words = reinterpret_cast<const int4*>(rec + kHdr);   // two int4 a multiply
+  const int tid = threadIdx.x;
+  if constexpr (kGroups) {
+    const int nw = min(warps, (nl + 1) >> 1);
+    if ((tid >> 5) < nw) {
+      const int half = (tid >> 4) & 1, lane = tid & 15, k = min(lane, kL - 1);
+      int* scr = s.scr + (tid >> 4) * kScrPoint;
+      for (int base = (tid >> 5) * 2; base < nl; base += nw * 2) {
+        const bool own = base + half < nl;
+        long long* R = s.regs + (own ? base + half : base) * s.reg_r;
+        const bool out = own && lane < kL;
+#pragma unroll 1
+        for (int j = 0; j < n; ++j) {
+          const int4 w = words[2 * j];
+          long long lo, hi;
+          group_schoolbook(R[w.z * kL + k], R[w.w * kL + k], scr, lane, k, lo, hi);
+          const long long r = group_redc_regs(lo, hi, k, s.qz);
+          if (out) R[w.y * kL + lane] = r;
+        }
+      }
+    }
+  } else {
+    for (int l = tid; l < nl; l += warps * 32) {
+      long long* R = s.regs + l * s.reg_r;
+#pragma unroll 1
+      for (int j = 0; j < n; ++j) {
+        const int4 w = words[2 * j];
+        long long x[kL], y[kL];
+        load_row(R + w.z * kL, x);
+        load_row(R + w.w * kL, y);
+        int x32[kL], y32[kL];
+        narrow32(x, x32);
+        narrow32(y, y32);
+        long long c[kW];
+        schoolbook(x32, y32, c);
+        long long res[kL];
+        redc(c, res);
+        store_row(R + w.y * kL, res);
+      }
+    }
+  }
+  if (st) st[3] = st[4] = st[5] = st[6] = clock64();
 }
 
 // The producer (lane 0 of the block's last warp): records 0 .. kRing - 1
@@ -616,16 +820,16 @@ __device__ __forceinline__ void bundle(const int* rec, const Smem& s, const Lane
 // place of record b + kRing) and the consumers have released the slot,
 // record b + kRing into the same slot.
 __device__ __forceinline__ void produce(const Prog& p, const Smem& s) {
-  for (int r = 0; r < kRing && r < p.n_bundles; ++r)
+  for (int r = 0; r < kRing && r < p.n_records; ++r)
     fetch_record(s.ring + r * p.slot_words, p.records + p.ring0[2 * r], p.ring0[2 * r + 1],
                  s.full + r);
-  for (int b = 0; b + kRing < p.n_bundles; ++b) {
+  for (int b = 0; b + kRing < p.n_records; ++b) {
     const int slot = b % kRing;
     const unsigned round = static_cast<unsigned>(b / kRing) & 1u;
     int* rec = s.ring + slot * p.slot_words;
-    wait_bar(s.full + slot, round);
+    wait_bar_napping(s.full + slot, round);
     const int off = rec[kNextOff], words = rec[kNextWords];
-    wait_bar(s.empty + slot, round);
+    wait_bar_napping(s.empty + slot, round);
     fetch_record(rec, p.records + off, words, s.full + slot);
   }
 }
@@ -635,7 +839,7 @@ __device__ __forceinline__ void run_program(const Prog& p, const Io& io) {
   extern __shared__ __align__(16) char smem_raw[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int warps = (nt >> 5) - 1;        // consumer warps; the last one produces
-  const Smem s = smem_of(smem_raw, p, io.tile, warps * 2 * kScrWords);
+  const Smem s = smem_of(smem_raw, p, io.tile, warps * 2 * kScrPoint);
   const unsigned lane0 = blockIdx.x * static_cast<unsigned>(io.tile);
   const int nl = static_cast<int>(min(static_cast<unsigned>(io.tile), io.n - lane0));
   constexpr int kHalf = kL / 2;
@@ -673,29 +877,34 @@ __device__ __forceinline__ void run_program(const Prog& p, const Io& io) {
     s.d_idx[i] = p.d_idx[i];
     s.d_sign[i] = p.d_sign[i];
   }
-  if (tid < kQWords) s.qs[tid] = tid < kL ? static_cast<unsigned>(kQ[tid]) : 0u;
-  for (int i = tid; i < warps * 2 * kScrWords; i += nt) s.scr[i] = 0;
+  for (int i = tid; i < kQzWords; i += nt) s.qz[i] = qz_word(i);
+  for (int i = tid; i < warps * 2 * kScrPoint; i += nt) s.scr[i] = 0;
   cp_async_wait_all();
   __syncthreads();
 
   if ((tid >> 5) == warps) {
     if ((tid & 31) == 0) produce(p, s);
   } else {
-    const Lanes ln{nl, Div(nl), Div(nl * 2 * kL)};
+    const Lanes ln{nl, Div(nl), Div(nl * kL), Div(nl * 2 * kL)};
     long long* stamp =
         (io.stamps != nullptr && blockIdx.x == 0 && tid == 0) ? io.stamps : nullptr;
-    for (int b = 0; b < p.n_bundles; ++b) {
+    for (int b = 0; b < p.n_records; ++b) {
       const int slot = b % kRing;
       long long* st = stamp ? stamp + b * kMarks : nullptr;
       if (st) st[0] = clock64();
       wait_bar(s.full + slot, static_cast<unsigned>(b / kRing) & 1u);
       if (st) st[1] = clock64();
-      bundle<kGroups>(s.ring + slot * p.slot_words, s, ln, warps, st);
+      const int* rec = s.ring + slot * p.slot_words;
+      if (rec[kRun]) {
+        run<kGroups>(rec, s, ln, warps, st);
+      } else {
+        bundle<kGroups>(rec, s, ln, warps, st);
+      }
       asm volatile("bar.sync 2, %0;\n" ::"r"(warps * 32) : "memory");
       if (tid == (warps - 1) * 32) bar_arrive(s.empty + slot);   // off warp 0's path
       if (st) st[7] = clock64();
     }
-    if (stamp) stamp[p.n_bundles * kMarks] = clock64();
+    if (stamp) stamp[p.n_records * kMarks] = clock64();
   }
   __syncthreads();
 
@@ -737,7 +946,7 @@ DeviceInfo g_devices[kMaxDevices];
 
 // The header's fields, in order (ops/fq_points.py::_HEADER).
 enum Field {
-  kCode, kConsts, kNBundles, kNConst, kNReg, kNFlag, kNX, kNG, kNDigits, kSlotWords,
+  kCode, kConsts, kNRecords, kNConst, kNReg, kNFlag, kNX, kNG, kNDigits, kSlotWords,
   kThreadsLane, kOffRecords, kOffRing0, kOffConstRegs, kOffIn0, kOffIn1, kOffOut,
   kInRows0, kInRows1, kOutRows, kLaneFlag, kUniformFlag, kUniformVal, kOutFlag,
   kDigitIdx, kDigitSign, kIn0, kIn1, kLaneFlags, kOut, kOutFlags, kLanes, kStamps,
@@ -746,8 +955,8 @@ enum Field {
 
 // Bytes of a block's shared memory before the lanes' files, at `threads`.
 long long fixed_bytes(const Prog& p, long long threads) {
-  return 4LL * kRing * p.slot_words + 16LL * kRing + 4LL * kQWords +
-         8LL * ((p.n_digits + 3) & ~3) + 4LL * kScrWords * ((threads - 32) / kGroup);
+  return 4LL * kRing * p.slot_words + 16LL * kRing + 4LL * kQzWords +
+         8LL * ((p.n_digits + 3) & ~3) + 4LL * kScrPoint * ((threads - 32) / kGroup);
 }
 
 // Consumer warps for the widest phase (2 to 8), and the producer warp.
@@ -788,7 +997,7 @@ int launch(int which, const long long* h, void* stream) {
   p.consts = reinterpret_cast<const long long*>(h[kConsts]);
   p.d_idx = reinterpret_cast<const int*>(h[kDigitIdx]);
   p.d_sign = reinterpret_cast<const int*>(h[kDigitSign]);
-  p.n_bundles = static_cast<int>(h[kNBundles]);
+  p.n_records = static_cast<int>(h[kNRecords]);
   p.n_const = static_cast<int>(h[kNConst]);
   p.nreg = static_cast<int>(h[kNReg]);
   p.nflag = static_cast<int>(h[kNFlag]);

@@ -40,9 +40,10 @@ block and shared memory as the kernel sizes them; `bundle_clocks` reads
 block 0's cycles a bundle and phase.
 
 The split_* functions model, on the CPU, the ladder kernel's multiply on
-a 16-thread group (limb k and columns k, k + 14 on lane k, the REDC
-digits from the low columns, each lane's own high column), for the tests
-to hold against the plain field; nothing on a path calls them.
+a 16-thread group (limb k and columns k, k + 14 on lane k; the REDC with
+the columns in registers, each digit's column broadcast from its lane,
+or every lane making the digits from the low columns), for the tests to
+hold against the plain field; nothing on a path calls them.
 """
 from __future__ import annotations
 
@@ -284,7 +285,7 @@ def bound_ms(prog: FP.Program, lanes: int, imad_per_s: float,
 
 
 # csrc/fq_points.cu's launch constants
-_SMEM_TARGET, _SCR_WORDS, _Q_WORDS = 96 * 1024, 72, 32
+_SMEM_TARGET, _SCR_WORDS, _Q_WORDS = 96 * 1024, 144, 48
 _MAX_CONSUMERS = 256              # threads, the producer warp aside
 
 
@@ -293,7 +294,7 @@ def launch_shape(prog: FP.Program, lanes: int, sms: int = 132):
     a launch of `lanes` lanes on a card of `sms` SMs, as csrc/fq_points.cu's
     launch() computes them: consumer warps for the widest phase (2 to 8)
     and the producer warp; the ring of FP.RING slots of the largest
-    record, its full and empty mbarriers, the q table, the digits, 72
+    record, its full and empty mbarriers, the q table, the digits, 144
     exchange words a 16-thread group, and per lane the register file,
     leaf rows, wide rows and flags."""
     per_lane = (8 * (prog.nreg * L + 2 * prog.nx * L + prog.ng * (2 * L + 2))
@@ -446,25 +447,44 @@ def split_wide_norm(cols: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-1)
 
 
-def split_redc(cols: torch.Tensor) -> torch.Tensor:
-    """redc() by lanes: the 14 digits one after another from the low 14
-    columns (every lane makes them; the low triangle of the reduction),
-    then lane k adds m_i q_{14+k-i} to its column 14 + k (zero for i <=
-    k), lane 0 adds the last carry, and three carry rounds run across the
-    lanes -> [..., 14] limbs."""
-    low = cols[..., :L].clone()
-    digits = []
-    carry = torch.zeros_like(low[..., 0])
+_Q_LO = np.where(_LANE[:, None] > _LANE[None, :],
+                 _Q_PAD[np.clip(_LANE[:, None] - _LANE[None, :], 0, L - 1)], 0)   # q_{k-i}, k > i
+
+
+def split_redc(cols: torch.Tensor, route: str = "triangle") -> torch.Tensor:
+    """redc() by lanes (lane k: columns k and 14 + k) -> [..., 14] limbs.
+    "triangle": the 14 digits one after another from the low 14 columns,
+    every lane making them (the low triangle of the reduction, as one
+    thread's redc() runs it), then lane k adds m_i q_{14+k-i} to its
+    column 14 + k (zero for i <= k). "registers" (csrc/fq_arith.cuh
+    group_redc_regs, the point and chain kernels' groups): digit i from
+    lane i's low column, broadcast, plus the previous digit's carry; every
+    lane adds m_i q_{k-i} to its low column (k > i) and m_i q_{14+k-i} to
+    its high one (k < i). Either way lane 0 then adds the last carry, and
+    three carry rounds run across the lanes."""
     q = [int(v) for v in F.Q_LIMBS]
-    for i in range(L):
-        v = low[..., i] + carry
-        m = ((v & 0xFFFFFFFF) * F.QINV_NEG) & F.MASK
-        carry = (m * q[0] + v) >> F.B
-        for j in range(1, L - i):
-            low[..., i + j] += m * q[j]
-        digits.append(m)
-    m = torch.stack(digits, dim=-1)                                 # [..., i]
-    out = cols[..., L:] + (m[..., None, :] * torch.as_tensor(_Q_HIGH)).sum(-1)
+    carry = torch.zeros_like(cols[..., 0])
+    if route == "registers":
+        lo, out = cols[..., :L].clone(), cols[..., L:].clone()
+        q_lo, q_hi = torch.as_tensor(_Q_LO), torch.as_tensor(_Q_HIGH)
+        for i in range(L):
+            v = lo[..., i] + carry                                  # lane i's, broadcast
+            m = ((v & 0xFFFFFFFF) * F.QINV_NEG) & F.MASK
+            carry = (m * q[0] + v) >> F.B
+            lo = lo + m[..., None] * q_lo[:, i]
+            out = out + m[..., None] * q_hi[:, i]
+    else:
+        low = cols[..., :L].clone()
+        digits = []
+        for i in range(L):
+            v = low[..., i] + carry
+            m = ((v & 0xFFFFFFFF) * F.QINV_NEG) & F.MASK
+            carry = (m * q[0] + v) >> F.B
+            for j in range(1, L - i):
+                low[..., i + j] += m * q[j]
+            digits.append(m)
+        m = torch.stack(digits, dim=-1)                             # [..., i]
+        out = cols[..., L:] + (m[..., None, :] * torch.as_tensor(_Q_HIGH)).sum(-1)
     out[..., 0] += carry
     for _ in range(3):
         out = lane_round(out)
@@ -472,8 +492,9 @@ def split_redc(cols: torch.Tensor) -> torch.Tensor:
 
 
 def split_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A multiply as the kernel's group runs it: fq_mul_plain's integers."""
-    return split_redc(split_columns(split_narrow(a), split_narrow(b)))
+    """A multiply as the kernel's group runs it (the columns straight into
+    the REDC in registers): fq_mul_plain's integers."""
+    return split_redc(split_columns(split_narrow(a), split_narrow(b)), "registers")
 
 
 def split_bilinear(av: torch.Tensor, bv: torch.Tensor, tables: F.Bilinear) -> torch.Tensor:
@@ -483,7 +504,7 @@ def split_bilinear(av: torch.Tensor, bv: torch.Tensor, tables: F.Bilinear) -> to
     alpha, beta, gamma = tables
     leaves = split_wide_norm(split_columns(split_narrow(alpha.apply(av)),
                                            split_narrow(beta.apply(bv))))
-    return split_redc(gamma.apply(leaves))
+    return split_redc(gamma.apply(leaves), "registers")
 
 
 # ---------------------------------------------------------------------------
@@ -501,10 +522,10 @@ tree_counter = _Counter()         # keyed (curve, lanes)
 ENTRY = {"groups": "g2_ladder", "threads": "miller_grouped"}
 GROUP_LANES_PER_SM = 8            # tree launches take groups up to this many lanes an SM
 # The final exponentiation's kernel, by measurement (tools/
-# point_program_probe.py, PERF.md section 6): on groups 2.36 ms at 16 and
-# 128 lanes against 2.81-2.89 on threads. A grouped pairing stays two
+# point_program_probe.py, PERF.md section 6): on groups 1.68-1.77 ms at 16
+# and 128 lanes against 2.26-2.36 on threads. A grouped pairing stays two
 # launches, the Miller loop's and this one: the two programs fused into one
-# took 4.58-4.84 ms against 4.13-4.32.
+# took 4.07-4.39 ms against 3.51-3.96.
 FINAL_EXP_MODE = "groups"
 _SMS: Dict[torch.device, int] = {}
 
@@ -521,7 +542,7 @@ def tree_mode(lanes: int, dev: torch.device) -> str:
     (latency), threads beyond (throughput), as the chain kernel chooses."""
     return "groups" if lanes <= GROUP_LANES_PER_SM * _sms(dev) else "threads"
 
-_HEADER = ("code", "consts", "n_bundles", "n_const", "nreg", "nflag", "nx", "ng",
+_HEADER = ("code", "consts", "n_records", "n_const", "nreg", "nflag", "nx", "ng",
            "n_digits", "slot_words", "threads_lane", "off_records", "off_ring0",
            "off_const_regs", "off_in0", "off_in1", "off_out", "in_rows0", "in_rows1",
            "out_rows", "lane_flag", "uniform_flag", "uniform_val", "out_flag",
@@ -593,7 +614,7 @@ def _launch(name: str, prog: FP.Program, dev: torch.device, n: int, ins,
            "digit_sign": 0 if digits is None else digits[1].data_ptr(),
            "stamps": 0 if stamps is None else stamps.data_ptr(),
            "in_rows0": prog.in_rows[0], "in_rows1": prog.in_rows[1]}
-    for k in ("n_bundles", "n_const", "nreg", "nflag", "nx", "ng", "n_digits",
+    for k in ("n_records", "n_const", "nreg", "nflag", "nx", "ng", "n_digits",
               "slot_words", "threads_lane", "out_rows", "lane_flag", "uniform_flag",
               "out_flag"):
         ptr[k] = getattr(prog, k)
@@ -658,12 +679,13 @@ PHASES = ("wait", "A", "B", "C", "D", "E", "barrier", "fetch")
 
 def bundle_clocks(fn, prog: FP.Program, dev):
     """Block 0's SM clock cycles in one launch (fn(stamps) launches it
-    with a stamp buffer): ([n_bundles] cycles of each bundle, [n_bundles,
-    8] its split: the wait for its record, phases A to E (each with its
-    barrier), the bundle's last barrier, the producer's fetch of the
-    record RING on). A measurement: the launch is counted by its wrapper
-    like any other."""
-    stamps = torch.zeros(prog.n_bundles * STAMPS + 1, dtype=torch.int64, device=dev)
+    with a stamp buffer): ([n_records] cycles of each record, a bundle or
+    a run (prog.records), [n_records, 8] its split: the wait for its
+    record, phases A to E (each with its barrier; a run is all phase B),
+    the record's last barrier, the producer's fetch of the record RING
+    on). A measurement: the launch is counted by its wrapper like any
+    other."""
+    stamps = torch.zeros(prog.n_records * STAMPS + 1, dtype=torch.int64, device=dev)
     fn(stamps)
     st = stamps.cpu().numpy()
     marks = st[:-1].reshape(-1, STAMPS)

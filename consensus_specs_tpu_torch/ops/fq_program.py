@@ -34,20 +34,22 @@ mutually independent ops changes no bit: a program computes what the
 recorded formulas compute, limb for limb.
 
 Compiling a recording: dead ops are dropped; every op goes to the first
-phase its inputs allow. A bundle runs five phases (csrc/fq_points.cu): A
-linear ops and the tower products' pre-sums, B schoolbooks, C gamma
-sums, D REDCs, E linear ops. So a multiply reads phase A's results of
-its own bundle, and the lazy add, sub, neg, select and load that follow
-a REDC run in phase E of the REDC's bundle instead of opening one of
-their own. No op goes earlier than the bundle of the op LOOKAHEAD ops
+phase its inputs allow. A bundle runs seven phases (csrc/fq_points.cu):
+A linear ops and the tower products' pre-sums, B schoolbooks, C gamma
+sums, D REDCs, E, E2 and E3 linear ops. So a multiply reads phase A's
+results of its own bundle, and a chain of up to three lazy add, sub,
+neg, select, load or norm ops that follow a REDC runs in the REDC's
+bundle instead of opening bundles of their own. No op goes earlier than the bundle of the op LOOKAHEAD ops
 before it (which bounds how far ahead loads and line coefficients run),
 nor into a bundle whose scratch is full. Rows and flags get registers by
 liveness over phases (lowest free first; a register is free again only
 after the phase of its last read). The program: one self-contained
 record per bundle (header, eight int32 words per op, each leaf's and
 each REDC's scratch row, the register lists of loads and products
-inline), the first records' places, the register maps and the constant
-rows.
+inline, the phase-E norms folded into the REDCs), or one run record per
+stretch of single-multiply bundles; the first records' places, the
+register maps and the constant rows. decode() reads the records back
+bundle by bundle, in the order the kernel runs them.
 """
 from __future__ import annotations
 
@@ -80,18 +82,35 @@ MAX_WIDE = 64                  # wide rows of one bundle
 
 # A bundle's phases, in order: A linear ops and the tower products'
 # pre-sums, B schoolbooks, C gamma sums, D REDCs, E linear ops that read
-# the bundle's own results. A phase time is NPH * bundle + phase.
-PH_A, PH_B, PH_C, PH_D, PH_E = range(5)
-NPH = 5
+# the bundle's own results, then E2 and E3: linear ops that read E's and
+# E2's. A phase time is NPH * bundle + phase.
+PH_A, PH_B, PH_C, PH_D, PH_E, PH_E2, PH_E3 = range(7)
+NPH = 7
+LINEAR_PHASES = {PH_A: "A", PH_E: "E", PH_E2: "E2", PH_E3: "E3"}
+LINEAR_CLASSES = {c: ph for ph, c in LINEAR_PHASES.items()}
 GROUP = 16                     # threads of one schoolbook or REDC (a half-warp)
 RING = 8                       # bundle records in flight in the kernel's ring
 # A record's header, HDR int32 words: its length in words (a multiple of
 # 4), the counts (linear ops in A, multiplies, tower products, linear ops
-# in E, leaves, product outputs), then the place of the record RING on
-# (offset and words in the records section; 0 words at the end).
-HDR = 12
+# in E, leaves, product outputs), the place of the record RING on (offset
+# and words in the records section; 0 words at the end), 1 for a run
+# record, where its fold table lies (0: none), and the counts of linear
+# ops in E2 and E3 (their op words follow E's). A phase-E norm of a
+# product output can be folded into the REDC that makes the output (write
+# in phase D): it leaves phase E's op words, and the fold table holds, per
+# product output, the norm's register plus one (0: none), then the norm's
+# place among the phase's ops as scheduled (-1: none), which decode puts
+# it back at.
+HDR = 16
 REC_WORDS, REC_NEXT_OFF, REC_NEXT_WORDS = 0, 7, 8
-
+REC_RUN, REC_FOLD_TAB, REC_E2, REC_E3 = 9, 10, 11, 12
+# A run record packs up to RUN_MAX consecutive bundles that each hold one
+# `mul` and nothing else (the Fq inversion's window): the multiplies' op
+# words in order, run one after another (each may read the one before) on
+# one 16-thread group a lane (or one thread), from operands to stored
+# result, with no barrier and no record between them. Header: the
+# multiplies' count in place of the multiplies', REC_RUN 1.
+RUN_MAX = 48
 
 # ---------------------------------------------------------------------------
 # Symbolic values
@@ -544,22 +563,28 @@ class Program:
     words), then the register maps (constants, inputs 0 and 1, outputs);
     `consts` [n_const, 14] int64 the constant rows. `bundles` [nb, 4]:
     each bundle's linear ops in phase A, multiplies, tower products and
-    linear ops in phase E. `ops`, `op_bundle`, `op_phase` and `reg` are
+    linear ops in phases E to E3. `ops`, `op_bundle`, `op_phase` and `reg` are
     the compiled schedule (ops with value ids, each op's bundle and phase
     class, value -> register), which decode() gives back from `code`;
     `staged` the values written before the first bundle (inputs,
-    constants, flags), `roots` the output values. `slot_words` is the
-    largest record, `threads_lane` the threads a lane's widest phase asks
-    for with 16-thread groups."""
+    constants, flags), `roots` the output values. The kernel runs
+    `n_records` records: one a bundle, or one a run of up to RUN_MAX
+    single-multiply bundles (`records` [n_records, 5]: the counts of
+    `bundles` summed, and 1 for a run). `slot_words` is the largest
+    record, `threads_lane` the threads a lane's widest phase asks for with
+    16-thread groups."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
 
     def describe(self) -> dict:
         """Counts of the compiled program (ops by class, bundles by what
-        they hold, registers, scratch rows, record sizes)."""
+        they hold, records and runs, folded norms, registers, scratch rows,
+        record sizes)."""
         b = self.bundles
-        return {"ops": self.n_ops, "bundles": self.n_bundles,
+        return {"ops": self.n_ops, "bundles": self.n_bundles, "records": self.n_records,
+                "runs": int((self.records[:, 4] > 0).sum()),
+                "run_bundles": int(self.records[:, 4].sum()), "folded_norms": self.n_folded,
                 "product_bundles": self.product_bundles,
                 "linear_only": int(((b[:, 1] + b[:, 2]) == 0).sum()),
                 "phase_e_bundles": int(((b[:, 3] > 0) & ((b[:, 1] + b[:, 2]) > 0)).sum()),
@@ -587,9 +612,11 @@ def _class_of(name: str) -> str:
 
 
 def _schedule(ops: List[tuple]) -> Tuple[List[int], List[str]]:
-    """Each op's bundle and phase class ("A", "M", "P", "E"), as early as
-    its inputs allow: phase times t = NPH * bundle + phase; a linear op
-    runs in phase A or E after its inputs' writes, a multiply reads in B
+    """Each op's bundle and phase class ("A", "M", "P", "E", "E2", "E3"),
+    as early as its inputs allow: phase times t = NPH * bundle + phase; a
+    linear op runs in phase A, E, E2 or E3 after its inputs' writes (so a
+    chain of up to three linear ops after a REDC stays in its bundle), a
+    multiply reads in B
     (so a phase-A result feeds it in the same bundle), a tower product's
     pre-sums read in A (its inputs come from an earlier bundle); products
     write in D. No op is placed before the bundle of the op LOOKAHEAD
@@ -605,9 +632,9 @@ def _schedule(ops: List[tuple]) -> Tuple[List[int], List[str]]:
         cls = _class_of(name)
         if cls == "L":
             t = max(r + 1, NPH * lo)
-            if t % NPH not in (PH_A, PH_E):
+            if t % NPH not in LINEAR_PHASES:
                 t += PH_E - t % NPH
-            b, ph, done = t // NPH, "A" if t % NPH == PH_A else "E", t
+            b, ph, done = t // NPH, LINEAR_PHASES[t % NPH], t
         else:
             if cls == "P":
                 tab = T.TABLES[aux]
@@ -632,8 +659,8 @@ def _schedule(ops: List[tuple]) -> Tuple[List[int], List[str]]:
 def _times(name: str, b: int, ph: str, nsrc: int):
     """(write time, read time of each source) of an op in bundle b."""
     base = NPH * b
-    if ph in ("A", "E"):
-        t = base + (PH_A if ph == "A" else PH_E)
+    if ph in LINEAR_CLASSES:
+        t = base + LINEAR_CLASSES[ph]
         return t, [t] * nsrc
     if ph == "P":
         return base + PH_D, [base + PH_A] * nsrc
@@ -641,6 +668,42 @@ def _times(name: str, b: int, ph: str, nsrc: int):
     if name == "isz":          # the q and -q patterns are compared in D
         reads[2:] = [base + PH_D] * (nsrc - 2)
     return base + PH_D, reads
+
+
+def _linear_word(op, reg: Dict[int, int], pool: List[int], at_pool: int) -> List[int]:
+    """A linear op's WORDS int32 words; a load's row list goes to `pool`,
+    which starts at word `at_pool` of its record."""
+    name, dsts, srcs, aux = op
+    s = [reg[v] for v in srcs]
+    w = [0] * WORDS
+    w[0], w[1] = LINEAR[name], reg[dsts[0]]
+    if name == "load":
+        w[4], w[5], w[6] = len(s), aux, at_pool + len(pool)
+        pool.extend(s)
+    elif name == "sgn":
+        w[5] = aux
+    elif name == "sel":
+        w[4], w[2], w[3] = s
+    else:
+        w[2:2 + len(s)] = s
+    return w
+
+
+def _multiply_word(op, reg: Dict[int, int], wide: int) -> List[int]:
+    name, dsts, srcs, _ = op
+    w = [0] * WORDS
+    w[0], w[1] = MULTIPLY[name], reg[dsts[0]]
+    w[2:2 + len(srcs)] = [reg[v] for v in srcs]     # isz: a, one, q, -q
+    w[6] = wide
+    return w
+
+
+def _run_record(ops, reg: Dict[int, int], muls: List[int]) -> List[int]:
+    """A run record of the multiplies `muls` (op indices), in order."""
+    body = [x for i in muls for x in _multiply_word(ops[i], reg, 0)]
+    head = [0] * HDR
+    head[0], head[2], head[REC_RUN] = HDR + len(body), len(muls), 1
+    return head + body
 
 
 def _compile(rec: Recorder, outs: List[int], out_flag: Optional[int],
@@ -670,6 +733,8 @@ def _compile(rec: Recorder, outs: List[int], out_flag: Optional[int],
     count = {"r": 0, "f": 0}
     reg: Dict[int, int] = {}
     busy: List[Tuple[int, int]] = []       # (last read, value)
+    holder_last: Dict[Tuple[str, int], int] = {}   # a register's latest value's last read
+    prev_last: Dict[int, int] = {}         # value -> its register's previous value's last read
 
     def release_before(t: int) -> None:
         while busy and busy[0][0] < t:
@@ -684,6 +749,8 @@ def _compile(rec: Recorder, outs: List[int], out_flag: Optional[int],
             r = count[kind]
             count[kind] += 1
         reg[v] = r
+        prev_last[v] = holder_last.get((kind, r), -1)
+        holder_last[(kind, r)] = last.get(v, t)
         heapq.heappush(busy, (last.get(v, t), v))
 
     const_rows = [(v, a) for v, a in rec.const_rows if v in used]
@@ -699,49 +766,45 @@ def _compile(rec: Recorder, outs: List[int], out_flag: Optional[int],
             alloc(d, t)
 
     # -- records -----------------------------------------------------------------
-    by_bundle: List[Dict[str, List[int]]] = [{"A": [], "M": [], "P": [], "E": []}
-                                            for _ in range(n_bundles)]
+    by_bundle: List[Dict[str, List[int]]] = [
+        {k: [] for k in ("A", "M", "P", "E", "E2", "E3")} for _ in range(n_bundles)]
     for i, (b, ph) in enumerate(zip(op_bundle, op_phase)):
         by_bundle[b][ph].append(i)
-    records, rows = [], []
+    records, rows, run_of = [], [], []
     nx = ng = 0
+    n_fold = 0
     threads_lane = 1
     n_mul = n_bil = n_lin = n_leaves = n_redc = 0
     for members in by_bundle:
-        lin_a, mul, bil, lin_e = (members[k] for k in ("A", "M", "P", "E"))
+        lin_a, mul, bil, lin_e, lin_e2, lin_e3 = (members[k] for k in
+                                                  ("A", "M", "P", "E", "E2", "E3"))
         tabs = [T.TABLES[ops[i][3]] for i in bil]
+        # phase E's norms of a product output of this bundle, run by the
+        # REDC that makes their input (write at D) where their register's
+        # previous value is last read before D
+        slot_of = {d: k for k, d in enumerate(d for i in bil for d in ops[i][1])}
+        fold: Dict[int, int] = {}          # E op -> output slot
+        d_time = NPH * op_bundle[lin_e[0]] + PH_D if lin_e else 0
+        for i in lin_e:
+            name, dsts, srcs, _ = ops[i]
+            k = slot_of.get(srcs[0], -1) if name == "norm" else -1
+            if k >= 0 and k not in fold.values() and prev_last[dsts[0]] < d_time:
+                fold[i] = k
+        live_e = [i for i in lin_e if i not in fold]
         n_leaf = sum(t.P for t in tabs)
         n_out = sum(t.R for t in tabs)
-        n_words = len(lin_a) + len(mul) + len(bil) + len(lin_e)
+        n_words = len(lin_a) + len(mul) + len(bil) + len(live_e) + len(lin_e2) + len(lin_e3)
         at_pool = HDR + WORDS * n_words + n_leaf + n_out
         words, leaf_tab, out_tab, pool = [], [], [], []
 
         def linear_word(i):
-            name, dsts, srcs, aux = ops[i]
-            s = [reg[v] for v in srcs]
-            w = [0] * WORDS
-            w[0], w[1] = LINEAR[name], reg[dsts[0]]
-            if name == "load":
-                w[4], w[5], w[6] = len(s), aux, at_pool + len(pool)
-                pool.extend(s)
-            elif name == "sgn":
-                w[5] = aux
-            elif name == "sel":
-                w[4], w[2], w[3] = s
-            else:
-                w[2:2 + len(s)] = s
-            return w
+            return _linear_word(ops[i], reg, pool, at_pool)
 
         words += [linear_word(i) for i in lin_a]
         g_off = x_off = 0
         for i in mul:
-            name, dsts, srcs, _ = ops[i]
-            w = [0] * WORDS
-            w[0], w[1] = MULTIPLY[name], reg[dsts[0]]
-            w[2:2 + len(srcs)] = [reg[v] for v in srcs]     # isz: a, one, q, -q
-            w[6] = g_off
+            words.append(_multiply_word(ops[i], reg, g_off))
             g_off += 1
-            words.append(w)
         for i, t in zip(bil, tabs):
             _, dsts, srcs, aux = ops[i]
             w = [0] * WORDS
@@ -752,23 +815,50 @@ def _compile(rec: Recorder, outs: List[int], out_flag: Optional[int],
             x_off += t.P
             g_off += t.R
             words.append(w)
-        words += [linear_word(i) for i in lin_e]
+        words += [linear_word(i) for i in live_e + lin_e2 + lin_e3]
         body = [x for w in words for x in w] + leaf_tab + out_tab + pool
-        size = -(-(HDR + len(body)) // 4) * 4
         head = [0] * HDR
-        head[1:7] = [len(lin_a), len(mul), len(bil), len(lin_e), n_leaf, n_out]
+        head[1:7] = [len(lin_a), len(mul), len(bil), len(live_e), n_leaf, n_out]
+        head[REC_E2], head[REC_E3] = len(lin_e2), len(lin_e3)
+        if fold:
+            folded, place = [0] * n_out, [-1] * n_out
+            for i, k in fold.items():
+                folded[k], place[k] = reg[ops[i][1][0]] + 1, lin_e.index(i)
+            head[REC_FOLD_TAB] = HDR + len(body)
+            body += folded + place
+            n_fold += len(fold)
+        size = -(-(HDR + len(body)) // 4) * 4
         head[0] = size
         records.append(head + body + [0] * (size - HDR - len(body)))
-        rows.append([len(lin_a), len(mul), len(bil), len(lin_e)])
+        n_late = len(lin_e) + len(lin_e2) + len(lin_e3)
+        rows.append([len(lin_a), len(mul), len(bil), n_late])
+        run_of.append(mul[0] if len(mul) == 1 and len(words) == 1
+                      and ops[mul[0]][0] == "mul" else None)
         nx, ng = max(nx, x_off), max(ng, g_off)
         threads_lane = max(threads_lane, len(lin_a) + 2 * L * len(bil),
                            GROUP * (len(mul) + n_leaf), GROUP * (len(mul) + n_out),
-                           len(lin_e))
+                           len(lin_e), len(lin_e2), len(lin_e3))
         n_mul += len(mul)
         n_bil += len(bil)
-        n_lin += len(lin_a) + len(lin_e)
+        n_lin += len(lin_a) + n_late
         n_leaves += n_leaf
         n_redc += n_out
+    # stretches of consecutive single-multiply bundles into run records
+    packed, record_rows = [], []
+    b = 0
+    while b < len(records):
+        e = b
+        while e < len(records) and run_of[e] is not None and e - b < RUN_MAX:
+            e += 1
+        if e - b < 2:
+            packed.append(records[b])
+            record_rows.append(rows[b] + [0])
+            b += 1
+            continue
+        packed.append(_run_record(ops, reg, run_of[b:e]))
+        record_rows.append([0, e - b, 0, 0, e - b])
+        b = e
+    records = packed
     starts = np.cumsum([0] + [len(r) for r in records])
     for b, r in enumerate(records):        # where the record RING on lies
         if b + RING < len(records):
@@ -803,9 +893,11 @@ def _compile(rec: Recorder, outs: List[int], out_flag: Optional[int],
         out_rows=len(outs), lane_flag=reg.get(rec.lane_flag, -1),
         uniform_flag=reg.get(rec.uniform_flag, -1),
         out_flag=-1 if out_flag is None else reg[out_flag], n_digits=n_digits,
+        n_records=len(records), records=np.asarray(record_rows, np.int64).reshape(-1, 5),
         slot_words=max([len(r) for r in records] + [4]), threads_lane=threads_lane,
         product_bundles=int(((bundles[:, 1] + bundles[:, 2]) > 0).sum()),
         n_mul=n_mul, n_bil=n_bil, n_lin=n_lin, n_leaves=n_leaves, n_redc=n_redc,
+        n_folded=n_fold,
         bundles=bundles, ops=ops, op_bundle=op_bundle, op_phase=op_phase, reg=reg,
         staged=pre, roots=roots, vkind=list(rec.vkind))
 
@@ -819,42 +911,59 @@ def b_rows(t: F.Bilinear) -> int:
     return t.Cb + int(t.one_col)
 
 
+def _decode_linear(w, rec) -> tuple:
+    name = _NAME_OF[int(w[0])]
+    if name == "load":
+        return name, (int(w[1]),), tuple(int(x) for x in rec[w[6]:w[6] + w[4]]), int(w[5])
+    if name == "sgn":
+        return name, (int(w[1]),), (), int(w[5])
+    if name == "sel":
+        return name, (int(w[1]),), (int(w[4]), int(w[2]), int(w[3])), None
+    n = 1 if name in ("neg", "norm", "fnot") else 2
+    return name, (int(w[1]),), tuple(int(x) for x in w[2:2 + n]), None
+
+
+def _decode_multiply(w) -> tuple:
+    name = _NAME_OF[int(w[0])]
+    n = 4 if name == "isz" else 2
+    return name, (int(w[1]),), tuple(int(x) for x in w[2:2 + n]), None
+
+
 def decode(prog: Program) -> List[Dict[str, list]]:
     """The program's records read back from `code`: per bundle {"A",
-    "M", "P", "E": [(name, dst registers, source registers, aux)]} in
+    "M", "P", "E", "E2", "E3": [(name, dst registers, source registers,
+    aux)]} in
     record order (aux: a load's or sgn's digit, a product's kind, else
-    None), "leaf_rows" (each leaf's scratch row) and "wide_rows" (each
+    None), "leaf_rows" (each leaf's scratch row), "wide_rows" (each
     REDC's wide scratch row: the multiplies', then the products'
-    outputs')."""
+    outputs') and "run" (the bundle's multiply is one of a run record's,
+    which the kernel runs in this order, each after the one before)."""
     code = prog.code
     at = prog.offsets["records"]
     out = []
-    for _ in range(prog.n_bundles):
+    for _ in range(prog.n_records):
         rec = code[at:at + int(code[at + REC_WORDS])]
         n_a, n_m, n_p, n_e, n_leaf, n_out = (int(x) for x in rec[1:7])
-        words = rec[HDR:HDR + WORDS * (n_a + n_m + n_p + n_e)].reshape(-1, WORDS)
+        if rec[REC_RUN]:
+            for w in rec[HDR:HDR + WORDS * n_m].reshape(-1, WORDS):
+                out.append({"A": [], "M": [_decode_multiply(w)], "P": [], "E": [], "E2": [],
+                            "E3": [], "leaf_rows": [], "wide_rows": [int(w[6])], "run": True})
+            at += len(rec)
+            continue
+        n_e2, n_e3 = int(rec[REC_E2]), int(rec[REC_E3])
+        words = rec[HDR:HDR + WORDS * (n_a + n_m + n_p + n_e + n_e2 + n_e3)].reshape(-1, WORDS)
         tabs_at = HDR + WORDS * len(words)
         leaf_tab = [int(x) for x in rec[tabs_at:tabs_at + n_leaf]]
         out_tab = [int(x) for x in rec[tabs_at + n_leaf:tabs_at + n_leaf + n_out]]
 
-        def linear(w):
-            name = _NAME_OF[int(w[0])]
-            if name == "load":
-                return name, (int(w[1]),), tuple(int(x) for x in rec[w[6]:w[6] + w[4]]), int(w[5])
-            if name == "sgn":
-                return name, (int(w[1]),), (), int(w[5])
-            if name == "sel":
-                return name, (int(w[1]),), (int(w[4]), int(w[2]), int(w[3])), None
-            n = 1 if name in ("neg", "norm", "fnot") else 2
-            return name, (int(w[1]),), tuple(int(x) for x in w[2:2 + n]), None
-
-        b = {"A": [linear(w) for w in words[:n_a]], "M": [], "P": [],
-             "E": [linear(w) for w in words[n_a + n_m + n_p:]],
-             "leaf_rows": leaf_tab, "wide_rows": []}
+        at_e = n_a + n_m + n_p
+        b = {"A": [_decode_linear(w, rec) for w in words[:n_a]], "M": [], "P": [],
+             "E": [_decode_linear(w, rec) for w in words[at_e:at_e + n_e]],
+             "E2": [_decode_linear(w, rec) for w in words[at_e + n_e:at_e + n_e + n_e2]],
+             "E3": [_decode_linear(w, rec) for w in words[at_e + n_e + n_e2:]],
+             "leaf_rows": leaf_tab, "wide_rows": [], "run": False}
         for w in words[n_a:n_a + n_m]:
-            name = _NAME_OF[int(w[0])]
-            n = 4 if name == "isz" else 2
-            b["M"].append((name, (int(w[1]),), tuple(int(x) for x in w[2:2 + n]), None))
+            b["M"].append(_decode_multiply(w))
             b["wide_rows"].append(int(w[6]))
         for w in words[n_a + n_m:n_a + n_m + n_p]:
             kind = int(w[0]) - BIL
@@ -865,6 +974,13 @@ def decode(prog: Program) -> List[Dict[str, list]]:
         b["wide_rows"] += [e >> 16 for e in out_tab]
         if [e & 0xFFFF for e in out_tab] != [d for op in b["P"] for d in op[1]]:
             raise ValueError("a record's REDC table disagrees with its products")
+        if rec[REC_FOLD_TAB]:
+            at_fold = int(rec[REC_FOLD_TAB])
+            folded = rec[at_fold:at_fold + n_out]
+            place = rec[at_fold + n_out:at_fold + 2 * n_out]
+            for k in sorted(np.nonzero(folded)[0], key=lambda k: place[k]):
+                b["E"].insert(int(place[k]), ("norm", (int(folded[k]) - 1,),
+                                              (int(out_tab[k] & 0xFFFF),), None))
         out.append(b)
         at += len(rec)
     return out
@@ -880,7 +996,8 @@ _FLUSH = 0
 def _plain_plan(prog: Program, dev: torch.device) -> list:
     """The program's decoded bundles as batched steps of
     run_program_plain, with their index tensors on `dev` (made once per
-    program and device): phase A's linear ops, the products, phase E's."""
+    program and device): phase A's linear ops, the products, phases E,
+    E2 and E3's."""
     plans = prog.__dict__.setdefault("_plans", {})
     plan = plans.get(dev)
     if plan is not None:
@@ -926,7 +1043,8 @@ def _plain_plan(prog: Program, dev: torch.device) -> list:
                                ix(rows[:, n_in:])))
             steps.append((MUL, ix(a), ix(bb), ix(np.nonzero(~isz)[0]),
                           ix(np.nonzero(isz)[0]), ix(d[~isz]), ix(d[isz]), groups))
-        steps += linear_steps(b["E"]) + [(_FLUSH,)]
+        for ph in ("E", "E2", "E3"):
+            steps += linear_steps(b[ph]) + [(_FLUSH,)]
         plan.append(steps)
     plans[dev] = plan
     return plan
@@ -939,8 +1057,12 @@ def run_program_plain(prog: Program, in0: torch.Tensor,
                       digits: Optional[Tuple[np.ndarray, np.ndarray]] = None):
     """The program on torch tensors over ops/fq.py's plain functions, a
     bundle at a time in the kernel's phase order (phase A's linear ops,
-    the products, phase E's linear ops; each class of op batched over the
-    bundle's ops): in0 [n, rows0, 14] (in1 [n, rows1, 14]) int64 limbs,
+    the products, phases E, E2 and E3's linear ops; each class of op
+    batched over the bundle's ops; a run's bundles one after another, as
+    the kernel runs them; a norm the kernel folds into phase D here in
+    phase E, where decode puts it: the same value into the same register,
+    which nothing reads in between): in0 [n, rows0, 14] (in1 [n, rows1,
+    14]) int64 limbs,
     lane_flag [n] bool, uniform_flag a bool, digits (idx, sign) host int
     arrays -> (out [n, out_rows, 14], out_flag [n] bool or None). The
     kernel's plain twin: the tests and the card's checks hold it against

@@ -13,10 +13,16 @@ line multiply and the cyclotomic squaring -- is one bilinear product
 (3, 54, 36, 39 and 30 leaves), every leaf is a double-width multiply with
 one wide carry round, the gamma table recombines the wide columns, and
 ONE REDC reduces each output coefficient (2 or 12). On the card that is
-one kernel launch. The two loops that run nothing but such products,
-the exponentiation by a static exponent and the Miller loop's f-update,
-are one chain launch each (`fq12_pow_abs`, `fq12_sqr_mul_lines`,
-`fq12_mul_lines`; the programs `pow_abs_program` / `lines_program`).
+one kernel launch. A loop that runs nothing but such products is one
+chain launch of the same kernel when a Tower runs it on CUDA tensors:
+the exponentiation by a static exponent and the Miller loop's f-update
+(`fq12_pow_abs`, `fq12_sqr_mul_lines`, `fq12_mul_lines`; the programs
+`pow_abs_program` / `lines_program`), and the Fq2 square root's fixed
+power (`fq2_pow_program`, `fq2_pow_static`). The BLS path runs the first
+two inside whole-loop programs instead: bls_torch's grouped Miller loop
+and final exponentiation on CUDA tensors under DEVICE are one launch
+each of the point kernels (ops/fq_points.py: miller_grouped_kernel, and
+final_exp_program with pow_abs's steps recorded in it).
 The tables come from running the tower's Karatsuba structure
 symbolically (`_SymTower`), as in the reference, and are held
 equal to its arrays (or, for Fq2 and the cyclotomic squaring, to its

@@ -74,14 +74,16 @@ def test_split_mul_is_fq_mul_plain_and_the_reference():
     assert (convert.limbs_to_numpy(got) == np.asarray(JF.fq_mul(a, b))).all()
 
 
-@pytest.mark.parametrize("what", ["budget", "raw"])
+@pytest.mark.parametrize("what", ["budget", "raw", "budget registers", "raw registers"])
 def test_split_redc_is_fq_redc_plain(what):
-    """The group's REDC (digits one by one from the low columns, each
-    lane's high column updated on its own) == fq_redc_plain: REDC columns
-    at their budget, and raw schoolbook columns."""
+    """The group's REDC == fq_redc_plain, on REDC columns at their budget
+    and on raw schoolbook columns: every lane making the digits one by one
+    from the low columns, each lane's high column updated on its own; and
+    ("registers", the kernels' group_redc_regs) each digit's column
+    broadcast from its lane, each lane updating both its columns."""
     rng = np.random.default_rng(0x5A3)
     n = 200
-    if what == "budget":
+    if what.startswith("budget"):
         cols = rng.integers(-(TF.WIDE_COL_BUDGET) + 1, TF.WIDE_COL_BUDGET, (n, 2 * TF.L))
         cols[:, -1] = rng.integers(-(TF.WIDE_TOP_SPILL) + 1, TF.WIDE_TOP_SPILL, n)
         cols[0] = 0
@@ -92,7 +94,8 @@ def test_split_redc_is_fq_redc_plain(what):
         cols = rng.integers(0, TF.WIDE_COL_RAW, (n, 2 * TF.L))
         cols[:, -1] = 0
         cols[0, :-1] = TF.WIDE_COL_RAW - 1
-    assert torch.equal(FPt.split_redc(_t(cols)), TF.fq_redc_plain(_t(cols)))
+    route = "registers" if what.endswith("registers") else "triangle"
+    assert torch.equal(FPt.split_redc(_t(cols), route), TF.fq_redc_plain(_t(cols)))
 
 
 def test_split_wide_norm_is_fq_wide_norm():
@@ -119,3 +122,4 @@ def test_split_bilinear_is_fq_bilinear_plain(tables):
     alpha, beta, gamma = tables
     cols = gamma.apply(TF.fq_wide_norm(TF.fq_mul_wide(alpha.apply(av), beta.apply(bv))))
     assert torch.equal(FPt.split_redc(cols), want)
+    assert torch.equal(FPt.split_redc(cols, "registers"), want)

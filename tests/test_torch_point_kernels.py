@@ -3,8 +3,10 @@
 kernels are csrc/fq_points.cu: each program's plain run equals the port's
 Python loop bit for bit, its recorded ops are the JAX package's loops'
 ops in order, its packed bundle records decode to the compiled ops and run
-them in an order where every read finds its value, and bls_torch routes to
-the kernels only for CUDA tensors under fq_tower.DEVICE.
+them in an order where every read finds its value (the final
+exponentiation's and a tree's records too: runs of single multiplies,
+norms folded into the REDCs), and bls_torch routes to the kernels only for
+CUDA tensors under fq_tower.DEVICE.
 
 Values: points are multiples of the generators by seeded scalars, and
 hash-to-G2 candidates; the ladder's special cases use a point of order 13
@@ -267,15 +269,37 @@ def test_programs_are_built_once_and_fit_a_block():
     assert FPt.miller_program(3).in_rows == (6, 12)
 
 
+def _folded_norms(prog):
+    """{bundle: registers of the phase-E norms its REDCs run}, read from
+    the records' fold tables (a run record stands for its bundles)."""
+    code, at, b, out = prog.code, prog.offsets["records"], 0, {}
+    for _ in range(prog.n_records):
+        head = code[at:at + FP.HDR]
+        if head[FP.REC_RUN]:
+            b += int(head[2])
+        else:
+            if head[FP.REC_FOLD_TAB]:
+                tab = code[at + head[FP.REC_FOLD_TAB]:at + head[FP.REC_FOLD_TAB] + head[6]]
+                out[b] = [int(x) - 1 for x in tab if x]
+            b += 1
+        at += int(head[FP.REC_WORDS])
+    assert b == prog.n_bundles
+    return out
+
+
 def _walk_records(prog):
     """Decode the packed records and walk them in the kernel's phase order
     (A: linear ops and pre-sums read, linear ops write; B: multiplies
-    read; D: is_zero's patterns read, products write; E: linear ops read
-    and write), checking that decoding gives back the compiled op list,
-    that each read finds the value the compiled op reads (so it was
-    written in an earlier phase or bundle and not overwritten since), that
-    no phase writes a register it reads or writes one twice, and that the
-    outputs end where the program says."""
+    read; D: is_zero's patterns read, products write; E, E2, E3: linear
+    ops read and write; a run's bundles one after another), checking that
+    decoding
+    gives back the compiled op list, that each read finds the value the
+    compiled op reads (so it was written in an earlier phase or bundle and
+    not overwritten since), that no phase writes a register it reads or
+    writes one twice, that a norm the kernel runs in phase D (folded)
+    overwrites no value that phase D or E of its bundle still reads, and
+    that the outputs end where the program says."""
+    folded = _folded_norms(prog)
     decoded = FP.decode(prog)
     assert len(decoded) == prog.n_bundles
     kind, reg = prog.vkind, prog.reg
@@ -290,18 +314,24 @@ def _walk_records(prog):
                 aux if name in ("load", "sgn", "bil") else None)
 
     for b, rec in enumerate(decoded):
-        ops = {ph: members.get((b, ph), []) for ph in ("A", "M", "P", "E")}
+        ops = {ph: members.get((b, ph), []) for ph in ("A", "M", "P", "E", "E2", "E3")}
         for ph in ops:
             assert rec[ph] == [mapped(i) for i in ops[ph]], (b, ph)
         leaves, wide = rec["leaf_rows"], rec["wide_rows"]
         assert len(set(leaves)) == len(leaves) and max(leaves + [-1]) < prog.nx
         assert len(set(wide)) == len(wide) and max(wide + [-1]) < prog.ng
         isz = [i for i in ops["M"] if prog.ops[i][0] == "isz"]
+        late = {v for i in isz for v in prog.ops[i][2][2:]} | {
+            v for ph in ("E", "E2", "E3") for i in ops[ph] for v in prog.ops[i][2]}
+        for r in folded.get(b, []):
+            assert holds.get(("r", r)) not in late, (b, r)
         phases = (
             ([(i, s) for i in ops["A"] + ops["P"] for s in prog.ops[i][2]], ops["A"]),
             ([(i, s) for i in ops["M"] for s in prog.ops[i][2][:2]], []),
             ([(i, s) for i in isz for s in prog.ops[i][2][2:]], ops["M"] + ops["P"]),
-            ([(i, s) for i in ops["E"] for s in prog.ops[i][2]], ops["E"]))
+            ([(i, s) for i in ops["E"] for s in prog.ops[i][2]], ops["E"]),
+            ([(i, s) for i in ops["E2"] for s in prog.ops[i][2]], ops["E2"]),
+            ([(i, s) for i in ops["E3"] for s in prog.ops[i][2]], ops["E3"]))
         for reads, writers in phases:
             read_keys = set()
             for i, v in reads:
@@ -320,21 +350,32 @@ def _walk_records(prog):
         assert holds[("f", prog.out_flag)] == prog.roots[-1]
 
 
-@pytest.mark.parametrize("which", ["ladder 509", "ladder 256", "miller 2", "miller 3"])
+@pytest.mark.parametrize("which", ["ladder 509", "ladder 256", "miller 2", "miller 3",
+                                   "final_exp 0", "tree 3"])
 def test_packed_records_hold_the_schedule(which):
-    """The packed records of the four programs of the main path decode to
-    the compiled ops and run them in an order where every operand is
-    written before it is read and no register is overwritten while a later
-    reader needs it (_walk_records). The ladder folds its linear ops into
-    the bundles of the products that feed them: 4,651 bundles at 509 bits
-    and 4,619 at the cofactor's width, against 8,819 and 8,755 before
-    phase E."""
+    """The packed records of the programs of the main path (the ladders,
+    the Miller loops, the final exponentiation with its norms folded into
+    the REDCs and its inversion's runs, a G2 tree launch with
+    jac_to_affine) decode to the compiled ops and run them in an order
+    where every operand is written before it is read and no register is
+    overwritten while a later reader needs it (_walk_records). The ladder
+    folds its linear ops into the bundles of the products that feed them,
+    up to three deep (phases E, E2, E3): 3,352 bundles at 509 bits and
+    3,330 at the cofactor's width, against 4,651 and 4,619 with phase E
+    alone and 8,819 and 8,755 before phase E."""
     what, n = which.split()
-    prog = FPt.ladder_program(int(n), 4) if what == "ladder" else FPt.miller_program(int(n))
+    prog = {"ladder": lambda: FPt.ladder_program(int(n), 4),
+            "miller": lambda: FPt.miller_program(int(n)),
+            "final_exp": FPt.final_exp_program,
+            "tree": lambda: FPt.tree_program("g2", int(n), True)}[what]()
     _walk_records(prog)
+    if what in ("final_exp", "tree"):
+        assert prog.records[:, 4].sum() > 400 and prog.n_records < prog.n_bundles
+    if what == "final_exp":
+        assert prog.n_folded == 3762 and _folded_norms(prog)
     if which == "ladder 509":
-        assert prog.n_bundles == 4651 < 8819
-        assert FPt.ladder_program(BT._G2_COFACTOR_NBITS, 4).n_bundles == 4619 < 8755
+        assert prog.n_bundles == 3352 < 4651
+        assert FPt.ladder_program(BT._G2_COFACTOR_NBITS, 4).n_bundles == 3330 < 4619
 
 
 # ---------------------------------------------------------------------------
